@@ -1,0 +1,15 @@
+"""slowtv_monodepth_tpu_torch: the PyTorch + CUDA port of slowtv_monodepth_tpu.
+
+The JAX package `slowtv_monodepth_tpu` stays the reference; this package
+mirrors its layout (`ops/`, `models/encoders/`, `models/decoders/`, `core/`)
+and is held against it by the `tests/test_torch_*.py` differentials. It
+imports torch and numpy only, never JAX.
+
+Ported so far: the serving path of the KBR depth model (ConvNeXt encoder +
+Monodepth decoder -> `core.BenchmarkPredictor` -> `quickstart`). Each TPU
+kernel on that path has a hand-written Hopper kernel in `csrc/`, built with
+nvcc at first use (`_build.py`): `ops.depthwise_conv` and
+`ops.decoder_stage`. On a CUDA tensor they launch the kernel; on a CPU
+tensor they run their plain PyTorch version.
+"""
+__version__ = '0.1.0'

@@ -1,0 +1,115 @@
+"""The port's hand-written kernels on the card (marker `cuda`).
+
+Without a CUDA card every test here skips. On a card they build the
+kernels and hold each against its plain PyTorch version, and the whole
+`DepthNet` against its plain path. This file imports no JAX, so it also
+runs where JAX is not installed:
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
+
+Reference: the plain version run in float64 on the card (cuDNN may pick
+FFT or Winograd algorithms, whose float32 error is larger than a direct
+sum's). Tolerance: 1e-5 times the larger of 1 and the reference's largest
+magnitude, for the float32 kernels' sums taken in another order. Weights
+are fan-in scaled, as a trained net's are, so the sigmoid sees O(1) inputs.
+"""
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+ATOL = 1e-5
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    cudnn, matmul = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    yield torch.device('cuda')
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = cudnn, matmul
+
+
+def _close(got, want) -> bool:
+    return (got - want).abs().max().item() <= ATOL * max(1.0, want.abs().max().item())
+
+
+def _f64(*ts):
+    return [t.double() for t in ts]
+
+
+def _rand(rs, *shape, scale=1.0):
+    return torch.from_numpy((scale * rs.standard_normal(shape)).astype(np.float32)).cuda()
+
+
+@pytest.mark.parametrize('b,h,w,c,k', [(2, 16, 24, 96, 7), (1, 9, 13, 45, 3),
+                                       (2, 24, 40, 160, 5), (1, 17, 33, 70, 9)])
+def test_dwconv_kernel_matches_plain(card, b, h, w, c, k):
+    from slowtv_monodepth_tpu_torch.ops import dwconv
+    rs = np.random.RandomState(0)
+    x, wt, bias = _rand(rs, b, h, w, c), _rand(rs, c, 1, k, k, scale=1 / k), _rand(rs, c)
+    n = dwconv.depthwise_conv.launches
+    out = dwconv.depthwise_conv(x, wt, bias)
+    torch.cuda.synchronize()
+    assert dwconv.depthwise_conv.launches == n + 1
+    ref = dwconv.depthwise_conv_plain(*_f64(x, wt, bias))
+    assert _close(out, ref)
+
+
+@pytest.mark.parametrize('b,h,w,ci,cd', [(2, 32, 24, 6, 5), (1, 48, 40, 8, 4),
+                                         (2, 16, 24, 64, 32), (1, 8, 12, 32, 16)])
+def test_decoder_stage_kernel_matches_plain(card, b, h, w, ci, cd):
+    from slowtv_monodepth_tpu_torch.ops import decoder_stage
+    rs = np.random.RandomState(1)
+    args = (_rand(rs, b, h, w, ci, scale=0.5),
+            _rand(rs, cd, ci, 3, 3, scale=1 / np.sqrt(9 * ci)), _rand(rs, cd, scale=0.1),
+            _rand(rs, cd, cd, 3, 3, scale=1 / np.sqrt(9 * cd)), _rand(rs, cd, scale=0.1),
+            _rand(rs, 1, cd, 3, 3, scale=1 / np.sqrt(9 * cd)), _rand(rs, 1, scale=0.1))
+    n = decoder_stage.fused_upconv_stage.launches
+    feat, disp = decoder_stage.fused_upconv_stage(*args)
+    torch.cuda.synchronize()
+    assert decoder_stage.fused_upconv_stage.launches == n + 1
+    f_ref, d_ref = decoder_stage.fused_upconv_stage_plain(*_f64(*args))
+    assert _close(feat, f_ref)
+    assert _close(disp, d_ref)
+
+
+@pytest.mark.parametrize('kernel', ['dwconv', 'decoder_stage'])
+def test_kernels_take_views_that_start_off_alignment(card, kernel):
+    """A contiguous view one float into its storage (not 16-byte aligned)."""
+    from slowtv_monodepth_tpu_torch.ops import decoder_stage, dwconv
+    rs = np.random.RandomState(3)
+    shape = (1, 10, 12, 32)
+    x = torch.empty(int(np.prod(shape)) + 1, device='cuda')[1:].view(shape)
+    x.copy_(_rand(rs, *shape, scale=0.5))
+    if kernel == 'dwconv':
+        args = (x, _rand(rs, 32, 1, 7, 7, scale=1 / 7), _rand(rs, 32))
+        got, want = [dwconv.depthwise_conv(*args)], [dwconv.depthwise_conv_plain(*_f64(*args))]
+    else:
+        args = (x, _rand(rs, 16, 32, 3, 3, scale=1 / np.sqrt(288)), _rand(rs, 16, scale=0.1),
+                _rand(rs, 16, 16, 3, 3, scale=1 / 12), _rand(rs, 16, scale=0.1),
+                _rand(rs, 1, 16, 3, 3, scale=1 / 12), _rand(rs, 1, scale=0.1))
+        got = decoder_stage.fused_upconv_stage(*args)
+        want = decoder_stage.fused_upconv_stage_plain(*_f64(*args))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert _close(g, w)
+
+
+def test_depthnet_kernel_path_matches_plain_path_in_float64(card):
+    from slowtv_monodepth_tpu_torch.models import DepthNet, seeded_state_dict
+    from slowtv_monodepth_tpu_torch.ops import decoder_stage
+    cfg = dict(enc_name='convnext_atto', out_scales=(0, 1, 2, 3))
+    nets = [DepthNet(**cfg, kernels=k) for k in (True, False)]
+    sd = {k: torch.from_numpy(v) for k, v in seeded_state_dict(nets[0], 0).items()}
+    for net in nets:
+        net.load_state_dict(sd)
+    kernel_net, plain_net = nets[0].cuda().eval(), nets[1].double().cuda().eval()
+    x = _rand(np.random.RandomState(2), 2, 3, 64, 96)
+    n = decoder_stage.fused_upconv_stage.launches
+    with torch.no_grad():
+        got, want = kernel_net(x)['disp'], plain_net(x.double())['disp']
+    assert decoder_stage.fused_upconv_stage.launches == n + 2
+    for s in range(4):
+        assert _close(got[s], want[s])
