@@ -6,10 +6,15 @@ and is held against it by the `tests/test_torch_*.py` differentials. It
 imports torch and numpy only, never JAX.
 
 Ported so far: the serving path of the KBR depth model (ConvNeXt encoder +
-Monodepth decoder -> `core.BenchmarkPredictor` -> `quickstart`). Each TPU
-kernel on that path has a hand-written Hopper kernel in `csrc/`, built with
-nvcc at first use (`_build.py`): `ops.depthwise_conv` and
-`ops.decoder_stage`. On a CUDA tensor they launch the kernel; on a CPU
-tensor they run their plain PyTorch version.
+Monodepth decoder -> `core.BenchmarkPredictor` -> `quickstart`) and the KBR
+training step (`core.trainer.MonoDepthTrainer`, `parsers.make_optimizer`:
+depth and pose nets, view synthesis, the photometric and smoothness losses,
+AdamW with gradient accumulation). Each TPU kernel on those paths has a
+hand-written Hopper kernel in `csrc/`, built with nvcc at first use
+(`_build.py`): the depthwise conv and its tap gradient (`ops.dwconv`), the
+fused decoder stage (`ops.decoder_stage`, serving only), the warp
+(`ops.sample`) and the photometric error forward and backward
+(`ops.photo`). On a CUDA tensor they launch the kernel; on a CPU tensor
+they run their plain PyTorch version.
 """
 __version__ = '0.1.0'

@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels with nvcc at first use and load them.
 
-Every `csrc/*.cu` file compiles into ONE shared library with a plain C
+Every `csrc/*.cu` file compiles in its own nvcc process, all started
+together, and the objects link into ONE shared library with a plain C
 interface (no PyTorch headers, so nvcc takes seconds), which `load` opens
 with `ctypes`. Each C entry point takes raw device pointers, the device
 index and the stream, launches on that stream and returns `cudaGetLastError()`;
@@ -28,14 +29,19 @@ __all__ = ['Build', 'build', 'load', 'check', 'BUILD_DIR']
 CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[1] / 'build' / 'torch_kernels'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+              '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
+_FLOAT = ctypes.c_float
 # C entry point -> argument types (see the signatures in csrc/*.cu).
 SIGNATURES = {
     'slowtv_dwconv_fwd_f32': [_PTR] * 4 + [_INT] * 6 + [_PTR],
+    'slowtv_dwconv_dw_f32': [_PTR] * 4 + [_INT] * 7 + [_PTR],
     'slowtv_decoder_stage_fwd_f32': [_PTR] * 10 + [_INT] * 6 + [_PTR],
+    'slowtv_warp_bilinear_f32': [_PTR] * 6 + [_INT] * 7 + [_PTR],
+    'slowtv_photo_fwd_f32': [_PTR] * 3 + [_INT] * 4 + [_FLOAT] * 2 + [_INT, _PTR],
+    'slowtv_photo_bwd_f32': [_PTR] * 5 + [_INT] * 4 + [_FLOAT] * 2 + [_INT, _PTR],
 }
 
 
@@ -72,17 +78,30 @@ def build() -> Build:
         return Build(path, 0.0, '')
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc, tag = _nvcc(), f'{digest.hexdigest()[:16]}.{os.getpid()}'
     tmp = path.with_suffix(f'.{os.getpid()}.tmp')
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp),
-           *[str(s) for s in _sources() if s.suffix == '.cu']]
+    # One nvcc per source, all started together, then one link.
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs, procs = [], []
+    for src in (s for s in _sources() if s.suffix == '.cu'):
+        obj = BUILD_DIR / f'{src.stem}.{tag}.o'
+        cmd = [nvcc, *NVCC_FLAGS, '-c', '-o', str(obj), str(src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True)))
+    steps = [(cmd, p.communicate()[0], p.returncode) for cmd, p in procs]
+    link = [nvcc, *NVCC_FLAGS[:2], '-shared', '-o', str(tmp), *map(str, objs)]
+    if all(rc == 0 for *_, rc in steps):
+        proc = subprocess.run(link, capture_output=True, text=True)
+        steps.append((link, proc.stdout + proc.stderr, proc.returncode))
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f'nvcc failed (exit {proc.returncode}):\n'
-                           f'{" ".join(cmd)}\n{log}')
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    log = ''.join(out for _, out, _ in steps)
+    for cmd, out, rc in steps:
+        if rc != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f'nvcc failed (exit {rc}):\n{" ".join(cmd)}\n{out}')
     os.replace(tmp, path)  # Atomic: a concurrent build sees all or nothing.
     path.with_suffix('.log').write_text(log)
     return Build(path, seconds, log)

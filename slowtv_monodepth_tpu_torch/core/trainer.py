@@ -1,0 +1,203 @@
+"""The KBR training step (PyTorch port).
+
+Counterpart of `slowtv_monodepth_tpu/core/trainer.py:MonoDepthTrainer`: the
+same forward -> postprocess -> loss chain, with the nets as `nn.Module`s and
+the optimizer from `parsers.make_optimizer`:
+
+    trainer = MonoDepthTrainer(cfg).to('cuda')
+    opt = parsers.make_optimizer(cfg, trainer.nets, steps_per_epoch, accumulate=2)
+    step = trainer.make_step_fn(supp_idxs, opt)
+    scalars = step(x, y, generator=gen)           # one micro-step
+
+Batches are NHWC, as in the JAX package:
+    x = {imgs (b, h, w, 3), supp_imgs (n, b, h, w, 3)}
+    y = {imgs, supp_imgs, K (b, 4, 4), [T_stereo (b, 4, 4)]}
+Ported losses: `img_recon` and `disp_smooth` (the KBR recipe); every other
+key raises `NotImplementedError` (ROADMAP queue A item 9).
+
+The decoder's fused stages are forward only on the card (their backward is
+TPU kernel 4, not ported yet), so the trainer builds its depth net with
+`fused_stages=False`, as the JAX package trains by default.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from .. import parsers
+from ..models import PoseNet
+from ..ops import T_from_AAt, resize_K, resize_like, to_inv, to_scaled
+from . import handlers as h
+from .handlers import rigid_inverse
+
+__all__ = ['MonoDepthTrainer']
+
+
+class MonoDepthTrainer:
+    """Nets, losses and the step of monodepth training.
+
+    :param cfg: {net, loss, [trainer], [optimizer], [scheduler]} as the JAX
+        package's cfg.
+    :param kernels: run the hand-written kernels (depthwise conv, warp,
+        photometric error). False runs their plain PyTorch versions: only for
+        timing the plain path on the card.
+    """
+
+    def __init__(self, cfg: dict, kernels: bool = True):
+        self.cfg = cfg
+        self.kernels = kernels
+        # Unfused decoder stages: the fused stage's backward (kernel 4) is not ported.
+        self.nets = parsers.get_net(cfg['net'], kernels=kernels, fused_stages=False)
+        self.losses, self.weights = parsers.get_loss(cfg['loss'], kernels=kernels)
+
+        tcfg = cfg.get('trainer', {})
+        self.min_depth = tcfg.get('min_depth', None)
+        self.max_depth = tcfg.get('max_depth', None)
+        self.should_scale = bool(self.min_depth or self.max_depth)
+        self.always_fwd_pose = tcfg.get('always_fwd_pose', True)
+        if str(tcfg.get('precision', 32)) != '32' or tcfg.get('warp_bf16') or tcfg.get('remat'):
+            raise NotImplementedError('precision / warp_bf16 / remat are TPU recipe options; '
+                                      'the port trains in float32 (ROADMAP ground rule "Recipe").')
+        depth = self.nets['depth']
+        if depth.mask_name or depth.use_virtual_stereo:
+            raise NotImplementedError('Training with predicted masks or virtual stereo is '
+                                      'not ported yet (ROADMAP queue A item 9).')
+        self.scales = tuple(depth.out_sc)
+        # Device-side tripwire (the JAX TrainState's `bad_step`): the index of the
+        # first micro-step whose loss was not finite, -1 while clean.
+        self.step_count: Optional[torch.Tensor] = None
+        self.bad_step: Optional[torch.Tensor] = None
+
+    def to(self, device) -> 'MonoDepthTrainer':
+        self.nets.to(device)
+        return self
+
+    def to_depth(self, disp: torch.Tensor) -> torch.Tensor:
+        """Sigmoid disparity -> scaled depth."""
+        if self.should_scale:
+            return to_scaled(disp, self.min_depth, self.max_depth)[1]
+        return to_inv(disp)
+
+    # ---------------------------------------------------------------- forward
+    def forward(self, x: dict, supp_idxs: tuple) -> dict:
+        """Depth and pose nets -> {depth_feats, disp {s: (b, h/2**s, w/2**s, 1)},
+        T_i (b, 4, 4), [fs, cs (n, b, 2), K (b, 4, 4)]}."""
+        fwd: dict = {}
+        imgs = x['imgs']
+        for key, net in self.nets.items():
+            if key == 'depth':
+                out = net(imgs.permute(0, 3, 1, 2))
+                fwd['depth_feats'] = out['depth_feats']
+                fwd['disp'] = {s: d.permute(0, 2, 3, 1) for s, d in out['disp'].items()}
+            elif key == 'pose':
+                def should_inv(i):
+                    return self.always_fwd_pose and i < 0
+                idxs = [i for i in supp_idxs if i != 0]
+                pairs = torch.stack([
+                    torch.cat([supp, imgs] if should_inv(i) else [imgs, supp], -1)
+                    for i, supp in zip(supp_idxs, x['supp_imgs']) if i != 0])  # (n', b, h, w, 6)
+                n, b = pairs.shape[:2]
+                out = net(pairs.reshape((n * b,) + pairs.shape[2:]).permute(0, 3, 1, 2))
+                Ts = T_from_AAt(out['R'][:, 0], out['t'][:, 0]).reshape(n, b, 4, 4)
+                for i, T in zip(idxs, Ts):
+                    fwd[f'T_{i}'] = rigid_inverse(T) if should_inv(i) else T
+                if 'fs' in out:
+                    fwd['fs'] = out['fs'].reshape(n, b, 2)
+                    fwd['cs'] = out['cs'].reshape(n, b, 2)
+                    # The intrinsics predicted with the first support frame.
+                    K = PoseNet.build_K(out['fs'], out['cs']).reshape(n, b, 4, 4)[0]
+                    fwd['K'] = resize_K(K, imgs.shape[1:3])
+            else:
+                raise NotImplementedError(f'Net "{key}" is not ported yet (ROADMAP A9).')
+        return fwd
+
+    def forward_postprocess(self, fwd: dict, x: dict, y: dict, supp_idxs: tuple) -> dict:
+        """Upsample the disparities, convert them to depth, stack the poses
+        (`T_stereo` from `y` for a stereo support, index 0)."""
+        imgs = x['imgs']
+        fwd['disp_up'] = {s: resize_like(d, imgs) for s, d in fwd['disp'].items()}
+        fwd['depth_up'] = {s: self.to_depth(d) for s, d in fwd['disp_up'].items()}
+        fwd['Ts'] = torch.stack([y['T_stereo'] if i == 0 else fwd[f'T_{i}'] for i in supp_idxs])
+        return fwd
+
+    def forward_loss(self, fwd: dict, y: dict, generator: Optional[torch.Generator] = None,
+                     noise: Optional[torch.Tensor] = None):
+        """Weighted sum of the configured losses -> (loss, loss_dict).
+
+        :param generator: draws the automask tie-break noise of `img_recon`.
+        :param noise: or that noise itself, (n_scales * b, h, w, 1).
+        """
+        Ks = fwd.get('K', y['K'])
+        loss = torch.zeros((), device=y['imgs'].device)
+        loss_dict: dict = {}
+        for k, crit in self.losses.items():
+            if k == 'img_recon':
+                l, ld = h.image_recon(crit, fwd['depth_up'], y['imgs'], y['supp_imgs'],
+                                      fwd['Ts'], Ks, generator=generator, noise=noise,
+                                      kernels=self.kernels)
+            elif k == 'disp_smooth':
+                l, ld = h.disp_smooth(crit, fwd['disp'], y['imgs'])
+            else:
+                raise NotImplementedError(f'Loss "{k}" is not ported yet (ROADMAP A9).')
+            loss = loss + self.weights[k] * l
+            loss_dict[f'loss_{k}'] = l
+            loss_dict.update(ld)
+        return loss, loss_dict
+
+    def loss_fn(self, x: dict, y: dict, supp_idxs: tuple,
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[torch.Tensor] = None):
+        """forward -> postprocess -> loss: -> (loss, (loss_dict, fwd))."""
+        fwd = self.forward(x, supp_idxs)
+        fwd = self.forward_postprocess(fwd, x, y, supp_idxs)
+        loss, loss_dict = self.forward_loss(fwd, y, generator, noise)
+        return loss, (loss_dict, fwd)
+
+    @torch.no_grad()
+    def scalars(self, loss: torch.Tensor, loss_dict: dict, fwd: dict, y: dict) -> dict:
+        """Scalar summaries, as device tensors (no host sync)."""
+        if 'depth' in y:
+            raise NotImplementedError('Train metrics against a depth target are not '
+                                      'ported yet (ROADMAP A7).')
+        out = {'loss': loss.detach()}
+        out.update({k: v.detach() for k, v in loss_dict.items()
+                    if k.startswith('loss_') and v.dim() == 0})
+        for s, d in fwd['disp_up'].items():
+            out[f'disp_mean_{s}'] = d.mean()
+        for s, d in fwd['depth_up'].items():
+            out[f'depth_mean_{s}'] = d.mean()
+        for k, v in fwd.items():
+            if k.startswith('T_') and k != 'Ts':
+                out[f'{k}_t_mean'] = v[..., :3, 3].norm(dim=-1).mean()
+        if 'fs' in fwd:
+            out['fx'], out['fy'] = fwd['fs'][..., 0].mean(), fwd['fs'][..., 1].mean()
+            out['cx'], out['cy'] = fwd['cs'][..., 0].mean(), fwd['cs'][..., 1].mean()
+        return out
+
+    # ------------------------------------------------------------------- step
+    def make_step_fn(self, supp_idxs: tuple, opt: parsers.Optimizer) -> Callable:
+        """-> step(x, y, generator=None, noise=None) -> scalars: one micro-step.
+
+        Forward, loss, backward, `opt.step()` (an update every `accumulate`
+        micro-steps), and the `bad_step` tripwire, all without a host sync.
+        (The JAX package's `train=False` evaluation belongs to its loop,
+        ROADMAP A7.)
+        """
+        supp_idxs = tuple(supp_idxs)
+
+        def step(x: dict, y: dict, generator: Optional[torch.Generator] = None,
+                 noise: Optional[torch.Tensor] = None) -> dict:
+            self.nets.train()
+            loss, (ld, fwd) = self.loss_fn(x, y, supp_idxs, generator, noise)
+            loss.backward()
+            opt.step()
+            if self.step_count is None:
+                self.step_count = torch.zeros((), dtype=torch.int64, device=loss.device)
+                self.bad_step = torch.full_like(self.step_count, -1)
+            self.bad_step = torch.where((self.bad_step < 0) & ~torch.isfinite(loss),
+                                        self.step_count, self.bad_step)
+            self.step_count += 1
+            return self.scalars(loss, ld, fwd, y)
+
+        return step

@@ -11,7 +11,10 @@ so `state_dict()` keys are `decoder.{idx}.conv.*` / `decoder.{idx}.*`.
 A stage with reflect padding, no skip, an output at its scale, one output
 channel, nearest upsampling and a sigmoid runs as ONE fused stage
 (`ops.fused_upconv_stage`: the Hopper kernel on the card). In the KBR model
-those are the two full-resolution stages, 1 and 0.
+those are the two full-resolution stages, 1 and 0. The fused stage is
+forward only on the card (its backward is TPU kernel 4, not ported yet), so
+a decoder built for training passes `fused_stages=False` and runs those
+stages as plain modules, as the stages with a skip always do.
 """
 from __future__ import annotations
 
@@ -37,6 +40,9 @@ class MonodepthDecoder(nn.Module):
     :param pad_mode: {'reflect', 'zeros'}.
     :param kernels: route the fused stages through the hand-written kernel;
         False runs the plain PyTorch version of the same stage.
+    :param fused_stages: run the skip-less stages as fused stages (serving).
+        False runs them as plain modules, which training needs until the
+        fused stage's backward (kernel 4) is ported.
     """
     num_ch_dec = (16, 32, 64, 128, 256)
 
@@ -44,7 +50,7 @@ class MonodepthDecoder(nn.Module):
                  upsample_mode: str = 'nearest', use_skip: bool = True,
                  out_sc: Sequence[int] = (0, 1, 2, 3), out_ch: int = 1,
                  out_act: Optional[str] = 'sigmoid', pad_mode: str = 'reflect',
-                 kernels: bool = True):
+                 kernels: bool = True, fused_stages: bool = True):
         super().__init__()
         if out_act not in ACT:
             raise KeyError(f'Invalid activation key. ({out_act} vs. {tuple(ACT)})')
@@ -55,6 +61,7 @@ class MonodepthDecoder(nn.Module):
         self.out_ch = out_ch
         self.out_act = out_act
         self.pad_mode = pad_mode
+        self.fused_stages = fused_stages
         self.stage = fused_upconv_stage if kernels else fused_upconv_stage_plain
 
         convs, self.idx = [], {}
@@ -77,7 +84,7 @@ class MonodepthDecoder(nn.Module):
 
     def _fused(self, i: int) -> bool:
         """The structural conditions of the fused stage."""
-        return (self.pad_mode == 'reflect' and not self._has_skip(i)
+        return (self.fused_stages and self.pad_mode == 'reflect' and not self._has_skip(i)
                 and i in self.out_sc and self.out_ch == 1
                 and self.upsample_mode == 'nearest' and self.out_act == 'sigmoid')
 

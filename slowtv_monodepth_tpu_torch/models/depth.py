@@ -37,6 +37,9 @@ class DepthNet(nn.Module):
     :param kernels: run the hand-written kernels (depthwise conv, fused
         decoder stage). False runs their plain PyTorch versions: only for
         timing the plain path on the card.
+    :param fused_stages: run the decoders' skip-less stages as fused stages
+        (serving, the default). Training passes False: the fused stage's
+        backward (kernel 4) is not ported yet.
     """
 
     def __init__(self, enc_name: str = 'convnext_base', pretrained: bool = True,
@@ -46,7 +49,7 @@ class DepthNet(nn.Module):
                  use_virtual_stereo: bool = False, use_stereo_blend: bool = False,
                  gelu: str = 'exact', dec_pad_mode: str = 'reflect',
                  dec_phase_up: bool = False, enc_remat: str = '',
-                 kernels: bool = True):
+                 kernels: bool = True, fused_stages: bool = True):
         super().__init__()
         del pretrained
         if dec_name not in DECODERS:
@@ -72,12 +75,14 @@ class DepthNet(nn.Module):
         self.decoders = nn.ModuleDict({'disp': dec(
             num_ch_enc=num_ch_enc, enc_sc=enc_sc, upsample_mode='nearest',
             use_skip=True, out_sc=self.out_sc, out_ch=1 + 2 * use_virtual_stereo,
-            out_act='sigmoid', pad_mode=dec_pad_mode, kernels=kernels)})
+            out_act='sigmoid', pad_mode=dec_pad_mode, kernels=kernels,
+            fused_stages=fused_stages)})
         if mask_name:
             self.decoders['mask'] = dec(
                 num_ch_enc=num_ch_enc, enc_sc=enc_sc, upsample_mode='nearest',
                 use_skip=True, out_sc=self.out_sc, out_ch=num_ch_mask,
-                out_act=MASKS[mask_name], pad_mode=dec_pad_mode, kernels=kernels)
+                out_act=MASKS[mask_name], pad_mode=dec_pad_mode, kernels=kernels,
+                fused_stages=fused_stages)
 
     def _forward(self, x: torch.Tensor) -> dict:
         feat = self.encoder(x.contiguous(memory_format=torch.channels_last))

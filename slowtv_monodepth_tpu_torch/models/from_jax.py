@@ -1,10 +1,11 @@
-"""Weight bridge: JAX package parameters -> the port's `DepthNet` state dict.
+"""Weight bridge: JAX package parameters -> the port's `DepthNet` and
+`PoseNet` state dicts.
 
 The inverse of `slowtv_monodepth_tpu/models/import_reference.py:_convert_depth`
-with `encoders/import_torch.py:convert_convnext` (ConvNeXt encoder +
-monodepth decoders). The other direction needs no code of its own: prefix
-the port's `state_dict()` keys with `nets.depth.` and hand them to
-`convert_reference_ckpt`.
+and `_convert_pose` with `encoders/import_torch.py:convert_convnext`
+(ConvNeXt encoders, monodepth decoders, pose heads). The other direction
+needs no code of its own: prefix the port's `state_dict()` keys with
+`nets.depth.` / `nets.pose.` and hand them to `convert_reference_ckpt`.
 
 Layouts: conv HWIO -> OIHW, depthwise (k, k, 1, C) -> (C, 1, k, k), dense
 (in, out) -> (out, in).
@@ -22,7 +23,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-__all__ = ['depth_state_dict_from_jax']
+__all__ = ['depth_state_dict_from_jax', 'pose_state_dict_from_jax']
 
 
 def _t(a) -> torch.Tensor:
@@ -95,4 +96,26 @@ def depth_state_dict_from_jax(params: dict,
         if f'decoders_{dec}' in params:
             sd.update({f'decoders.{dec}.{k}': v for k, v in
                        _monodepth(params[f'decoders_{dec}'], out_scales).items()})
+    return sd
+
+
+def pose_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """JAX `PoseNet` params (ConvNeXt encoder) -> port `PoseNet` state dict.
+
+    :param params: {'encoder', 'squeeze', 'decoders_pose',
+        ['decoders_focal', 'decoders_offset']}, leaves numpy or jax arrays.
+    """
+    if 'stem_conv' not in params['encoder']:
+        raise NotImplementedError('Only ConvNeXt encoders are ported.')
+    sd = {f'encoder.{k}': v for k, v in _convnext(params['encoder']).items()}
+    sq = params['squeeze']['conv']
+    sd['squeeze.0.weight'], sd['squeeze.0.bias'] = _conv(sq['kernel']), _t(sq['bias'])
+    for head in ('pose', 'focal', 'offset'):
+        if (q := params.get(f'decoders_{head}')) is None:
+            continue
+        pre = f'decoders.{head}'
+        for i in (0, 1):
+            blk = q[f'block{i}']['conv']
+            sd[f'{pre}.{i}.0.weight'], sd[f'{pre}.{i}.0.bias'] = _conv(blk['kernel']), _t(blk['bias'])
+        sd[f'{pre}.2.weight'], sd[f'{pre}.2.bias'] = _conv(q['out']['kernel']), _t(q['out']['bias'])
     return sd

@@ -13,6 +13,13 @@ never stored); on a CPU tensor it runs the plain PyTorch version
 `fused_upconv_stage_plain`. Any other device, or a tensor the kernel does not
 take, raises.
 
+Forward only on the card: the stage's backward is TPU kernel 4
+(`pallas_decoder.py:_stage_bwd_jit`), not ported yet (ROADMAP queue B). On
+a CUDA tensor the wrapper raises when grad mode is on and an input requires
+grad, rather than return outputs that autograd would silently cut off.
+Training builds its decoder with the stages unfused
+(`MonodepthDecoder(fused_stages=False)`).
+
 Activations are NHWC as in the JAX package; weights keep PyTorch's OIHW
 `nn.Conv2d` layout.
 """
@@ -85,6 +92,13 @@ def fused_upconv_stage(x, wa, ba, wb, bb, wo, bo):
     _check(x, wa, ba, wb, bb, wo, bo)
     if x.device.type == 'cpu':
         return fused_upconv_stage_plain(x, wa, ba, wb, bb, wo, bo)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, wa, ba, wb, bb, wo, bo)):
+        raise NotImplementedError(
+            'fused_upconv_stage on the card is forward only: its backward is TPU '
+            'kernel 4 (pallas_decoder.py:_stage_bwd_jit), not ported yet (ROADMAP '
+            'queue B). Build the decoder with fused_stages=False to train, or run '
+            'under torch.no_grad().')
     b, h, w, ci = x.shape
     cd = wa.shape[0]
     ha = torch.empty((b, h, w, cd), dtype=x.dtype, device=x.device)

@@ -1,10 +1,16 @@
-"""Depthwise KxK convolution (stride 1, zero 'SAME' padding), NHWC, forward.
+"""Depthwise KxK convolution (stride 1, zero 'SAME' padding), NHWC, with its VJP.
 
-Counterpart of `slowtv_monodepth_tpu/ops/pallas_dwconv.py:depthwise_conv`.
-On a CUDA tensor `depthwise_conv` launches the hand-written Hopper kernel
-`csrc/dwconv.cu` (bias fused); on a CPU tensor it runs the plain PyTorch
-version `depthwise_conv_plain`, which the tests compare with the JAX package.
-There is no other path: any other device, or a tensor the kernel does not
+Counterpart of `slowtv_monodepth_tpu/ops/pallas_dwconv.py:depthwise_conv` and
+its `custom_vjp` (`_dwconv_core_bwd`). `depthwise_conv` is a
+`torch.autograd.Function`:
+- forward: on a CUDA tensor the hand-written Hopper kernel `csrc/dwconv.cu`
+  (bias fused); on a CPU tensor the plain PyTorch version
+  `depthwise_conv_plain`, which the tests compare with the JAX package;
+- backward: `dx` is the same forward run on the cotangent with the taps
+  flipped and no bias; `dw` is `dwconv_dw` (the tap-gradient kernel on the
+  card, `dwconv_dw_plain` on the CPU); `db = g.sum((0, 1, 2))`, which the
+  JAX package also leaves to the compiler.
+There is no other path: any other device, or a tensor a kernel does not
 take, raises.
 
 Activations are NHWC, as in the JAX package (`x.permute(0, 2, 3, 1)` of a
@@ -20,7 +26,12 @@ import torch.nn.functional as F
 
 from .. import _build
 
-__all__ = ['depthwise_conv', 'depthwise_conv_plain']
+__all__ = ['depthwise_conv', 'depthwise_conv_plain', 'dwconv_dw', 'dwconv_dw_plain']
+
+_LANES = 32      # channels per block (csrc/dwconv.cu kLanes)
+_DW_ROWS = 8     # work-item rows per block (kDwRows)
+_STRIP = 4       # outputs per work item along W (kStrip)
+_DW_BLOCKS = 1056  # ~8 blocks per SM of an H100 (132 SMs) in the tap-gradient pass 1
 
 
 def _check(x: torch.Tensor, weight: torch.Tensor,
@@ -57,18 +68,9 @@ def depthwise_conv_plain(x: torch.Tensor, weight: torch.Tensor,
     return out.permute(0, 2, 3, 1).contiguous()
 
 
-def depthwise_conv(x: torch.Tensor, weight: torch.Tensor,
-                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Stride-1 'SAME' depthwise conv.
-
-    :param x: (b, h, w, c) float32 NHWC, contiguous.
-    :param weight: (c, 1, k, k) taps, odd k <= 9.
-    :param bias: optional (c,).
-    :return: (b, h, w, c) contiguous.
-
-    `depthwise_conv.launches` counts the kernel launches (CUDA tensors only).
-    """
-    k = _check(x, weight, bias)
+def _forward(x: torch.Tensor, weight: torch.Tensor,
+             bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """Kernel 1 on a CUDA tensor, the plain version on a CPU one."""
     if x.device.type == 'cpu':
         return depthwise_conv_plain(x, weight, bias)
     out = torch.empty_like(x)
@@ -78,11 +80,108 @@ def depthwise_conv(x: torch.Tensor, weight: torch.Tensor,
     err = _build.load().slowtv_dwconv_fwd_f32(
         x.data_ptr(), weight.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
-        b, h, w, c, k, x.device.index,
+        b, h, w, c, weight.shape[-1], x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, 'dwconv kernel')
     depthwise_conv.launches += 1
     return out
 
 
+class _DepthwiseConv(torch.autograd.Function):
+    """`pallas_dwconv.py:_dwconv_core` with its custom VJP, plus the bias."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        ctx.save_for_backward(x, weight)
+        return _forward(x, weight, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = _forward(g, weight.flip((-2, -1)).contiguous(), None)
+        if ctx.needs_input_grad[1]:
+            dw = dwconv_dw(x, g, weight.shape[-1])
+        if ctx.needs_input_grad[2]:
+            db = g.sum((0, 1, 2))
+        return dx, dw, db
+
+
+def depthwise_conv(x: torch.Tensor, weight: torch.Tensor,
+                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Stride-1 'SAME' depthwise conv, differentiable in x, weight and bias.
+
+    :param x: (b, h, w, c) float32 NHWC, contiguous.
+    :param weight: (c, 1, k, k) taps, odd k <= 9.
+    :param bias: optional (c,).
+    :return: (b, h, w, c) contiguous.
+
+    `depthwise_conv.launches` counts the launches of the forward kernel on
+    the card: one per forward, one more per input gradient.
+    """
+    _check(x, weight, bias)
+    return _DepthwiseConv.apply(x, weight, bias)
+
+
 depthwise_conv.launches = 0
+
+
+def dwconv_dw_plain(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
+    """Plain PyTorch version of the tap gradient: (b, h, w, c) x 2 -> (c, 1, k, k)."""
+    c = x.shape[-1]
+    return torch.nn.grad.conv2d_weight(x.permute(0, 3, 1, 2), (c, 1, k, k),
+                                       g.permute(0, 3, 1, 2), padding=k // 2, groups=c)
+
+
+def dw_blocks(b: int, h: int, w: int, c: int) -> int:
+    """Blocks per 32-channel group of the tap gradient's first pass."""
+    items = b * h * -(-w // _STRIP)
+    groups = -(-c // _LANES)
+    return max(1, min(-(-items // _DW_ROWS), -(-_DW_BLOCKS // groups)))
+
+
+def dwconv_dw(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
+    """Tap gradient dw[c, 0, ky, kx] = sum_{b,y,x} xpad[b, y+ky, x+kx, c] g[b, y, x, c].
+
+    :param x: (b, h, w, c) float32 NHWC forward input, contiguous.
+    :param g: (b, h, w, c) cotangent of the output, contiguous.
+    :param k: odd kernel size <= 9.
+    :return: (c, 1, k, k), PyTorch's depthwise `weight` layout.
+
+    On a CUDA tensor: the two-pass tap-gradient kernel of `csrc/dwconv.cu`,
+    counted by `dwconv_dw.launches` (one per call); on a CPU tensor:
+    `dwconv_dw_plain`.
+    """
+    if x.device.type not in ('cpu', 'cuda') or x.dim() != 4:
+        raise ValueError(f'dwconv_dw takes (b, h, w, c) on cpu or cuda, got '
+                         f'{tuple(x.shape)} on {x.device}')
+    if g.shape != x.shape or g.device != x.device:
+        raise ValueError(f'g must match x {tuple(x.shape)} on {x.device}, '
+                         f'got {tuple(g.shape)} on {g.device}')
+    if k % 2 != 1 or k > 9:
+        raise ValueError(f'kernel size must be odd and <= 9, got {k}')
+    for t in (x, g):
+        if t.dtype != torch.float32:
+            raise TypeError(f'dwconv_dw takes float32, got {t.dtype}')
+        if not t.is_contiguous():
+            raise ValueError('dwconv_dw takes contiguous NHWC tensors')
+    if x.device.type == 'cpu':
+        return dwconv_dw_plain(x, g, k)
+    b, h, w, c = x.shape
+    dw = torch.empty((c, 1, k, k), dtype=x.dtype, device=x.device)
+    if x.numel() == 0:
+        return dw.zero_()
+    nblk = dw_blocks(b, h, w, c)
+    partial = torch.empty((nblk, k * k, c), dtype=x.dtype, device=x.device)
+    err = _build.load().slowtv_dwconv_dw_f32(
+        x.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(),
+        b, h, w, c, k, nblk, x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, 'dwconv tap-gradient kernel')
+    dwconv_dw.launches += 1
+    return dw
+
+
+dwconv_dw.launches = 0

@@ -1,0 +1,192 @@
+"""Config-dict -> nets, losses and optimizer (PyTorch port).
+
+Counterpart of `slowtv_monodepth_tpu/parsers.py` for the ported keys:
+- `get_net`: `depth` (`DepthNet`) and `pose` (`PoseNet`);
+- `get_loss`: `img_recon` (`ReconstructionLoss`) and `disp_smooth`
+  (`SmoothReg`), with their static weights;
+- `get_sched`: the product of the configured epoch factors, evaluated at
+  `update // steps_per_epoch`;
+- `get_opt` / `make_optimizer`: AdamW as an `Optimizer` that is stepped
+  once per micro-step and averages the gradients over `accumulate`
+  micro-steps, with the schedule counting optimizer updates
+  (`optax.MultiSteps` semantics).
+Other keys raise `NotImplementedError` naming the ROADMAP item that ports
+them. Torch optimizers hold their parameters, so `get_opt` and
+`make_optimizer` take the nets as their second argument.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+import torch.nn as nn
+
+from .core.schedules import SCHEDULES
+from .losses import ReconstructionLoss, SmoothReg
+from .models import DepthNet, PoseNet
+
+__all__ = ['get_net', 'get_loss', 'get_sched', 'get_opt', 'make_optimizer', 'Optimizer']
+
+NETS = {'depth': DepthNet, 'pose': PoseNet}
+LOSSES = {'img_recon': ReconstructionLoss, 'disp_smooth': SmoothReg}
+
+
+def _listify(v):
+    return tuple(v) if isinstance(v, list) else v
+
+
+def get_net(cfg: dict, **kw) -> nn.ModuleDict:
+    """Nets of the cfg `net` section (`~` deletes one). `kw` goes to every net
+    (`kernels`), and `fused_stages` to `DepthNet` only."""
+    fused = kw.pop('fused_stages', True)
+    nets = {}
+    for k, net_kw in cfg.items():
+        if net_kw is None:
+            continue
+        if k not in NETS:
+            raise NotImplementedError(f'Net "{k}" is not ported yet (have {sorted(NETS)}); '
+                                      'ROADMAP queue A items 9-10.')
+        extra = dict(kw, fused_stages=fused) if k == 'depth' else kw
+        nets[k] = NETS[k](**{key: _listify(v) for key, v in net_kw.items()}, **extra)
+    return nn.ModuleDict(nets)
+
+
+def get_loss(cfg: dict, **kw) -> tuple[dict, dict]:
+    """Losses + static weights of the cfg `loss` section; `kw` (`kernels`)
+    goes to the reconstruction loss."""
+    losses, weights = {}, {}
+    for k, loss_kw in cfg.items():
+        if loss_kw is None:
+            continue
+        if k not in LOSSES:
+            raise NotImplementedError(f'Loss "{k}" is not ported yet (have {sorted(LOSSES)}); '
+                                      'ROADMAP queue A item 9.')
+        loss_kw = dict(loss_kw)
+        weights[k] = float(loss_kw.pop('weight', 1.0))
+        losses[k] = LOSSES[k](**loss_kw, **(kw if k == 'img_recon' else {}))
+    return losses, weights
+
+
+def get_sched(cfg: Optional[dict], steps_per_epoch: int) -> Callable[[int], float]:
+    """-> factor(update): the product of the configured epoch factors."""
+    factors = []
+    for k, kw in (cfg or {}).items():
+        if kw is None:
+            continue
+        if k not in SCHEDULES:
+            raise KeyError(f'Unknown scheduler "{k}". ({sorted(SCHEDULES)})')
+        factors.append(SCHEDULES[k](**kw))
+
+    def factor(update: int) -> float:
+        epoch = update // max(steps_per_epoch, 1)
+        out = 1.0
+        for f in factors:
+            out *= f(epoch)
+        return out
+    return factor
+
+
+class Optimizer:
+    """A torch optimizer stepped once per micro-step.
+
+    Every `accumulate`-th call of `step` averages the gradients the
+    micro-steps' backward passes summed into `.grad`, sets each group's LR
+    to its base LR times the schedule at the update count, applies the group's
+    decoupled weight decay (`p -= lr * wd * p`, as optax's `adamw`; torch's
+    AdamW multiplies by `1 - lr * wd` rounded to float32, which is 1% off at
+    lr * wd = 1e-6), steps the inner optimizer and clears the gradients.
+    Other calls leave the parameters as they are, as `optax.MultiSteps`
+    emits zero updates.
+    """
+
+    def __init__(self, opt: torch.optim.Optimizer, sched: Callable[[int], float],
+                 accumulate: int = 1):
+        self.opt = opt
+        self.sched = sched
+        self.accumulate = max(int(accumulate), 1)
+        self.base_lrs = [g['lr'] for g in opt.param_groups]
+        self.updates = 0
+        self.micro = 0
+
+    def lrs(self) -> list[float]:
+        """Each group's LR for the next update."""
+        f = self.sched(self.updates)
+        return [lr * f for lr in self.base_lrs]
+
+    @torch.no_grad()
+    def step(self) -> bool:
+        """Account one micro-step; -> True when it made an update."""
+        self.micro += 1
+        if self.micro < self.accumulate:
+            return False
+        if self.accumulate > 1:
+            torch._foreach_mul_([p.grad for g in self.opt.param_groups for p in g['params']
+                                 if p.grad is not None], 1.0 / self.accumulate)
+        for group, lr in zip(self.opt.param_groups, self.lrs()):
+            group['lr'] = lr
+            if group['decay']:
+                torch._foreach_add_(group['params'], group['params'], alpha=-lr * group['decay'])
+        self.opt.step()
+        self.opt.zero_grad(set_to_none=True)
+        self.updates += 1
+        self.micro = 0
+        return True
+
+
+def _has(name: str, key: str) -> bool:
+    return any(key in part for part in name.split('.'))
+
+
+def get_opt(cfg: dict, nets: nn.Module, steps_per_epoch: int = 1,
+            sched_cfg: Optional[dict] = None, accumulate: int = 1) -> Optimizer:
+    """The AdamW of the cfg `optimizer` section over `nets`' parameters.
+
+    - One LR, `weight_decay` set: decay only parameters with ndim > 1
+      (timm's `filter_bias_and_bn`, which the JAX package mirrors).
+    - `backbone_lr`: parameters under an `encoder` take it, the rest `lr`,
+      and the decay applies to all of them (no filter, as the reference).
+    """
+    cfg = dict(cfg)
+    name = cfg.pop('type', cfg.pop('opt', None))
+    if name is None:
+        raise KeyError('Must provide an optimizer `type`.')
+    if name != 'adamw':
+        raise NotImplementedError(f'Optimizer "{name}" is not ported yet (have adamw); '
+                                  'ROADMAP queue A item 7.')
+    if cfg.pop('frozen_bn', False) or cfg.pop('flatten', False):
+        raise NotImplementedError('frozen_bn (BatchNorm nets, ROADMAP A10) and flatten '
+                                  '(a TPU option) are not ported.')
+    lr = float(cfg.pop('lr', 1e-3))
+    blr = cfg.pop('backbone_lr', None)
+    kw = {'betas': (cfg.pop('b1', 0.9), cfg.pop('b2', 0.999)), 'eps': cfg.pop('eps', 1e-8)}
+    wd_cfg = cfg.pop('weight_decay', None)
+    if cfg:
+        raise KeyError(f'Unknown optimizer options {sorted(cfg)}')
+    # optax.adamw's default decay applies when the cfg gives none (unmasked).
+    wd = 1e-4 if wd_cfg is None else float(wd_cfg)
+    named = [(n, p) for n, p in nets.named_parameters() if p.requires_grad]
+
+    if blr:
+        blr = float(blr)
+        if blr == lr:
+            raise ValueError('Backbone LR must be different from the main LR')
+        groups = [{'params': [p for n, p in named if _has(n, 'encoder')], 'lr': blr},
+                  {'params': [p for n, p in named if not _has(n, 'encoder')], 'lr': lr}]
+        groups = [dict(g, decay=wd) for g in groups if g['params']]
+    elif wd_cfg:
+        groups = [{'params': [p for _, p in named if p.ndim > 1], 'decay': wd},
+                  {'params': [p for _, p in named if p.ndim <= 1], 'decay': 0.0}]
+    else:
+        groups = [{'params': [p for _, p in named], 'decay': wd}]
+    # Adam's moments from torch; the decoupled decay is `Optimizer.step`'s.
+    opt = torch.optim.Adam(groups, lr=lr, weight_decay=0.0, **kw)
+    return Optimizer(opt, get_sched(sched_cfg, steps_per_epoch), accumulate)
+
+
+def make_optimizer(cfg: dict, nets: nn.Module, steps_per_epoch: int = 1,
+                   accumulate: int = 1) -> Optimizer:
+    """The training optimizer of a full cfg: AdamW under the cfg's schedule,
+    with gradient accumulation. (The JAX package's `lr_scale` and
+    `grad_clip` belong to its loop, ROADMAP A7.)"""
+    return get_opt(cfg.get('optimizer', {}), nets, steps_per_epoch, cfg.get('scheduler'),
+                   accumulate=accumulate)

@@ -113,3 +113,86 @@ def test_depthnet_kernel_path_matches_plain_path_in_float64(card):
     assert decoder_stage.fused_upconv_stage.launches == n + 2
     for s in range(4):
         assert _close(got[s], want[s])
+
+
+# ------------------------------------------------------------ training kernels
+def _as_nhwc_taps(rs, c, k):
+    return _rand(rs, c, 1, k, k, scale=1 / k)
+
+
+@pytest.mark.parametrize('b,h,w,c,k', [(2, 16, 24, 96, 7), (1, 9, 13, 45, 3),
+                                       (2, 11, 19, 70, 7), (1, 12, 20, 33, 9)])
+def test_dwconv_gradient_on_the_card_matches_plain(card, b, h, w, c, k):
+    """x, taps and bias all get the plain version's gradient (float64)."""
+    from slowtv_monodepth_tpu_torch.ops import dwconv
+    rs = np.random.RandomState(4)
+    x, wt, bias, g = (_rand(rs, b, h, w, c), _as_nhwc_taps(rs, c, k), _rand(rs, c),
+                      _rand(rs, b, h, w, c))
+    leaves = [t.clone().requires_grad_() for t in (x, wt, bias)]
+    n_fwd = dwconv.depthwise_conv.launches
+    out = dwconv.depthwise_conv(*leaves)
+    assert out.grad_fn is not None, 'the kernel output is cut off from autograd'
+    n_dw = dwconv.dwconv_dw.launches
+    out.backward(g)
+    torch.cuda.synchronize()
+    ref = [t.double().requires_grad_() for t in (x, wt, bias)]
+    dwconv.depthwise_conv_plain(*ref).backward(g.double())
+    for got, want in zip(leaves, ref):
+        assert got.grad is not None
+        assert (got.grad - want.grad).abs().max().item() <= \
+            ATOL * np.sqrt(b * h * w) * max(1.0, want.grad.abs().max().item())
+    assert dwconv.depthwise_conv.launches == n_fwd + 2  # forward + dx
+    assert dwconv.dwconv_dw.launches == n_dw + 1
+
+
+def test_fused_stage_raises_under_grad(card):
+    from slowtv_monodepth_tpu_torch.ops import decoder_stage
+    rs = np.random.RandomState(5)
+    args = [_rand(rs, 1, 8, 12, 32, scale=0.5), _rand(rs, 16, 32, 3, 3, scale=0.06),
+            _rand(rs, 16), _rand(rs, 16, 16, 3, 3, scale=0.08), _rand(rs, 16),
+            _rand(rs, 1, 16, 3, 3, scale=0.08), _rand(rs, 1)]
+    args[1].requires_grad_()
+    with pytest.raises(NotImplementedError, match='kernel 4'):
+        decoder_stage.fused_upconv_stage(*args)
+    with torch.no_grad():
+        decoder_stage.fused_upconv_stage(*args)  # serving still runs
+
+
+@pytest.mark.parametrize('b,h,w,c,ho,wo', [(2, 24, 160, 3, 16, 200), (1, 16, 128, 1, 16, 128),
+                                           (3, 37, 53, 3, 37, 53), (1, 5, 7, 8, 9, 4)])
+def test_warp_kernel_matches_plain(card, b, h, w, c, ho, wo):
+    from slowtv_monodepth_tpu_torch.ops import sample
+    rs = np.random.RandomState(6)
+    img = _rand(rs, b, h, w, c)
+    fx = torch.from_numpy(np.clip(rs.uniform(-0.2, 1.2, (b, ho, wo)) * (w - 1), 0, w - 1)
+                          .astype(np.float32)).cuda()
+    fy = torch.from_numpy(np.clip(rs.uniform(-0.2, 1.2, (b, ho, wo)) * (h - 1), 0, h - 1)
+                          .astype(np.float32)).cuda()
+    n = sample.warp_bilinear.launches
+    got = sample.warp_bilinear(img, fx, fy)
+    torch.cuda.synchronize()
+    assert sample.warp_bilinear.launches == n + 1
+    for g, want in zip(got, sample.warp_bilinear_plain(img.double(), fx.double(), fy.double())):
+        assert _close(g, want)
+
+
+@pytest.mark.parametrize('m,h,w,c,ties', [(3, 16, 24, 3, False), (2, 8, 13, 3, True),
+                                          (1, 104, 40, 1, False), (2, 37, 70, 3, True),
+                                          (1, 2, 2, 3, False)])
+def test_photo_kernels_match_plain(card, m, h, w, c, ties):
+    from slowtv_monodepth_tpu_torch.ops import photo
+    rs = np.random.RandomState(7)
+    x = torch.from_numpy(rs.rand(m, h, w, c).astype(np.float32)).cuda()
+    y = torch.from_numpy(rs.rand(m, h, w, c).astype(np.float32)).cuda()
+    if ties:
+        y[:, :, : w // 2] = x[:, :, : w // 2]
+    g = torch.from_numpy(rs.rand(m, h, w).astype(np.float32)).cuda()
+    n = (photo.photo_fwd.launches, photo.photo_bwd.launches)
+    out = photo.photo_fwd(x, y, 0.85)
+    dx, dy = photo.photo_bwd(x, y, g, 0.85)
+    torch.cuda.synchronize()
+    assert (photo.photo_fwd.launches, photo.photo_bwd.launches) == (n[0] + 1, n[1] + 1)
+    xd, yd, gd = x.double(), y.double(), g.double()
+    assert _close(out, photo.photo_fwd_plain(xd, yd, 0.85))
+    for got, want in zip((dx, dy), photo.photo_bwd_plain(xd, yd, gd, 0.85)):
+        assert _close(got, want)

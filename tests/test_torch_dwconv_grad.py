@@ -1,0 +1,111 @@
+"""Port differential: the backward of `ops.dwconv.depthwise_conv` vs the JAX package's.
+
+The JAX side is `pallas_dwconv.depthwise_conv` forced onto its Pallas
+kernels (`SLOWTV_FORCE_PALLAS_DWCONV`, interpret mode on the CPU), whose
+`custom_vjp` gives dx (the forward kernel on the cotangent with flipped
+taps), dw (the tap-gradient kernel) and db. The port's autograd Function
+runs the same split with the plain versions, since the tensors lie on the
+CPU.
+
+Tolerances: dx atol 1e-5 as the forward (K*K products per element); dw
+and db sum over b*h*w terms of O(1) products, so atol 1e-5 times the number
+of summed terms' square root (float32 sums in another order; measured
+~2e-6 at these shapes).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from slowtv_monodepth_tpu.ops import pallas_dwconv as pd
+from slowtv_monodepth_tpu_torch.ops import dwconv as td
+
+SHAPES = [(2, 16, 24, 96, 7), (1, 9, 13, 40, 3), (2, 11, 19, 70, 7), (1, 12, 20, 33, 3)]
+
+
+@pytest.fixture(autouse=True)
+def _force_pallas(monkeypatch):
+    monkeypatch.setenv('SLOWTV_FORCE_PALLAS_DWCONV', '1')
+
+
+def _inputs(b, h, w, c, k, seed=0):
+    rs = np.random.RandomState(seed)
+    return (rs.randn(b, h, w, c).astype(np.float32),
+            (rs.randn(k, k, c) * 0.2).astype(np.float32),    # JAX layout (k, k, c)
+            rs.randn(c).astype(np.float32),
+            rs.randn(b, h, w, c).astype(np.float32))          # cotangent
+
+
+def _jax(x, taps, bias, g):
+    _, vjp = jax.vjp(pd.depthwise_conv, *map(jnp.asarray, (x, taps, bias)))
+    dx, dtaps, db = vjp(jnp.asarray(g))
+    dw = np.ascontiguousarray(np.asarray(dtaps).transpose(2, 0, 1)[:, None])  # (c, 1, k, k)
+    return np.asarray(dx), dw, np.asarray(db)
+
+
+def _port(x, taps, bias, g):
+    xt = torch.from_numpy(x).requires_grad_()
+    wt = torch.from_numpy(np.ascontiguousarray(taps.transpose(2, 0, 1)[:, None])).requires_grad_()
+    bt = torch.from_numpy(bias).requires_grad_()
+    td.depthwise_conv(xt, wt, bt).backward(torch.from_numpy(g))
+    return xt.grad.numpy(), wt.grad.numpy(), bt.grad.numpy()
+
+
+def _tols(b, h, w):
+    return {'dx': 1e-5, 'dw': 1e-5 * np.sqrt(b * h * w), 'db': 1e-5 * np.sqrt(b * h * w)}
+
+
+@pytest.mark.parametrize('b,h,w,c,k', SHAPES)
+def test_backward_matches_jax_custom_vjp(b, h, w, c, k):
+    args = _inputs(b, h, w, c, k)
+    tol = _tols(b, h, w)
+    for name, got, want in zip(('dx', 'dw', 'db'), _port(*args), _jax(*args)):
+        assert got.shape == want.shape, name
+        np.testing.assert_allclose(got, want, atol=tol[name], err_msg=name)
+
+
+def test_backward_differential_has_teeth(monkeypatch):
+    """dx through the forward with the taps NOT flipped fails."""
+    args = _inputs(*SHAPES[0])
+    want = _jax(*args)
+    forward = td._forward
+
+    def unflipped(x, weight, bias):  # bias is None only in the backward's dx
+        return forward(x, weight if bias is not None else weight.flip((-2, -1)), bias)
+
+    monkeypatch.setattr(td, '_forward', unflipped)
+    with pytest.raises(AssertionError):
+        np.testing.assert_allclose(_port(*args)[0], want[0], atol=_tols(*SHAPES[0][:3])['dx'])
+
+
+def test_tap_gradient_plain_matches_autograd():
+    """`dwconv_dw_plain` (the card's reference for kernel 2) is conv2d's weight grad."""
+    x, taps, bias, g = _inputs(2, 10, 14, 24, 5, seed=3)
+    w = torch.from_numpy(np.ascontiguousarray(taps.transpose(2, 0, 1)[:, None])).requires_grad_()
+    torch.nn.functional.conv2d(torch.from_numpy(x).permute(0, 3, 1, 2), w, padding=2,
+                               groups=24).backward(torch.from_numpy(g).permute(0, 3, 1, 2))
+    got = td.dwconv_dw(torch.from_numpy(x), torch.from_numpy(g), 5)
+    np.testing.assert_allclose(got.numpy(), w.grad.numpy(), atol=1e-4)
+
+
+def test_blocks_of_the_tap_gradient():
+    """The first pass has at least one block and at most ~8 per SM in all."""
+    assert td.dw_blocks(1, 1, 1, 1) == 1
+    assert td.dw_blocks(4, 96, 160, 128) * 4 <= 1056 + 4
+    assert td.dw_blocks(4, 12, 20, 1024) == 30  # 4*12*5 items / 8 rows
+
+
+@pytest.mark.parametrize('case', ['dtype', 'shape', 'even_k', 'noncontiguous'])
+def test_tap_gradient_rejects(case):
+    x, g, k = torch.zeros(1, 6, 7, 8), torch.zeros(1, 6, 7, 8), 3
+    if case == 'dtype':
+        g = g.double()
+    elif case == 'shape':
+        g = torch.zeros(1, 6, 7, 9)
+    elif case == 'even_k':
+        k = 4
+    elif case == 'noncontiguous':
+        x = torch.zeros(1, 7, 6, 8).transpose(1, 2)
+    with pytest.raises((ValueError, TypeError)):
+        td.dwconv_dw(x, g, k)
