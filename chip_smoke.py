@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path and KBR training step on one NVIDIA GPU (H100).
+"""Drive the PyTorch port's serving path, KBR training step and KBR training run on
+one NVIDIA GPU (H100).
 
 Phases, in order; any failure exits non-zero and prints no result:
 1. device: require CUDA, print the card's name and power limit, pin exact
    float32 numerics (no TF32 in cuDNN convs or matmuls).
 2. build: compile the port's CUDA kernels from `slowtv_monodepth_tpu_torch/csrc`.
 3. kernels: each hand-written kernel against its plain PyTorch version on
-   the card, at the serving path's shapes (B=2) and ragged shapes; times both.
+   the card, at the serving path's shapes (B=2), ragged shapes and the shapes
+   two of the training run's augmentation buckets give it; times both.
 4. golden: ConvNeXt-B + monodepth at full width with seeded weights
    (`models.seeded_state_dict`) against the JAX package's outputs stored in
    `tests/fixtures/torch_port_golden.npz`.
@@ -15,10 +17,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    on 6 synthetic 384x640 scenes -> .npy files; asserts the outputs and the
    launch counts (36 dwconv + 2 decoder stages per request), then times warm
    requests at B=1 and B=4 on the kernel path and on the plain path.
-6. training kernels: the tap gradient (kernel 2), the warp (5) and the
-   photometric error forward and backward (7, 8) against their plain
-   versions (in float64) at the training step's shapes (B=4, 384x640) and
-   ragged shapes; times kernel and plain (float32).
+6. training kernels: the tap gradient (kernel 2), the decoder stage's
+   backward (4), the warp on float32 (5) and on packed bfloat16 sources (6)
+   and the photometric error forward and backward (7, 8) against their plain
+   versions (in float64) at the training step's shapes (B=4, 384x640), ragged
+   shapes and the run's shapes (two of its augmentation buckets, the warp also
+   from 720x1280 sources at the coords the augmentation gives it); times
+   kernel, plain and, where one PyTorch call computes the function, that call
+   (float32). Kernel 6 is also held to kernel 5 on the
+   widened source.
 7. training golden: one KBR micro-step at full width (ConvNeXt-B + ConvNeXt-T,
    B=2, 64x96) against the JAX package's loss, gradients and loss after one
    update, stored in `tests/fixtures/torch_train_golden.npz`
@@ -26,13 +33,29 @@ Phases, in order; any failure exits non-zero and prints no result:
 8. training slice: `MonoDepthTrainer(cfg)` -> `parsers.make_optimizer(cfg,
    nets, steps_per_epoch, accumulate=2)` -> `make_step_fn` on the KBR cfg at
    full width, B=4, 384x640 (synthetic scenes, supports shifted by +-2 px, a
-   fixed K), 3 optimizer updates; asserts a finite loss, a finite non-zero
-   gradient for every parameter of both nets and the launch counts of every
-   micro-step (warp 1, photo_fwd 2, photo_bwd 1, dwconv 108, dwconv_dw 54,
-   decoder_stage 0), then times micro-steps on the kernel path and on the
-   plain path (`kernels=False`) and reads the peak device memory.
+   fixed K), fused decoder stages on, 3 optimizer updates; asserts a finite
+   loss, a finite non-zero gradient for every parameter of both nets and the
+   launch counts of every micro-step (warp 1, photo_fwd 2, photo_bwd 1,
+   dwconv 108, dwconv_dw 54, decoder_stage 2, decoder_stage_bwd 2), then
+   times micro-steps on the kernel path and on the plain path
+   (`kernels=False`) and reads the peak device memory.
 9. train -> serve: the trained weights -> `core.save_checkpoint` ->
    `BenchmarkPredictor.load_model` -> one `quickstart.predict` request.
+10. run: `MonoDepthLoop` on the KBR cfg at full width (aspect-ratio
+   augmentation at p=0.7 towards 384x640, accumulate 2, batch 4) over an
+   in-memory loader of synthetic 720x1280 scenes in the layout the port's
+   `device_transform` SlowTV dataset ships: one epoch of 8 batches (4 updates,
+   several augmentation buckets), validation, last/best checkpoints and
+   markers; a second loop on the same directory resumes at epoch 1 with the
+   update count continued; `last.ckpt` serves through `BenchmarkPredictor` and
+   `quickstart.predict`. The loop is read as a user reads it: a scalar writer
+   at `log_every_n_steps: 1` and the loop's own timer. Asserts every kernel's
+   launch count over the epoch and prints the micro-step time per bucket and the epoch's wall time split
+   into loader / place+derive / AR-aug / step / validation / checkpoint.
+   Then one epoch at the recipe's own `trainer.matmul: 'high'` (TF32 matmuls)
+   and one with `trainer.warp_bf16` (the packed warp once per micro-step,
+   kernel 5 only from the augmentation), 24 batches each so that buckets repeat, after which the process-global
+   matmul precision and `cudnn.benchmark` are put back and checked.
 The last two lines are a JSON object per kernel and the contract line
 `{"ok": true, "device": {...}}`.
 
@@ -75,9 +98,27 @@ TRAIN_UPDATES = 3
 # (2 supports x 4 scales x B) stack, the photometric error on that stack and
 # on the untiled static (automask) stack, one backward (the static error
 # needs none), 54 ConvNeXt blocks (36 depth + 18 pose) each with a forward
-# and an input-gradient dwconv launch and a tap gradient, no fused stage.
-TRAIN_LAUNCHES = {'dwconv': 108, 'decoder_stage': 0, 'dwconv_dw': 54, 'warp': 1,
-                  'photo_fwd': 2, 'photo_bwd': 1}
+# and an input-gradient dwconv launch and a tap gradient, the two fused
+# decoder stages forward and backward.
+TRAIN_LAUNCHES = {'dwconv': 108, 'decoder_stage': 2, 'decoder_stage_bwd': 2, 'dwconv_dw': 54,
+                  'warp': 1, 'warp_packed': 0, 'photo_fwd': 2, 'photo_bwd': 1}
+# The run phase: cfg/kbr/default.yaml's trainer section (its `matmul: 'high'`
+# is run as well; the first run pins 'highest', the numerics of every other phase).
+RUN_SEED = 42
+RUN_BATCHES = 8        # the asserted epochs: 4 updates
+RUN_LONG_BATCHES = 24  # the two timing epochs: most buckets come up more than once
+RUN_SRC_SHAPE = (720, 1280)   # SlowTV's native frames
+RUN_CFG = {**KBR_TRAIN_CFG, 'seed': RUN_SEED, 'trainer': {
+    **KBR_TRAIN_CFG['trainer'], 'max_epochs': 1, 'resume_training': True, 'load_ckpt': None,
+    'log_every_n_steps': 1, 'monitor': 'loss', 'aspect_ratio_aug_prob': 0.7,
+    'aspect_ratio_ref_shape': [384, 640], 'gradient_clip_val': None, 'benchmark': True,
+    'matmul': 'highest', 'swa': None, 'early_stopping': None}}
+# Published peaks of one H100 SXM at 700 W: float32 outside the tensor cores, HBM3.
+# Two of the centre crops that the run's first epoch draws (seed 42): every kernel
+# is also held against its plain version at the shapes these buckets give it.
+RUN_CROPS = ((345, 1141), (620, 496))   # -> buckets 224x832 and 480x384
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
 CONVNEXT_B_BLOCKS = (3, 3, 27, 3)
 # Tolerances (float32 on both sides, sums taken in another order):
 DWCONV_ATOL = 1e-5   # 49-tap sums of O(1) values (measured ~1.4e-6)
@@ -86,6 +127,12 @@ GOLDEN_ATOL = 1e-5   # 36 blocks + decoder vs the JAX package on the CPU (~8e-7)
 # Against the plain version in float64:
 DW_ATOL = 1e-5       # tap gradient, normalized to O(1) taps; sums over b*h*w terms
 WARP_ATOL = 1e-5     # 4-corner bilinear of values in [0, 1]
+# The stage's backward, each gradient relative to its own largest magnitude
+# (a gradient that is exactly zero must come out exactly zero): 1e-5 for dx,
+# and for the weight and bias gradients (sums over P = b*2h*2w pixels)
+# 1e-5 * max(1, sqrt(P) / 16).
+STAGE_BWD_RTOL = 1e-5
+BF16_LOSS_RTOL = 5e-3  # first-step loss, bfloat16 warp sources (8 mantissa bits) vs float32
 # The photometric error's statistics are variances by cancellation,
 # P(x^2) - P(x)^2, as in the reference: in float32 on smooth image regions
 # (a sky) they carry ~1e-7 absolute error against c2 = 9e-4, so the map and
@@ -110,6 +157,52 @@ def cuda_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound_ms(n_bytes: float, flops: float) -> tuple[float, float]:
+    """(ms to move `n_bytes` at the card's memory rate, ms for `flops` float32
+    operations at its peak rate); the larger is the least time the card could take."""
+    return 1e3 * n_bytes / PEAK_BYTES, 1e3 * flops / PEAK_F32_FLOPS
+
+
+def new_result() -> dict:
+    return {'err': 0.0, 'ms': 0.0, 'plain_ms': 0.0, 'library_ms': None, 'bound_ms': 0.0,
+            'bound_bytes_ms': 0.0, 'bound_ops_ms': 0.0}
+
+
+def add_times(r: dict, n: int, ms: float, plain_ms: float, bound: tuple, library_ms=None) -> str:
+    """Add `n` launches' times per main path to a kernel's result -> text for the log."""
+    r['ms'] += n * ms
+    r['plain_ms'] += n * plain_ms
+    r['bound_ms'] += n * max(bound)
+    r['bound_bytes_ms'] += n * bound[0]
+    r['bound_ops_ms'] += n * bound[1]
+    text = (f'; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {max(bound):.4f} ms '
+            f'({"bytes" if bound[0] >= bound[1] else "operations"})')
+    if library_ms is not None:
+        r['library_ms'] = (r['library_ms'] or 0.0) + n * library_ms
+        text += f', library {library_ms:.4f} ms'
+    return text + f', x{n} per main path'
+
+
+def run_buckets() -> list[tuple[tuple[int, int], tuple[int, int]]]:
+    """(crop, bucket shape) of `RUN_CROPS` under the run's augmentation settings."""
+    from slowtv_monodepth_tpu_torch.core.aspect_ratio import sample_resize
+    ref = RUN_CFG['trainer']['aspect_ratio_ref_shape']
+    return [(crop, sample_resize(crop, ref, eps=0.8)) for crop in RUN_CROPS]
+
+
+def stage_cost(b, h, w, ci, cd, backward: bool) -> tuple[float, float]:
+    """(bytes, float32 operations) of one decoder stage, forward or backward."""
+    p = b * h * w
+    conv_flops = 2 * 9 * (ci * cd * p + cd * cd * 4 * p + cd * 4 * p)
+    params = 9 * (ci * cd + cd * cd + cd) + 2 * cd + 1
+    x, ha, feat, disp = p * ci, p * cd, 4 * p * cd, 4 * p
+    if not backward:  # reads x and the parameters, writes feat and disp
+        return 4 * (x + params + feat + disp), conv_flops
+    # reads x, the weights, ha, feat, disp and both cotangents; writes seven gradients;
+    # each conv has an input and a weight gradient of the forward's cost each.
+    return 4 * (x + params + ha + 2 * feat + 2 * disp + x + params), 2 * conv_flops
 
 
 # ---------------------------------------------------------------- phases
@@ -152,9 +245,9 @@ def _rand(rs, *shape, scale=1.0):
 def phase_kernels() -> dict:
     from slowtv_monodepth_tpu_torch.ops import (depthwise_conv, depthwise_conv_plain,
                                                 fused_upconv_stage, fused_upconv_stage_plain)
+    import torch.nn.functional as F
     rs = np.random.RandomState(0)
-    res = {'dwconv': {'err': 0.0, 'ms': 0.0, 'plain_ms': 0.0},
-           'decoder_stage': {'err': 0.0, 'ms': 0.0, 'plain_ms': 0.0}}
+    res = {'dwconv': new_result(), 'decoder_stage': new_result()}
 
     # (b, h, w, c, k, blocks per ConvNeXt-B forward): the four stage shapes
     # at B=2 (timed), at B=1 (a quickstart request), then ragged ones.
@@ -164,6 +257,11 @@ def phase_kernels() -> dict:
                 (1, 24, 40, 512, 7, 0), (1, 12, 20, 1024, 7, 0),
                 (2, 37, 53, 70, 7, 0), (1, 9, 13, 45, 1, 0), (1, 9, 13, 45, 3, 0),
                 (1, 9, 13, 45, 5, 0), (1, 9, 13, 45, 9, 0)]
+    # The training run's buckets at B=4: ConvNeXt-B's first and last stage,
+    # ConvNeXt-T's on the 2 x 4 pose pairs.
+    for _, (bh, bw) in run_buckets():
+        dw_cases += [(4, bh // 4, bw // 4, 128, 7, 0), (4, bh // 32, bw // 32, 1024, 7, 0),
+                     (8, bh // 4, bw // 4, 96, 7, 0), (8, bh // 32, bw // 32, 768, 7, 0)]
     for b, h, w, c, k, n in dw_cases:
         x = _rand(rs, b, h, w, c)
         wt = _rand(rs, c, 1, k, k, scale=1 / k)
@@ -175,9 +273,9 @@ def phase_kernels() -> dict:
         if n:
             ms = cuda_ms(lambda: depthwise_conv(x, wt, bias))
             pms = cuda_ms(lambda: depthwise_conv_plain(x, wt, bias))
-            res['dwconv']['ms'] += n * ms
-            res['dwconv']['plain_ms'] += n * pms
-            line += f'; kernel {ms:.4f} ms, plain (cuDNN) {pms:.4f} ms, x{n} per forward'
+            px = b * h * w * c  # the plain version IS the library call (cuDNN, groups=c)
+            line += add_times(res['dwconv'], n, ms, pms,
+                              bound_ms(4 * (2 * px + c * k * k + c), 2 * k * k * px), pms)
         print(line)
         if not err <= DWCONV_ATOL:
             fail(line)
@@ -187,6 +285,8 @@ def phase_kernels() -> dict:
     st_cases = [(2, 96, 160, 64, 32, 1), (2, 192, 320, 32, 16, 1),
                 (1, 96, 160, 64, 32, 0), (1, 192, 320, 32, 16, 0),
                 (2, 23, 37, 6, 5, 0), (1, 21, 19, 20, 20, 0)]
+    for _, (bh, bw) in run_buckets():  # the training run's buckets at B=4, stages 1 and 0
+        st_cases += [(4, bh // 4, bw // 4, 64, 32, 0), (4, bh // 2, bw // 2, 32, 16, 0)]
     for b, h, w, ci, cd, n in st_cases:
         args = (_rand(rs, b, h, w, ci, scale=0.5),
                 _rand(rs, cd, ci, 3, 3, scale=1 / np.sqrt(9 * ci)), _rand(rs, cd, scale=0.1),
@@ -201,9 +301,16 @@ def phase_kernels() -> dict:
         if n:
             ms = cuda_ms(lambda: fused_upconv_stage(*args))
             pms = cuda_ms(lambda: fused_upconv_stage_plain(*args))
-            res['decoder_stage']['ms'] += n * ms
-            res['decoder_stage']['plain_ms'] += n * pms
-            line += f'; kernel {ms:.4f} ms, plain (cuDNN) {pms:.4f} ms'
+            # Library: cuDNN for the stage's three convs alone (zero padding
+            # in the call, no ELU, upsample or sigmoid).
+            xa = args[0].permute(0, 3, 1, 2)
+            ub = torch.empty(b, cd, 2 * h, 2 * w, device='cuda').contiguous(
+                memory_format=torch.channels_last)
+            lms = cuda_ms(lambda: (F.conv2d(xa, args[1], args[2], padding=1),
+                                   F.conv2d(ub, args[3], args[4], padding=1),
+                                   F.conv2d(ub, args[5], args[6], padding=1)))
+            line += add_times(res['decoder_stage'], n, ms, pms,
+                              bound_ms(*stage_cost(b, h, w, ci, cd, False)), lms)
         print(line)
         if not err <= STAGE_ATOL:
             fail(line)
@@ -250,7 +357,7 @@ def _make_scenes() -> list[np.ndarray]:
             for kind in gen.PALETTES for s in (1, 2)]
 
 
-def _time_requests(net, imgs: np.ndarray, n: int = 10) -> list[float]:
+def _time_requests(net, imgs: np.ndarray, n: int = 5) -> list[float]:
     from slowtv_monodepth_tpu_torch.quickstart import predict
     predict(net, imgs)  # warm
     times = []
@@ -313,7 +420,9 @@ def _counters() -> dict:
     """Kernel name -> its wrapper, which carries the `launches` count."""
     from slowtv_monodepth_tpu_torch.ops import decoder_stage, dwconv, photo, sample
     return {'dwconv': dwconv.depthwise_conv, 'decoder_stage': decoder_stage.fused_upconv_stage,
+            'decoder_stage_bwd': decoder_stage.fused_upconv_stage_bwd,
             'dwconv_dw': dwconv.dwconv_dw, 'warp': sample.warp_bilinear,
+            'warp_packed': sample.warp_bilinear_packed,
             'photo_fwd': photo.photo_fwd, 'photo_bwd': photo.photo_bwd}
 
 
@@ -340,19 +449,21 @@ def _scene_pair(scenes, m: int, rs):
 
 
 def phase_train_kernels(scenes) -> dict:
-    from slowtv_monodepth_tpu_torch.ops import dwconv, photo, sample
+    import torch.nn.functional as F
+    from slowtv_monodepth_tpu_torch.core.aspect_ratio import crop_grid
+    from slowtv_monodepth_tpu_torch.ops import decoder_stage, dwconv, photo, sample
     rs = np.random.RandomState(1)
-    res = {k: {'err': 0.0, 'ms': 0.0, 'plain_ms': 0.0}
-           for k in ('dwconv_dw', 'warp', 'photo_fwd', 'photo_bwd')}
+    res = {k: new_result() for k in ('dwconv_dw', 'decoder_stage_bwd', 'warp', 'warp_packed',
+                                     'photo_fwd', 'photo_bwd')}
 
-    def record(name, err, tol, line, n=0, fn=None, plain=None):
+    def record(name, err, tol, line, n=0, fn=None, plain=None, bound=None, library=None):
         res[name]['err'] = max(res[name]['err'], err)
         line += f': max|kernel-plain(f64)| {err:.2e} (tol {tol:.1e})'
         if n:
             ms, pms = cuda_ms(fn, iters=10), cuda_ms(plain, iters=10)
-            res[name]['ms'] += n * ms
-            res[name]['plain_ms'] += n * pms
-            line += f'; kernel {ms:.4f} ms, plain {pms:.4f} ms, x{n} per micro-step'
+            lms = None if library is None else (
+                pms if library == 'plain' else cuda_ms(library, iters=10))
+            line += add_times(res[name], n, ms, pms, bound_ms(*bound), lms)
         print(line)
         if not err <= tol:
             fail(line)
@@ -363,12 +474,63 @@ def phase_train_kernels(scenes) -> dict:
                 (4, 12, 20, 1024, 7, 3), (8, 96, 160, 96, 7, 3), (8, 48, 80, 192, 7, 3),
                 (8, 24, 40, 384, 7, 9), (8, 12, 20, 768, 7, 3),
                 (2, 37, 53, 70, 7, 0), (1, 9, 13, 45, 3, 0), (1, 9, 13, 45, 9, 0)]
+    for _, (bh, bw) in run_buckets():  # the run's buckets: first and last stage of both nets
+        dw_cases += [(4, bh // 4, bw // 4, 128, 7, 0), (4, bh // 32, bw // 32, 1024, 7, 0),
+                     (8, bh // 4, bw // 4, 96, 7, 0), (8, bh // 32, bw // 32, 768, 7, 0)]
     for b, h, w, c, k, n in dw_cases:
         x = _rand(rs, b, h, w, c)
         g = _rand(rs, b, h, w, c, scale=1 / np.sqrt(b * h * w))
         err = _max_err(dwconv.dwconv_dw(x, g, k), dwconv.dwconv_dw_plain(x.double(), g.double(), k))
+        px = b * h * w * c  # the plain version IS the library call (cuDNN's weight gradient)
         record('dwconv_dw', err, DW_ATOL, f'dwconv_dw {(b, h, w, c)} k={k}', n,
-               lambda: dwconv.dwconv_dw(x, g, k), lambda: dwconv.dwconv_dw_plain(x, g, k))
+               lambda: dwconv.dwconv_dw(x, g, k), lambda: dwconv.dwconv_dw_plain(x, g, k),
+               (4 * (2 * px + k * k * c), 2 * k * k * px), 'plain')
+
+    # The decoder stage's backward (kernel 4) through the autograd Function:
+    # KBR stages 1 and 0 at B=4 (timed), ragged shapes, grids of 2 and 3
+    # where a reflect fold lands on the row it left, both stages at the run's
+    # augmentation buckets; with both cotangents, g_feat alone and g_disp alone.
+    names = ('dx', 'dwa', 'dba', 'dwb', 'dbb', 'dwo', 'dbo')
+    st_cases = [(4, 96, 160, 64, 32, 1), (4, 192, 320, 32, 16, 1), (2, 23, 37, 6, 5, 0),
+                (1, 21, 19, 20, 20, 0), (1, 2, 3, 4, 3, 0), (2, 3, 2, 2, 2, 0),
+                (4, 56, 176, 32, 16, 0)]
+    for _, (bh, bw) in run_buckets():
+        st_cases += [(4, bh // 4, bw // 4, 64, 32, 0), (4, bh // 2, bw // 2, 32, 16, 0)]
+    for b, h, w, ci, cd, n in st_cases:
+        args = (_rand(rs, b, h, w, ci, scale=0.5),
+                _rand(rs, cd, ci, 3, 3, scale=1 / np.sqrt(9 * ci)), _rand(rs, cd, scale=0.1),
+                _rand(rs, cd, cd, 3, 3, scale=1 / np.sqrt(9 * cd)), _rand(rs, cd, scale=0.1),
+                _rand(rs, 1, cd, 3, 3, scale=1 / np.sqrt(9 * cd)), _rand(rs, 1, scale=0.1))
+        g_feat, g_disp = _rand(rs, b, 2 * h, 2 * w, cd), _rand(rs, b, 2 * h, 2 * w, 1)
+        leaves = [t.clone().requires_grad_() for t in args]
+        feat, disp = decoder_stage.fused_upconv_stage(*leaves)
+        if feat.grad_fn is None or disp.grad_fn is None:
+            fail('fused_upconv_stage under grad is cut off from autograd')
+        saved = feat.grad_fn.saved_tensors  # x, six parameters, ha, feat, disp
+        for mode, gf, gd in (('both', g_feat, g_disp), ('g_feat', g_feat, None),
+                             ('g_disp', None, g_disp)):
+            pairs = [(o, g) for o, g in ((feat, gf), (disp, gd)) if g is not None]
+            got = torch.autograd.grad([o for o, _ in pairs], leaves, [g for _, g in pairs],
+                                      retain_graph=True)
+            want = decoder_stage.fused_upconv_stage_bwd_plain(
+                *(t.double() for t in args), *(None if g is None else g.double() for g in (gf, gd)))
+            wsum = max(1.0, np.sqrt(4 * b * h * w) / 16)
+            errs = {k: _max_err(a, t) / (float(t.abs().max()) or 1.0)
+                    for k, a, t in zip(names, got, want)}
+            worst = max(errs['dx'], max(v for k, v in errs.items() if k != 'dx') / wsum)
+            timed = n and mode == 'both'
+            plain_leaves = [t.clone().requires_grad_() for t in args]
+            plain_outs = decoder_stage.fused_upconv_stage_plain(*plain_leaves) if timed else None
+            record('decoder_stage_bwd', worst, STAGE_BWD_RTOL,
+                   f'decoder_stage_bwd {(b, h, w, ci)} -> cd={cd}, {mode} (each relative to its own '
+                   f'max|grad|; dx {errs["dx"]:.1e}, weight sums '
+                   f'{max(errs[k] for k in names[1:]):.1e} over {wsum:.0f})', n if timed else 0,
+                   lambda: decoder_stage.fused_upconv_stage_bwd(*saved, g_feat, g_disp),
+                   lambda: decoder_stage.fused_upconv_stage_bwd_plain(*args, g_feat, g_disp),
+                   stage_cost(b, h, w, ci, cd, True),
+                   # library: cuDNN's backward of the plain stage, its forward already done
+                   lambda: torch.autograd.grad(plain_outs, plain_leaves, [g_feat, g_disp],
+                                               retain_graph=True))
 
     # Warp: the step's (2 supports x 4 scales x B=4) stack of 384x640 RGB at
     # near-identity video coords, then ragged shapes at random coords.
@@ -383,13 +545,61 @@ def phase_train_kernels(scenes) -> dict:
                       torch.from_numpy(rs.uniform(0, w - 1, (b, ho, wo)).astype(np.float32)).cuda(),
                       torch.from_numpy(rs.uniform(0, h - 1, (b, ho, wo)).astype(np.float32)).cuda(),
                       0))
+    for b, h, w, c, ho, wo in [(1, 16, 20, 1, 9, 7), (2, 9, 11, 2, 6, 7)]:  # for kernel 6
+        cases.append((_rand(rs, b, h, w, c),
+                      torch.from_numpy(rs.uniform(0, w - 1, (b, ho, wo)).astype(np.float32)).cuda(),
+                      torch.from_numpy(rs.uniform(0, h - 1, (b, ho, wo)).astype(np.float32)).cuda(),
+                      0))
+    # The training run's shapes: the augmentation's resample of the B=4 targets and
+    # the 2 x 4 supports from 720x1280 onto a bucket, at the coords `crop_resize`
+    # gives the warp, and the step's stack at that bucket.
+    native = torch.nn.functional.interpolate(
+        img[:2 * TRAIN_B].permute(0, 3, 1, 2), size=RUN_SRC_SHAPE, mode='bilinear',
+        align_corners=False).permute(0, 2, 3, 1).contiguous()
+    for crop, (bh, bw) in run_buckets():
+        for src in (native[:TRAIN_B], native):
+            cx, cy = sample.border_coords(crop_grid(src, crop, (bh, bw)), *RUN_SRC_SHAPE)
+            cases.append((src, cx, cy, 0))
+        ys, xs = torch.meshgrid(torch.arange(float(bh)), torch.arange(float(bw)), indexing='ij')
+        cases.append((
+            torch.rand(m, bh, bw, 3, device='cuda'),
+            (xs.cuda() + 2 + torch.randn(m, bh, bw, device='cuda')).clamp(0, bw - 1).contiguous(),
+            (ys.cuda() + 0.5 * torch.randn(m, bh, bw, device='cuda')).clamp(0, bh - 1).contiguous(),
+            0))
+
+    def library_warp(im, cx, cy):
+        """`F.grid_sample` on the same samples (it returns the sample only, not ddx, ddy)."""
+        h, w = im.shape[1:3]
+        grid = torch.stack([(2 * cx + 1) / w - 1, (2 * cy + 1) / h - 1], -1)
+        return lambda: F.grid_sample(im.float().permute(0, 3, 1, 2), grid, mode='bilinear',
+                                     padding_mode='border', align_corners=False)
+
     for im, cx, cy, n in cases:
         got = sample.warp_bilinear(im, cx, cy)
         want = sample.warp_bilinear_plain(im.double(), cx.double(), cy.double())
+        px, pout = im.numel(), got[0].numel()
+        lib = library_warp(im, cx, cy)
+        lib_err = _max_err(lib().permute(0, 2, 3, 1), want[0])
         record('warp', max(_max_err(a, b) for a, b in zip(got, want)), WARP_ATOL,
-               f'warp {tuple(im.shape)} -> {tuple(cx.shape[1:])}', n,
-               lambda: sample.warp_bilinear(im, cx, cy),
-               lambda: sample.warp_bilinear_plain(im, cx, cy))
+               f'warp {tuple(im.shape)} -> {tuple(cx.shape[1:])} (F.grid_sample off by '
+               f'{lib_err:.1e})', n, lambda: sample.warp_bilinear(im, cx, cy),
+               lambda: sample.warp_bilinear_plain(im, cx, cy),
+               (4 * (px + 2 * cx.numel() + 3 * pout), 14 * pout), lib)
+        # Kernel 6: the same warp on the bfloat16-rounded source, against the
+        # plain version on the widened source and against kernel 5 on it.
+        im16 = im.to(torch.bfloat16)
+        got16 = sample.warp_bilinear(im16, cx, cy)
+        want16 = sample.warp_bilinear_plain(im16.double(), cx.double(), cy.double())
+        k5 = sample.warp_bilinear(im16.float(), cx, cy)
+        vs_k5 = max(_max_err(a, b) for a, b in zip(got16, k5))
+        if any(t.dtype != torch.float32 for t in got16) or not vs_k5 <= 1e-6:
+            fail(f'warp_packed {tuple(im.shape)}: off kernel 5 on the widened source by {vs_k5:.2e}')
+        record('warp_packed', max(_max_err(a, b) for a, b in zip(got16, want16)), WARP_ATOL,
+               f'warp_packed {tuple(im.shape)} bf16 -> {tuple(cx.shape[1:])} (vs kernel 5 on the '
+               f'widened source {vs_k5:.1e})', n, lambda: sample.warp_bilinear(im16, cx, cy),
+               lambda: sample.warp_bilinear_plain(im16, cx, cy),
+               (2 * px + 4 * (2 * cx.numel() + 3 * pout), 14 * pout),
+               library_warp(im16, cx, cy))  # the library call on the source widened in the call
 
     # Photometric error: the warped stack (m=32) and the static stack (m=8)
     # forward, the warped stack backward; then ragged shapes with exact ties.
@@ -397,6 +607,13 @@ def phase_train_kernels(scenes) -> dict:
         x, y = _scene_pair(scenes, mm, rs)
         g = torch.from_numpy(rs.rand(mm, 384, 640).astype(np.float32)).cuda()
         _photo_case(record, x, y, g, n_fwd, n_bwd)
+    for _, (bh, bw) in run_buckets():  # the warped and the static stack at the run's buckets
+        for mm in (m, 2 * TRAIN_B):
+            x, y = (F.interpolate(t.permute(0, 3, 1, 2), size=(bh, bw), mode='bilinear',
+                                  align_corners=False).permute(0, 2, 3, 1).contiguous()
+                    for t in _scene_pair(scenes, mm, rs))
+            g = torch.from_numpy(rs.rand(mm, bh, bw).astype(np.float32)).cuda()
+            _photo_case(record, x, y, g, 0, 0)
     for shape in [(2, 37, 70, 3), (1, 2, 2, 3), (3, 19, 33, 1)]:
         x = torch.from_numpy(rs.rand(*shape).astype(np.float32)).cuda()
         y = torch.from_numpy(rs.rand(*shape).astype(np.float32)).cuda()
@@ -412,9 +629,14 @@ def _photo_case(record, x, y, g, n_fwd, n_bwd):
     xd, yd = x.double(), y.double()
     want = photo.photo_fwd_plain(xd, yd, 0.85)
     plain32 = _max_err(photo.photo_fwd_plain(x, y, 0.85), want)
+    # Bytes: x, y in, the map out; g in and dx, dy out for the backward. Operations:
+    # five 3x3 box statistics per channel (45 adds) and the SSIM and L1 terms,
+    # about 80 per pixel and channel forward and 250 backward.
+    px, pmap = x.numel(), want.numel()
     record('photo_fwd', _max_err(photo.photo_fwd(x, y, 0.85), want),
            PHOTO_ATOL + 2 * plain32, f'photo_fwd {tuple(x.shape)} (plain f32 {plain32:.2e})',
-           n_fwd, lambda: photo.photo_fwd(x, y, 0.85), lambda: photo.photo_fwd_plain(x, y, 0.85))
+           n_fwd, lambda: photo.photo_fwd(x, y, 0.85), lambda: photo.photo_fwd_plain(x, y, 0.85),
+           (4 * (2 * px + pmap), 80 * px))
     want = photo.photo_bwd_plain(xd, yd, g.double(), 0.85)
     scale = max(1.0, max(float(w.abs().max()) for w in want))
     plain32 = max(_max_err(a, b) for a, b in zip(photo.photo_bwd_plain(x, y, g, 0.85), want))
@@ -422,7 +644,8 @@ def _photo_case(record, x, y, g, n_fwd, n_bwd):
     record('photo_bwd', err / scale, PHOTO_BWD_RTOL + 2 * plain32 / scale,
            f'photo_bwd {tuple(x.shape)} (relative to max|grad| {scale:.3g}; plain f32 '
            f'{plain32 / scale:.2e})', n_bwd,
-           lambda: photo.photo_bwd(x, y, g, 0.85), lambda: photo.photo_bwd_plain(x, y, g, 0.85))
+           lambda: photo.photo_bwd(x, y, g, 0.85), lambda: photo.photo_bwd_plain(x, y, g, 0.85),
+           (4 * (4 * px + g.numel()), 250 * px))
 
 
 def phase_train_golden() -> None:
@@ -482,7 +705,7 @@ def phase_train(scenes) -> tuple[dict, object]:
     from slowtv_monodepth_tpu_torch import parsers
     from slowtv_monodepth_tpu_torch.models import seeded_state_dict
     with torch.device('meta'):
-        meta = parsers.get_net(KBR_TRAIN_CFG['net'], fused_stages=False)
+        meta = parsers.get_net(KBR_TRAIN_CFG['net'])
     weights = {k: {kk: torch.from_numpy(v) for kk, v in seeded_state_dict(net, 0).items()}
                for k, net in meta.items()}
     x, y = _train_batch(scenes)
@@ -545,13 +768,226 @@ def phase_train_to_serve(trainer, scenes) -> None:
         fail('the trained checkpoint did not serve a finite (0, 1) disparity map')
 
 
-def profile_train(out: Path = ROOT / 'build' / 'train_profile.txt') -> None:
+# ------------------------------------------------------------------ training run
+class SceneLoader:
+    """In-memory stand-in for `parsers.get_dl` on the port's SlowTV dataset with
+    `device_transform: true` (the card's machine has no PIL to read frames):
+    batches (x, y, m) of synthetic frames with two support frames and K, where
+    x holds the sampled colour-jiggle parameters only and y the raw images.
+    """
+
+    def __init__(self, scenes, n_batches: int, shape, batch: int = TRAIN_B, seed: int = 0):
+        base = torch.from_numpy(np.stack(scenes)).permute(0, 3, 1, 2)
+        base = torch.nn.functional.interpolate(base, size=tuple(shape), mode='bilinear',
+                                               align_corners=False)
+        self.base = base.permute(0, 2, 3, 1).clamp(0, 1).contiguous().numpy()
+        self.n, self.batch, self.seed, self.epoch = n_batches, batch, seed, 0
+        h, w = shape
+        self.K = np.array([[0.58 * w, 0, 0.5 * w, 0], [0, 1.92 * h, 0.5 * h, 0], [0, 0, 1, 0],
+                           [0, 0, 0, 1]], np.float32)
+
+    def __len__(self) -> int:
+        return self.n
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def __iter__(self):
+        for i in range(self.n):
+            rs = np.random.RandomState(self.seed + 1000 * self.epoch + i)
+            idx = rs.randint(0, len(self.base), self.batch)
+            imgs = self.base[idx]
+            shift = int(rs.randint(2, 6))  # camera motion between frames, in px along W
+            supp = np.stack([np.roll(imgs, shift, axis=2), np.roll(imgs, -shift, axis=2)])
+            order = np.stack([rs.permutation(4) for _ in range(self.batch)]).astype(np.int32)
+            factors = np.where(order == 3, rs.uniform(-0.1, 0.1, order.shape),  # op 3 is the hue
+                               rs.uniform(0.8, 1.2, order.shape)).astype(np.float32)
+            x = {'supp_idxs': np.array(SUPP_IDXS), 'photo_order': order, 'photo_factors': factors,
+                 'photo_on': rs.rand(self.batch) < 0.5}
+            y = {'imgs': imgs, 'supp_imgs': supp,
+                 'K': np.ascontiguousarray(np.broadcast_to(self.K, (self.batch, 4, 4)))}
+            yield x, y, {'items': [str(j) for j in idx]}
+
+
+class RunLog:
+    """Scalar writer for `MonoDepthLoop` at `log_every_n_steps: 1`: per training
+    micro-step its loss and bucket shape as the loop logs them, and the time the
+    loop's own `Step` timer gained since the step before."""
+
+    def __init__(self):
+        self.loop, self.rows, self._seen = None, {}, 0.0
+
+    def add_scalar(self, tag: str, val: float, step: int) -> None:
+        if not tag.startswith('train_'):
+            return
+        self.rows.setdefault(step, {})[tag.split('/')[-1]] = val
+        if tag == 'train_losses/loss':
+            total = self.loop.timer.total_elapsed()['Step']
+            self.rows[step]['ms'], self._seen = total - self._seen, total
+
+    def steps(self) -> list:
+        """(global step, (height, width), ms, loss) per logged micro-step."""
+        return [(n, (int(r['height']), int(r['width'])), r['ms'], r['loss'])
+                for n, r in sorted(self.rows.items())]
+
+
+def _run_loop(cfg: dict, ckpt_dir: Path, scenes, val: bool, tag: str,
+              n_batches: int = RUN_BATCHES):
+    """One `MonoDepthLoop.fit()` over `SceneLoader`s -> (loop, stats): the launch
+    counts of the fit, each micro-step's (bucket, ms, loss) and the wall time."""
+    from slowtv_monodepth_tpu_torch.core import MonoDepthLoop
+    log = RunLog()
+    loop = log.loop = MonoDepthLoop(
+        cfg, ckpt_dir, writer=log,
+        train_dl=SceneLoader(scenes, n_batches, RUN_SRC_SHAPE, seed=RUN_SEED),
+        val_dl=SceneLoader(scenes, 1, (384, 640), seed=RUN_SEED + 1) if val else None)
+    loop.sync_timers = True  # each stage of the epoch waits for the device: a true split
+    _reset_counts()
+    t0 = time.perf_counter()
+    loop.fit()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    logged = log.steps()
+    epochs = loop.max_epochs - loop.start_epoch
+    if [n for n, *_ in logged] != list(range(loop.global_step - epochs * n_batches + 1,
+                                             loop.global_step + 1)):
+        fail(f'run {tag}: logged micro-steps {[n for n, *_ in logged]}, ended at '
+             f'{loop.global_step} after {epochs} epoch(s) of {n_batches}')
+    steps = [row[1:] for row in logged]
+    start = {'epoch': loop.start_epoch, 'step': logged[0][0] - 1}
+    stats = {'counts': _read_counts(), 'steps': steps, 'wall_ms': wall, 'start': start,
+             'split': loop.timer.total_elapsed()}
+    losses = [l for _, _, l in steps]
+    if not (losses and all(np.isfinite(losses))) or int(loop.trainer.bad_step) != -1:
+        fail(f'run {tag}: losses {losses}, bad_step {loop.trainer.bad_step}')
+    if not (ckpt_dir / 'finished').is_file() or list(ckpt_dir.glob('training_*')) \
+            or not (ckpt_dir / 'last.ckpt').is_file():
+        fail(f'run {tag}: markers or last.ckpt wrong in {sorted(p.name for p in ckpt_dir.iterdir())}')
+    per_bucket = {}
+    for shape, ms, _ in steps:
+        per_bucket.setdefault(shape, []).append(ms)
+    print(f'run {tag}: epoch(s) {start["epoch"]}..{loop.max_epochs - 1}, micro-steps '
+          f'{start["step"] + 1}..{loop.global_step}, now at update {loop.opt.updates}, losses '
+          f'{[round(l, 4) for l in losses]}')
+    repeats = [t for ts in per_bucket.values() for t in ts[1:]]
+    stats['median_ms'] = float(np.median([ms for _, ms, _ in steps]))
+    stats['repeat_median_ms'] = float(np.median(repeats)) if repeats else float('nan')
+    print(f'run {tag}: micro-step ms per bucket (the first use of a shape in a process includes '
+          'cuDNN autotuning and new allocations): '
+          + ', '.join(f'{h}x{w}: {"/".join(format(t, ".0f") for t in ts)}'
+                      for (h, w), ts in per_bucket.items())
+          + f'; median {stats["median_ms"]:.1f} ms, of the {len(repeats)} repeat uses '
+          f'{stats["repeat_median_ms"]:.1f} ms')
+    split = stats['split']
+    print(f'run {tag}: fit wall {wall:.0f} ms = ' + ', '.join(
+        f'{k} {v:.0f} ms' for k, v in split.items())
+        + f', other {wall - sum(split.values()):.0f} ms (stages synchronized)')
+    return loop, stats
+
+
+def _expected_run_counts(n: int, v: int, warp_bf16: bool = False) -> dict:
+    """Launches of `n` training micro-steps on 720x1280 sources (every batch is
+    resampled, 4 tensors each: x and y, imgs and supp_imgs) and `v` validation steps."""
+    step_warp = {'warp_packed' if warp_bf16 else 'warp': n + v}
+    counts = {'dwconv': 108 * n + 54 * v, 'decoder_stage': 2 * (n + v), 'decoder_stage_bwd': 2 * n,
+              'dwconv_dw': 54 * n, 'warp': 0, 'warp_packed': 0, 'photo_fwd': 2 * (n + v),
+              'photo_bwd': n}
+    counts.update(step_warp)
+    counts['warp'] += 4 * n
+    return counts
+
+
+def phase_run(scenes) -> dict:
+    """The KBR training run: fit, resume, serve; then 'high' matmuls and the bf16 warp."""
+    from slowtv_monodepth_tpu_torch.core import BenchmarkPredictor
+    from slowtv_monodepth_tpu_torch.quickstart import predict
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        run = Path(tmp) / 'run'
+        loop, first = _run_loop(RUN_CFG, run, scenes, val=True, tag="float32 'highest'")
+        want = _expected_run_counts(RUN_BATCHES, 1)
+        if first['counts'] != want:
+            fail(f'run: launch counts {first["counts"]}, expected {want}')
+        buckets = {s for s, _, _ in first['steps']}
+        if loop.opt.updates != RUN_BATCHES // 2 or len(buckets) < 3 \
+                or not buckets >= {b for _, b in run_buckets()} or not (run / 'best.ckpt').is_file():
+            fail(f'run: updates {loop.opt.updates}, buckets {buckets}, files '
+                 f'{sorted(p.name for p in run.iterdir())}')
+        print(f'run: launches over the epoch {first["counts"]} (as expected), {len(buckets)} '
+              f'aspect-ratio buckets, last.ckpt {(run / "last.ckpt").stat().st_size / 2**20:.0f} MiB')
+        launches = first['counts']
+
+        (run / 'finished').unlink()  # a finished run refuses a second start; ask for one more epoch
+        cfg2 = {**RUN_CFG, 'trainer': {**RUN_CFG['trainer'], 'max_epochs': 2}}
+        loop2, second = _run_loop(cfg2, run, scenes, val=True, tag='resumed')
+        # One more epoch of 4 updates: the counts go on from the checkpoint's, not from 0.
+        if second['start'] != {'epoch': 1, 'step': RUN_BATCHES} \
+                or loop2.opt.updates != 2 * loop.opt.updates or loop2.ckpt.best is None:
+            fail(f'run: the second loop started at {second["start"]}, ended at update '
+                 f'{loop2.opt.updates}, best {loop2.ckpt.best}')
+        print(f'run: resumed at epoch 1 after micro-step {second["start"]["step"]} and update '
+              f'{loop.opt.updates}; now at update {loop2.opt.updates}')
+        del loop, loop2
+        net = BenchmarkPredictor('cuda').load_model(run / 'last.ckpt')
+        disp = predict(net, scenes[0])
+        if not (disp.shape == scenes[0].shape[:2] and np.isfinite(disp).all()
+                and 0 < disp.min() and disp.max() < 1):
+            fail('run: last.ckpt did not serve a finite (0, 1) disparity map')
+        print(f'run -> serve: last.ckpt -> BenchmarkPredictor -> predict: disp {disp.shape} range '
+              f'[{disp.min():.4f}, {disp.max():.4f}] ok')
+        del net
+
+    # The recipe's own matmul precision (TF32 GEMMs; cuDNN convs stay exact), on
+    # the same batches and buckets, now warm in cuDNN's autotuner.
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = {**RUN_CFG, 'trainer': {**RUN_CFG['trainer'], 'matmul': 'high'}}
+        _, high = _run_loop(cfg, Path(tmp) / 'run', scenes, val=False, tag="float32 'high'",
+                            n_batches=RUN_LONG_BATCHES)
+        if torch.get_float32_matmul_precision() != 'high':
+            fail("run: trainer.matmul 'high' did not reach torch")
+        if high['counts'] != _expected_run_counts(RUN_LONG_BATCHES, 0):
+            fail(f"run 'high': launch counts {high['counts']}")
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = {**RUN_CFG, 'trainer': {**RUN_CFG['trainer'], 'warp_bf16': True}}
+        _, bf16 = _run_loop(cfg, Path(tmp) / 'run', scenes, val=False, tag='bf16 warp sources',
+                            n_batches=RUN_LONG_BATCHES)
+        want = _expected_run_counts(RUN_LONG_BATCHES, 0, warp_bf16=True)
+        if bf16['counts'] != want:
+            fail(f'run bf16: launch counts {bf16["counts"]}, expected {want}')
+        launches = {**launches, 'warp_packed': bf16['counts']['warp_packed']}
+    a, b = first['steps'][0][2], bf16['steps'][0][2]
+    print(f'run bf16: warp_packed {want["warp_packed"]} launches (one per micro-step), kernel 5 '
+          f'{want["warp"]} (the augmentation only); first-step loss {b:.6f} vs float32 {a:.6f}, '
+          f'relative difference {abs(a - b) / a:.1e} (tol {BF16_LOSS_RTOL:.0e})')
+    if not abs(a - b) <= BF16_LOSS_RTOL * a:
+        fail('run bf16: the first-step loss is off the float32 run')
+    print(f"run: micro-step medians: 'highest' (first epoch of the process, {RUN_BATCHES} batches) "
+          f"{first['median_ms']:.1f} ms; over the same {RUN_LONG_BATCHES} batches 'high' "
+          f"{high['median_ms']:.1f} ms (repeat uses {high['repeat_median_ms']:.1f} ms) and "
+          f"'highest' with bf16 warp sources {bf16['median_ms']:.1f} ms (repeat uses "
+          f"{bf16['repeat_median_ms']:.1f} ms)")
+
+    # Both settings are process-global: put them back for whatever runs next.
+    torch.set_float32_matmul_precision('highest')
+    torch.backends.cudnn.benchmark = False
+    if torch.get_float32_matmul_precision() != 'highest' or torch.backends.cuda.matmul.allow_tf32 \
+            or torch.backends.cudnn.allow_tf32:
+        fail('run: float32 matmul precision is not back at highest')
+    print("run: float32 matmul precision back at 'highest', cudnn.benchmark off")
+    return launches
+
+
+def profile_train(out: Path = ROOT / 'build' / 'train_profile.txt',
+                  matmul: str = 'highest') -> None:
     """Where the KBR micro-step's device time goes (not part of `main`).
 
     `python3 -c 'import chip_smoke; chip_smoke.profile_train()'` times 5 warm
     micro-steps of the kernel path, runs 2 more under `torch.profiler`, and
     writes the device time per kernel and per category to `out` (a path
     relative to the working directory, or under `build/` by default).
+    `matmul` is `torch.set_float32_matmul_precision`'s argument: 'highest'
+    (exact float32, the numerics of `main`) or 'high' (TF32 matmuls, the KBR
+    recipe's `trainer.matmul`).
     """
     out = Path(out)
     from torch.autograd import DeviceType
@@ -559,8 +995,9 @@ def profile_train(out: Path = ROOT / 'build' / 'train_profile.txt') -> None:
     from slowtv_monodepth_tpu_torch import parsers
     from slowtv_monodepth_tpu_torch.models import seeded_state_dict
     phase_device()
+    torch.set_float32_matmul_precision(matmul)
     with torch.device('meta'):
-        meta = parsers.get_net(KBR_TRAIN_CFG['net'], fused_stages=False)
+        meta = parsers.get_net(KBR_TRAIN_CFG['net'])
     weights = {k: {kk: torch.from_numpy(v) for kk, v in seeded_state_dict(net, 0).items()}
                for k, net in meta.items()}
     x, y = _train_batch(_make_scenes())
@@ -577,7 +1014,8 @@ def profile_train(out: Path = ROOT / 'build' / 'train_profile.txt') -> None:
             and not getattr(e, 'is_user_annotation', False) and not e.key.startswith('Optimizer.')]
     rows.sort(key=lambda r: -r[1])
     device = sum(r[1] for r in rows)
-    cats = {'hand-written kernels': ('dwconv_', 'warp_bilinear', 'photo_'),
+    cats = {'hand-written kernels': ('dwconv_', 'warp_bilinear', 'photo_', 'conv3x3_reflect',
+                                     'sigmoid_grad', 'reduce_weight_grad'),
             'convolution (cuDNN)': ('conv', 'cudnn', 'fprop', 'dgrad', 'wgrad', 'fft',
                                     'winograd'),  # before GEMM: implicit-GEMM convs
             'GEMM (cuBLAS/CUTLASS)': ('gemm',),
@@ -589,7 +1027,7 @@ def profile_train(out: Path = ROOT / 'build' / 'train_profile.txt') -> None:
         cat = next((c for c, keys in cats.items() if any(k in name for k in keys)),
                    'elementwise and other')
         totals[cat] += ms
-    lines = [f'KBR micro-step, kernel path, B={TRAIN_B}, 384x640, exact float32: wall '
+    lines = [f"KBR micro-step, kernel path, B={TRAIN_B}, 384x640, float32 matmul '{matmul}': wall "
              f'{wall:.2f} ms (median of 5, no profiler), device {device:.2f} ms in '
              f'{sum(r[2] for r in rows)} kernel launches (under the profiler) per micro-step: '
              f'idle {100 * (1 - device / wall):.1f}%']
@@ -614,23 +1052,38 @@ def main() -> None:
     phase_train_golden()
     train_launches, trainer = phase_train(scenes)
     phase_train_to_serve(trainer, scenes)
+    del trainer
+    torch.cuda.empty_cache()
+    run_launches = phase_run(scenes)
     sources = {'dwconv': ('dwconv.cu', 'pallas_dwconv.py:59'),
                'decoder_stage': ('decoder_stage.cu', 'pallas_decoder.py:249'),
+               'decoder_stage_bwd': ('decoder_stage_bwd.cu', 'pallas_decoder.py:268'),
                'dwconv_dw': ('dwconv.cu', 'pallas_dwconv.py:75'),
                'warp': ('warp.cu', 'pallas_warp.py:130'),
+               'warp_packed': ('warp.cu', 'pallas_warp.py:225'),
                'photo_fwd': ('photo.cu', 'pallas_photo.py:116'),
                'photo_bwd': ('photo.cu', 'pallas_photo.py:159')}
+    # Launches: the serving slice's for kernels 1 and 3, the training slice's
+    # for 2, 5, 7, 8, the training run's for this slice's 4 and 6.
+    counts = {**train_launches, **launches,
+              **{k: run_launches[k] for k in ('decoder_stage_bwd', 'warp_packed')}}
+    if not all(counts[name] > 0 and run_launches[name] > 0 for name in sources):
+        fail(f'a kernel was never launched on its main path: {counts}, run {run_launches}')
     line = {'kernels': [
         {'name': name, 'route': 'cuda', 'source': f'slowtv_monodepth_tpu_torch/csrc/{src}',
-         'replaces': f'slowtv_monodepth_tpu/ops/{rep}',
-         'launches': (launches if name in launches else train_launches)[name],
+         'replaces': f'slowtv_monodepth_tpu/ops/{rep}', 'launches': counts[name],
          'max_abs_err': kern[name]['err'], 'ms': kern[name]['ms'],
-         'plain_ms': kern[name]['plain_ms']}
+         'plain_ms': kern[name]['plain_ms'], 'bound_ms': kern[name]['bound_ms'],
+         'bound_by': ('bytes' if kern[name]['bound_bytes_ms'] >= kern[name]['bound_ops_ms']
+                      else 'operations'),
+         'library_ms': kern[name]['library_ms']}
         for name, (src, rep) in sources.items()]}
-    print('(launches: dwconv and decoder_stage in the serving slice, the others in the training '
-          'slice; ms / plain_ms: device time per ConvNeXt-B + decoder forward at B=2, 384x640, '
-          'for dwconv and decoder_stage, per KBR micro-step at B=4, 384x640 for the others; '
-          f'photo_bwd max_abs_err is relative to the largest gradient; total run '
+    print('(launches: dwconv and decoder_stage in the serving slice, decoder_stage_bwd in the '
+          "training run's first epoch, warp_packed in its bf16 epoch, the others in the training "
+          'slice; ms / plain_ms / bound_ms / library_ms: device time per ConvNeXt-B + decoder '
+          'forward at B=2, 384x640, for dwconv and decoder_stage, per KBR micro-step at B=4, '
+          '384x640 for the others; bound_ms from 67 TFLOP/s float32 and 3.35 TB/s; photo_bwd and '
+          "decoder_stage_bwd max_abs_err are relative to the gradient's own largest magnitude; total run "
           f'{time.perf_counter() - t0:.0f} s)')
     print(json.dumps(line))
     print(json.dumps({'ok': True, 'device': {

@@ -39,7 +39,9 @@ SIGNATURES = {
     'slowtv_dwconv_fwd_f32': [_PTR] * 4 + [_INT] * 6 + [_PTR],
     'slowtv_dwconv_dw_f32': [_PTR] * 4 + [_INT] * 7 + [_PTR],
     'slowtv_decoder_stage_fwd_f32': [_PTR] * 10 + [_INT] * 6 + [_PTR],
+    'slowtv_decoder_stage_bwd_f32': [_PTR] * 17 + [_INT] * 7 + [_PTR],
     'slowtv_warp_bilinear_f32': [_PTR] * 6 + [_INT] * 7 + [_PTR],
+    'slowtv_warp_bilinear_packed_bf16': [_PTR] * 6 + [_INT] * 7 + [_PTR],
     'slowtv_photo_fwd_f32': [_PTR] * 3 + [_INT] * 4 + [_FLOAT] * 2 + [_INT, _PTR],
     'slowtv_photo_bwd_f32': [_PTR] * 5 + [_INT] * 4 + [_FLOAT] * 2 + [_INT, _PTR],
 }
@@ -115,6 +117,8 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    lib.slowtv_decoder_stage_bwd_scratch_floats.argtypes = [_INT] * 5
+    lib.slowtv_decoder_stage_bwd_scratch_floats.restype = ctypes.c_longlong
     lib.slowtv_cuda_error_string.argtypes = [ctypes.c_int]
     lib.slowtv_cuda_error_string.restype = ctypes.c_char_p
     return lib

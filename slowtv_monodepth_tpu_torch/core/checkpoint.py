@@ -1,30 +1,59 @@
-"""Checkpoints in the reference's Lightning layout.
+"""Checkpoints in the reference's Lightning layout, with the best/last policy.
 
 A file holds `{'state_dict': {'nets.depth.<key>': tensor, ...},
 'hyper_parameters': {'cfg': cfg}}`: what the reference saves, what
 `api/data/import_reference_ckpt.py` (JAX package) reads, and what
 `load_checkpoint` here reads, so released reference checkpoints load as
 they are. The JAX package's own orbax checkpoints come across through
-`models.from_jax` (see that module).
+`models.from_jax` (see that module) and `train_state_from_jax`.
+
+A TRAINING checkpoint is the same file with more keys beside those two, so
+`BenchmarkPredictor.load_model` serves it unchanged: `optimizer` (Adam's
+moments and step counts, the update and micro-step counters, gradients
+accumulated between two updates), `epoch`, `global_step` and `monitor`.
+`restore_checkpoint` puts them back into the nets and the optimizer.
+
+Counterpart of `slowtv_monodepth_tpu/core/checkpoint.py` for the policy:
+`<ckpt_dir>/last.ckpt` every epoch, `<ckpt_dir>/best.ckpt` when the monitored
+value improves (max-mode iff the name contains 'Acc'), each with a
+`<name>.json` beside it holding {epoch, step, monitor}. Saves are
+synchronous `torch.save`s.
 """
 from __future__ import annotations
 
+import json
 from pathlib import Path
-from typing import Mapping
+from typing import Mapping, Optional
 
+import numpy as np
 import torch
 
-__all__ = ['save_checkpoint', 'load_checkpoint', 'net_state_dict']
+from .. import LOGGER
+
+__all__ = ['save_checkpoint', 'load_checkpoint', 'net_state_dict', 'restore_checkpoint',
+           'get_latest_ckpt', 'CheckpointManager', 'train_state_from_jax']
 
 
-def save_checkpoint(path, nets: Mapping[str, Mapping[str, torch.Tensor]],
-                    cfg: dict) -> None:
-    """:param nets: net name ('depth', ...) -> that net's `state_dict()`."""
+def save_checkpoint(path, nets: Mapping[str, Mapping[str, torch.Tensor]], cfg: dict,
+                    opt=None, epoch: int = 0, step: int = 0,
+                    monitor: Optional[float] = None) -> None:
+    """:param nets: net name ('depth', ...) -> that net's `state_dict()`.
+    :param opt: the `parsers.Optimizer` of a training run; with it the file
+        also carries the optimizer state, `epoch`, `global_step` and `monitor`,
+        and `<path stem>.json` repeats the three numbers.
+    """
     sd = {f'nets.{name}.{k}': v.detach().cpu()
           for name, net_sd in nets.items() for k, v in net_sd.items()}
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    torch.save({'state_dict': sd, 'hyper_parameters': {'cfg': cfg}}, path)
+    ckpt = {'state_dict': sd, 'hyper_parameters': {'cfg': cfg}}
+    if opt is not None:
+        meta = {'epoch': int(epoch), 'step': int(step),
+                'monitor': None if monitor is None else float(monitor)}
+        ckpt.update(optimizer=opt.state_dict(), epoch=meta['epoch'], global_step=meta['step'],
+                    monitor=meta['monitor'])
+        path.with_suffix('.json').write_text(json.dumps(meta))
+    torch.save(ckpt, path)
 
 
 def load_checkpoint(path) -> tuple[dict[str, torch.Tensor], dict]:
@@ -40,3 +69,128 @@ def net_state_dict(sd: Mapping[str, torch.Tensor], name: str) -> dict:
     if not out:
         raise ValueError(f'No "{pre}*" weights in the checkpoint.')
     return out
+
+
+def restore_checkpoint(path, nets: Mapping[str, torch.nn.Module], opt=None) -> dict:
+    """Load a checkpoint's weights into `nets` and, with `opt`, its optimizer
+    state into `opt` -> {epoch, step, monitor, cfg} (what the file has of them)."""
+    ckpt = torch.load(Path(path), map_location='cpu', weights_only=False)
+    for name, net in nets.items():
+        net.load_state_dict(net_state_dict(ckpt['state_dict'], name))
+    if opt is not None:
+        if 'optimizer' not in ckpt:
+            raise ValueError(f'"{path}" holds no optimizer state: not a training checkpoint.')
+        opt.load_state_dict(ckpt['optimizer'])
+    return {'epoch': ckpt.get('epoch', -1), 'step': ckpt.get('global_step', 0),
+            'monitor': ckpt.get('monitor'),
+            'cfg': dict(ckpt.get('hyper_parameters', {}).get('cfg', {}))}
+
+
+def get_latest_ckpt(ckpt_dir) -> Optional[Path]:
+    """The last checkpoint of a run directory, if there is one."""
+    last = Path(ckpt_dir) / 'last.ckpt'
+    return last if last.is_file() else None
+
+
+class CheckpointManager:
+    """best/last policy around `save_checkpoint`.
+
+    :param ckpt_dir: run checkpoint directory.
+    :param monitor: metric name to track for `best` (e.g. 'AbsRel', 'loss').
+    :param mode: 'min'/'max'/None; None infers max iff 'Acc' is in the name.
+    """
+
+    def __init__(self, ckpt_dir, monitor: str = 'loss', mode: Optional[str] = None):
+        self.ckpt_dir = Path(ckpt_dir)
+        self.ckpt_dir.mkdir(parents=True, exist_ok=True)
+        self.monitor = monitor
+        self.mode = mode or ('max' if 'Acc' in monitor else 'min')
+        self.best: Optional[float] = None
+
+    def is_better(self, value: float) -> bool:
+        if self.best is None:
+            return True
+        return value > self.best if self.mode == 'max' else value < self.best
+
+    def step(self, nets: Mapping[str, torch.nn.Module], opt, cfg: dict, epoch: int,
+             step: int, metrics: dict) -> None:
+        """End-of-epoch hook: always refresh `last`, update `best` on improvement."""
+        sds = {k: net.state_dict() for k, net in nets.items()}
+        value = metrics.get(self.monitor)
+        save_checkpoint(self.ckpt_dir / 'last.ckpt', sds, cfg, opt, epoch, step, value)
+        if value is not None and self.is_better(float(value)):
+            self.best = float(value)
+            LOGGER.info(f'New best {self.monitor}={self.best:.4f} @ epoch {epoch}')
+            save_checkpoint(self.ckpt_dir / 'best.ckpt', sds, cfg, opt, epoch, step, self.best)
+
+    def restore_best_value(self) -> None:
+        """Recover the tracked best value after a resume."""
+        meta_file = self.ckpt_dir / 'best.json'
+        if meta_file.is_file():
+            self.best = json.loads(meta_file.read_text()).get('monitor')
+
+
+def _find_adam(state):
+    """The `ScaleByAdamState` (anything with `mu` and `nu`) inside an optax state."""
+    if hasattr(state, 'mu') and hasattr(state, 'nu'):
+        return state
+    children = state if isinstance(state, (tuple, list)) else ()
+    if hasattr(state, 'inner_state'):  # optax.MaskedState and friends
+        children = (state.inner_state,)
+    for child in children:
+        if (found := _find_adam(child)) is not None:
+            return found
+    return None
+
+
+def train_state_from_jax(state, nets: Mapping[str, torch.nn.Module], opt,
+                         out_scales=None) -> int:
+    """Carry a JAX-package `TrainState` (leaves as numpy) into the port's nets
+    and `parsers.Optimizer`, so both step functions continue from one state.
+
+    :param state: `jax.tree.map(np.asarray, train_state)`: `params` {'depth',
+        'pose'}, `step`, and `opt_state` of `parsers.make_optimizer`: AdamW,
+        bare or under `optax.MultiSteps` (read by attribute: `mu`, `nu`, `count`;
+        `mini_step`, `gradient_step`, `acc_grads`, `inner_opt_state`).
+    :param out_scales: the depth net's `out_scales` in cfg order.
+    :return: the state's micro-step count (`TrainState.step`).
+
+    MultiSteps keeps the running MEAN of the micro-steps' gradients; the port
+    keeps their SUM in `.grad`, so the accumulator comes across times `mini_step`.
+    """
+    from ..models.from_jax import depth_state_dict_from_jax, pose_state_dict_from_jax
+    convert = {'depth': lambda t: depth_state_dict_from_jax(t, out_scales),
+               'pose': pose_state_dict_from_jax}
+    if set(nets) - set(convert):
+        raise NotImplementedError(f'Nets {sorted(set(nets) - set(convert))} have no bridge.')
+
+    def port_tensors(tree) -> dict:  # parameter (by identity) -> the tree's tensor for it
+        out = {}
+        for name, net in nets.items():
+            sd = convert[name](tree[name])
+            for k, p in net.named_parameters():
+                out[p] = sd[k].to(p.device, p.dtype).contiguous()
+        return out
+
+    ostate = state.opt_state
+    multi = hasattr(ostate, 'inner_opt_state')
+    adam = _find_adam(ostate.inner_opt_state if multi else ostate)
+    if adam is None:
+        raise ValueError('No Adam moments (mu, nu) in the optimizer state.')
+    if multi != (opt.accumulate > 1):
+        raise ValueError('The state and the optimizer disagree on gradient accumulation.')
+
+    with torch.no_grad():
+        for p, v in port_tensors(state.params).items():
+            p.copy_(v)
+    mu, nu = port_tensors(adam.mu), port_tensors(adam.nu)
+    count = int(np.asarray(adam.count))
+    for p in opt.params():
+        opt.opt.state[p] = {'step': torch.tensor(float(count)), 'exp_avg': mu[p].clone(),
+                            'exp_avg_sq': nu[p].clone()}
+    opt.updates = int(np.asarray(ostate.gradient_step)) if multi else count
+    opt.micro = int(np.asarray(ostate.mini_step)) if multi else 0
+    acc = port_tensors(ostate.acc_grads) if opt.micro else {}
+    for p in opt.params():
+        p.grad = acc[p] * opt.micro if opt.micro else None
+    return int(np.asarray(state.step))

@@ -31,17 +31,24 @@ def _tile_scales(x: torch.Tensor, n_sc: int) -> torch.Tensor:
 
 
 def _batched_synth(supp_imgs: torch.Tensor, depths: torch.Tensor, Ts: torch.Tensor,
-                   Ks: torch.Tensor, kernels: bool = True) -> torch.Tensor:
+                   Ks: torch.Tensor, kernels: bool = True,
+                   warp_bf16: bool = False) -> torch.Tensor:
     """One view synthesis over the (n, m) flattened support/scale batches.
 
     :param supp_imgs: (n, m, h, w, c); depths (m, h, w, 1) and Ks (m, 4, 4)
         shared across n; Ts (n, m, 4, 4).
+    :param warp_bf16: quantize the warp SOURCES to bfloat16 (finer than the
+        8-bit video frames): the warp then runs the packed kernel 6. The
+        warped frames and the whole loss chain stay float32.
     :return: (n, m, h, w, c) warped support frames.
     """
     n, m, h, w, c = supp_imgs.shape
+    src = supp_imgs.reshape(n * m, h, w, c)
+    if warp_bf16:
+        src = src.to(torch.bfloat16)
     depth_f = depths.expand((n,) + depths.shape).reshape(n * m, h, w, 1)
     Ks_f = Ks.expand((n,) + Ks.shape).reshape(n * m, 4, 4)
-    warped, _, _ = view_synth(supp_imgs.reshape(n * m, h, w, c), depth_f,
+    warped, _, _ = view_synth(src, depth_f,
                               Ts.reshape(n * m, 4, 4), Ks_f, kernels=kernels)
     return warped.reshape(n, m, h, w, c)
 
@@ -49,7 +56,8 @@ def _batched_synth(supp_imgs: torch.Tensor, depths: torch.Tensor, Ts: torch.Tens
 def image_recon(crit, depths: dict, imgs: torch.Tensor, supp_imgs: torch.Tensor,
                 Ts: torch.Tensor, Ks: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
-                noise: Optional[torch.Tensor] = None, kernels: bool = True):
+                noise: Optional[torch.Tensor] = None, kernels: bool = True,
+                warp_bf16: bool = False):
     """Photometric reconstruction loss over all scales.
 
     The automask's static error takes the UNTILED support frames (it does
@@ -65,7 +73,8 @@ def image_recon(crit, depths: dict, imgs: torch.Tensor, supp_imgs: torch.Tensor,
     Ts_s = torch.cat([Ts] * n_sc, dim=1)
     Ks_s = _tile_scales(Ks, n_sc)
 
-    warped = _batched_synth(supp_s, depths_s, Ts_s, Ks_s, kernels=kernels)
+    warped = _batched_synth(supp_s, depths_s, Ts_s, Ks_s, kernels=kernels,
+                            warp_bf16=warp_bf16)
     loss, ld = crit(warped, imgs_s, source=supp_imgs, generator=generator, noise=noise)
     ld = {k: v[:b] for k, v in ld.items()}
     ld['supp_imgs_warp'] = warped[:, :b]

@@ -76,7 +76,7 @@ class BenchmarkPredictor(MonoDepthPredictor):
         `self.device` in eval mode; calling it maps imgs -> {disp, ...}."""
         sd, cfg = load_checkpoint(ckpt_file)
         if cfg_files:
-            from slowtv_monodepth_tpu.config import load_merge_yaml  # jax-free, needs yaml
+            from ..config import load_merge_yaml
             cfg = load_merge_yaml(*cfg_files)
         tcfg = cfg.get('trainer', {})
         self.min_depth = tcfg.get('min_depth')

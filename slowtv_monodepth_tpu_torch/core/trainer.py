@@ -15,9 +15,9 @@ Batches are NHWC, as in the JAX package:
 Ported losses: `img_recon` and `disp_smooth` (the KBR recipe); every other
 key raises `NotImplementedError` (ROADMAP queue A item 9).
 
-The decoder's fused stages are forward only on the card (their backward is
-TPU kernel 4, not ported yet), so the trainer builds its depth net with
-`fused_stages=False`, as the JAX package trains by default.
+The depth net's two skip-less decoder stages run fused, forward (kernel 3)
+and backward (kernel 4), as in serving. `trainer.warp_bf16` quantizes the
+warp sources to bfloat16 and runs the packed warp (kernel 6).
 """
 from __future__ import annotations
 
@@ -39,16 +39,15 @@ class MonoDepthTrainer:
 
     :param cfg: {net, loss, [trainer], [optimizer], [scheduler]} as the JAX
         package's cfg.
-    :param kernels: run the hand-written kernels (depthwise conv, warp,
-        photometric error). False runs their plain PyTorch versions: only for
-        timing the plain path on the card.
+    :param kernels: run the hand-written kernels (depthwise conv, decoder
+        stage, warp, photometric error). False runs their plain PyTorch
+        versions: only for timing the plain path on the card.
     """
 
     def __init__(self, cfg: dict, kernels: bool = True):
         self.cfg = cfg
         self.kernels = kernels
-        # Unfused decoder stages: the fused stage's backward (kernel 4) is not ported.
-        self.nets = parsers.get_net(cfg['net'], kernels=kernels, fused_stages=False)
+        self.nets = parsers.get_net(cfg['net'], kernels=kernels)
         self.losses, self.weights = parsers.get_loss(cfg['loss'], kernels=kernels)
 
         tcfg = cfg.get('trainer', {})
@@ -56,9 +55,10 @@ class MonoDepthTrainer:
         self.max_depth = tcfg.get('max_depth', None)
         self.should_scale = bool(self.min_depth or self.max_depth)
         self.always_fwd_pose = tcfg.get('always_fwd_pose', True)
-        if str(tcfg.get('precision', 32)) != '32' or tcfg.get('warp_bf16') or tcfg.get('remat'):
-            raise NotImplementedError('precision / warp_bf16 / remat are TPU recipe options; '
-                                      'the port trains in float32 (ROADMAP ground rule "Recipe").')
+        if str(tcfg.get('precision', 32)) != '32' or tcfg.get('remat'):
+            raise NotImplementedError('precision / remat are TPU recipe options; the port '
+                                      'trains in float32 (ROADMAP ground rule "Recipe").')
+        self.warp_bf16 = bool(tcfg.get('warp_bf16', False))
         depth = self.nets['depth']
         if depth.mask_name or depth.use_virtual_stereo:
             raise NotImplementedError('Training with predicted masks or virtual stereo is '
@@ -135,7 +135,7 @@ class MonoDepthTrainer:
             if k == 'img_recon':
                 l, ld = h.image_recon(crit, fwd['depth_up'], y['imgs'], y['supp_imgs'],
                                       fwd['Ts'], Ks, generator=generator, noise=noise,
-                                      kernels=self.kernels)
+                                      kernels=self.kernels, warp_bf16=self.warp_bf16)
             elif k == 'disp_smooth':
                 l, ld = h.disp_smooth(crit, fwd['disp'], y['imgs'])
             else:
@@ -176,15 +176,26 @@ class MonoDepthTrainer:
         return out
 
     # ------------------------------------------------------------------- step
-    def make_step_fn(self, supp_idxs: tuple, opt: parsers.Optimizer) -> Callable:
+    def make_step_fn(self, supp_idxs: tuple, opt: Optional[parsers.Optimizer] = None,
+                     train: bool = True) -> Callable:
         """-> step(x, y, generator=None, noise=None) -> scalars: one micro-step.
 
         Forward, loss, backward, `opt.step()` (an update every `accumulate`
         micro-steps), and the `bad_step` tripwire, all without a host sync.
-        (The JAX package's `train=False` evaluation belongs to its loop,
-        ROADMAP A7.)
+        `train=False` gives the validation step: forward and loss in eval
+        mode under `no_grad`, nothing updated and nothing counted.
         """
         supp_idxs = tuple(supp_idxs)
+
+        def eval_step(x: dict, y: dict, generator: Optional[torch.Generator] = None,
+                      noise: Optional[torch.Tensor] = None) -> dict:
+            self.nets.eval()
+            with torch.no_grad():
+                loss, (ld, fwd) = self.loss_fn(x, y, supp_idxs, generator, noise)
+            return self.scalars(loss, ld, fwd, y)
+
+        if not train:
+            return eval_step
 
         def step(x: dict, y: dict, generator: Optional[torch.Generator] = None,
                  noise: Optional[torch.Tensor] = None) -> dict:

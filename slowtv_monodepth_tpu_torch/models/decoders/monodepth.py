@@ -12,9 +12,9 @@ A stage with reflect padding, no skip, an output at its scale, one output
 channel, nearest upsampling and a sigmoid runs as ONE fused stage
 (`ops.fused_upconv_stage`: the Hopper kernel on the card). In the KBR model
 those are the two full-resolution stages, 1 and 0. The fused stage is
-forward only on the card (its backward is TPU kernel 4, not ported yet), so
-a decoder built for training passes `fused_stages=False` and runs those
-stages as plain modules, as the stages with a skip always do.
+differentiable (its backward is a kernel too), so serving and training run
+the same stages; `fused_stages=False` runs them as plain modules, as the
+stages with a skip always do.
 """
 from __future__ import annotations
 
@@ -40,9 +40,8 @@ class MonodepthDecoder(nn.Module):
     :param pad_mode: {'reflect', 'zeros'}.
     :param kernels: route the fused stages through the hand-written kernel;
         False runs the plain PyTorch version of the same stage.
-    :param fused_stages: run the skip-less stages as fused stages (serving).
-        False runs them as plain modules, which training needs until the
-        fused stage's backward (kernel 4) is ported.
+    :param fused_stages: run the skip-less stages as fused stages (the
+        default, as the JAX package's switch). False runs them as plain modules.
     """
     num_ch_dec = (16, 32, 64, 128, 256)
 

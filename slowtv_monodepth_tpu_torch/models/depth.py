@@ -38,8 +38,7 @@ class DepthNet(nn.Module):
         decoder stage). False runs their plain PyTorch versions: only for
         timing the plain path on the card.
     :param fused_stages: run the decoders' skip-less stages as fused stages
-        (serving, the default). Training passes False: the fused stage's
-        backward (kernel 4) is not ported yet.
+        (the default, in serving and in training). False runs plain modules.
     """
 
     def __init__(self, enc_name: str = 'convnext_base', pretrained: bool = True,

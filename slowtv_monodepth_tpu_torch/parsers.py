@@ -2,6 +2,8 @@
 
 Counterpart of `slowtv_monodepth_tpu/parsers.py` for the ported keys:
 - `get_net`: `depth` (`DepthNet`) and `pose` (`PoseNet`);
+- `get_ds` / `get_dl`: the registered datasets (`data/`) behind the
+  prefetching loader, one loader per dataset, interleaved round-robin;
 - `get_loss`: `img_recon` (`ReconstructionLoss`) and `disp_smooth`
   (`SmoothReg`), with their static weights;
 - `get_sched`: the product of the configured epoch factors, evaluated at
@@ -9,7 +11,8 @@ Counterpart of `slowtv_monodepth_tpu/parsers.py` for the ported keys:
 - `get_opt` / `make_optimizer`: AdamW as an `Optimizer` that is stepped
   once per micro-step and averages the gradients over `accumulate`
   micro-steps, with the schedule counting optimizer updates
-  (`optax.MultiSteps` semantics).
+  (`optax.MultiSteps` semantics), optional clipping of the averaged
+  gradient by its global norm and the loop's LR scale.
 Other keys raise `NotImplementedError` naming the ROADMAP item that ports
 them. Torch optimizers hold their parameters, so `get_opt` and
 `make_optimizer` take the nets as their second argument.
@@ -25,7 +28,8 @@ from .core.schedules import SCHEDULES
 from .losses import ReconstructionLoss, SmoothReg
 from .models import DepthNet, PoseNet
 
-__all__ = ['get_net', 'get_loss', 'get_sched', 'get_opt', 'make_optimizer', 'Optimizer']
+__all__ = ['get_net', 'get_loss', 'get_ds', 'get_dl', 'get_sched', 'get_opt',
+           'make_optimizer', 'Optimizer']
 
 NETS = {'depth': DepthNet, 'pose': PoseNet}
 LOSSES = {'img_recon': ReconstructionLoss, 'disp_smooth': SmoothReg}
@@ -37,8 +41,7 @@ def _listify(v):
 
 def get_net(cfg: dict, **kw) -> nn.ModuleDict:
     """Nets of the cfg `net` section (`~` deletes one). `kw` goes to every net
-    (`kernels`), and `fused_stages` to `DepthNet` only."""
-    fused = kw.pop('fused_stages', True)
+    (`kernels`)."""
     nets = {}
     for k, net_kw in cfg.items():
         if net_kw is None:
@@ -46,8 +49,7 @@ def get_net(cfg: dict, **kw) -> nn.ModuleDict:
         if k not in NETS:
             raise NotImplementedError(f'Net "{k}" is not ported yet (have {sorted(NETS)}); '
                                       'ROADMAP queue A items 9-10.')
-        extra = dict(kw, fused_stages=fused) if k == 'depth' else kw
-        nets[k] = NETS[k](**{key: _listify(v) for key, v in net_kw.items()}, **extra)
+        nets[k] = NETS[k](**{key: _listify(v) for key, v in net_kw.items()}, **kw)
     return nn.ModuleDict(nets)
 
 
@@ -65,6 +67,48 @@ def get_loss(cfg: dict, **kw) -> tuple[dict, dict]:
         weights[k] = float(loss_kw.pop('weight', 1.0))
         losses[k] = LOSSES[k](**loss_kw, **(kw if k == 'img_recon' else {}))
     return losses, weights
+
+
+_MODES = {'train', 'val', 'test'}
+
+
+def get_ds(cfg: dict, mode: Optional[str] = None) -> dict:
+    """Datasets of the cfg `dataset` section, with the mode's overrides merged in."""
+    from .registry import DATA_REG, trigger_datasets
+    trigger_datasets()
+    ds = {}
+    for t, kw in cfg.items():
+        if kw is None:
+            continue
+        if not isinstance(kw, dict):
+            raise TypeError(f"Expected dict of dicts. Got '{kw}'.")
+        if t not in DATA_REG:
+            raise NotImplementedError(f'Dataset "{t}" is not ported yet (have {sorted(DATA_REG)}); '
+                                      'ROADMAP queue A item 5.')
+        c = {k: v for k, v in kw.items() if k not in _MODES}
+        if mode:
+            c.update(kw.get(mode, {}))
+        ds[t] = DATA_REG[t](**c)
+    return ds
+
+
+def get_dl(mode: str, cfg_ds: dict, cfg_dl: dict, shard_id: int = 0, num_shards: int = 1):
+    """The (multi-)dataset loader of a mode. Several datasets interleave
+    through `ConcatDataLoader` (every batch comes from one dataset: shapes
+    differ between them), each seeded `seed * 10**i`."""
+    from .data import ConcatDataLoader, DataLoader
+    datasets = list(get_ds(cfg_ds, mode).values())
+    if not datasets:
+        raise ValueError('No datasets configured.')
+
+    cfg = {k: v for k, v in cfg_dl.items() if k not in _MODES} | (cfg_dl.get(mode) or {})
+    cfg.pop('pin_memory', None)
+    cfg.pop('use_ddp', None)
+    seed = cfg.pop('seed', 42)
+
+    dls = [DataLoader(d, seed=seed * 10 ** i, shard_id=shard_id, num_shards=num_shards, **cfg)
+           for i, d in enumerate(datasets)]
+    return dls[0] if len(dls) == 1 else ConcatDataLoader(dls)
 
 
 def get_sched(cfg: Optional[dict], steps_per_epoch: int) -> Callable[[int], float]:
@@ -96,14 +140,20 @@ class Optimizer:
     AdamW multiplies by `1 - lr * wd` rounded to float32, which is 1% off at
     lr * wd = 1e-6), steps the inner optimizer and clears the gradients.
     Other calls leave the parameters as they are, as `optax.MultiSteps`
-    emits zero updates.
+    emits zero updates. `grad_clip` scales the averaged gradient down to
+    that global norm first (`optax.clip_by_global_norm` inside MultiSteps).
+
+    `state_dict` / `load_state_dict` carry Adam's moments and step counts, the
+    update and micro-step counters and, between two updates, the gradients
+    accumulated so far.
     """
 
     def __init__(self, opt: torch.optim.Optimizer, sched: Callable[[int], float],
-                 accumulate: int = 1):
+                 accumulate: int = 1, grad_clip: Optional[float] = None):
         self.opt = opt
         self.sched = sched
         self.accumulate = max(int(accumulate), 1)
+        self.grad_clip = grad_clip
         self.base_lrs = [g['lr'] for g in opt.param_groups]
         self.updates = 0
         self.micro = 0
@@ -119,9 +169,12 @@ class Optimizer:
         self.micro += 1
         if self.micro < self.accumulate:
             return False
+        grads = [p.grad for p in self.params() if p.grad is not None]
         if self.accumulate > 1:
-            torch._foreach_mul_([p.grad for g in self.opt.param_groups for p in g['params']
-                                 if p.grad is not None], 1.0 / self.accumulate)
+            torch._foreach_mul_(grads, 1.0 / self.accumulate)
+        if self.grad_clip:
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            torch._foreach_mul_(grads, self.grad_clip / torch.clamp(norm, min=self.grad_clip))
         for group, lr in zip(self.opt.param_groups, self.lrs()):
             group['lr'] = lr
             if group['decay']:
@@ -132,19 +185,36 @@ class Optimizer:
         self.micro = 0
         return True
 
+    def params(self) -> list:
+        """The parameters, in the groups' order."""
+        return [p for g in self.opt.param_groups for p in g['params']]
+
+    def state_dict(self) -> dict:
+        grads = [p.grad for p in self.params()] if self.micro else None
+        return {'opt': self.opt.state_dict(), 'updates': self.updates, 'micro': self.micro,
+                'grads': grads}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.opt.load_state_dict(sd['opt'])
+        self.updates, self.micro = int(sd['updates']), int(sd['micro'])
+        for p, g in zip(self.params(), sd['grads'] or [None] * len(self.params())):
+            p.grad = None if g is None else g.to(p.device, p.dtype).clone()
+
 
 def _has(name: str, key: str) -> bool:
     return any(key in part for part in name.split('.'))
 
 
 def get_opt(cfg: dict, nets: nn.Module, steps_per_epoch: int = 1,
-            sched_cfg: Optional[dict] = None, accumulate: int = 1) -> Optimizer:
+            sched_cfg: Optional[dict] = None, accumulate: int = 1, lr_scale: float = 1.0,
+            grad_clip: Optional[float] = None) -> Optimizer:
     """The AdamW of the cfg `optimizer` section over `nets`' parameters.
 
     - One LR, `weight_decay` set: decay only parameters with ndim > 1
       (timm's `filter_bias_and_bn`, which the JAX package mirrors).
     - `backbone_lr`: parameters under an `encoder` take it, the rest `lr`,
       and the decay applies to all of them (no filter, as the reference).
+    - `lr_scale` multiplies both LRs (the loop's `auto_scale_lr`).
     """
     cfg = dict(cfg)
     name = cfg.pop('type', cfg.pop('opt', None))
@@ -156,7 +226,7 @@ def get_opt(cfg: dict, nets: nn.Module, steps_per_epoch: int = 1,
     if cfg.pop('frozen_bn', False) or cfg.pop('flatten', False):
         raise NotImplementedError('frozen_bn (BatchNorm nets, ROADMAP A10) and flatten '
                                   '(a TPU option) are not ported.')
-    lr = float(cfg.pop('lr', 1e-3))
+    lr = float(cfg.pop('lr', 1e-3)) * lr_scale
     blr = cfg.pop('backbone_lr', None)
     kw = {'betas': (cfg.pop('b1', 0.9), cfg.pop('b2', 0.999)), 'eps': cfg.pop('eps', 1e-8)}
     wd_cfg = cfg.pop('weight_decay', None)
@@ -167,7 +237,7 @@ def get_opt(cfg: dict, nets: nn.Module, steps_per_epoch: int = 1,
     named = [(n, p) for n, p in nets.named_parameters() if p.requires_grad]
 
     if blr:
-        blr = float(blr)
+        blr = float(blr) * lr_scale
         if blr == lr:
             raise ValueError('Backbone LR must be different from the main LR')
         groups = [{'params': [p for n, p in named if _has(n, 'encoder')], 'lr': blr},
@@ -180,13 +250,13 @@ def get_opt(cfg: dict, nets: nn.Module, steps_per_epoch: int = 1,
         groups = [{'params': [p for _, p in named], 'decay': wd}]
     # Adam's moments from torch; the decoupled decay is `Optimizer.step`'s.
     opt = torch.optim.Adam(groups, lr=lr, weight_decay=0.0, **kw)
-    return Optimizer(opt, get_sched(sched_cfg, steps_per_epoch), accumulate)
+    return Optimizer(opt, get_sched(sched_cfg, steps_per_epoch), accumulate, grad_clip)
 
 
 def make_optimizer(cfg: dict, nets: nn.Module, steps_per_epoch: int = 1,
-                   accumulate: int = 1) -> Optimizer:
-    """The training optimizer of a full cfg: AdamW under the cfg's schedule,
-    with gradient accumulation. (The JAX package's `lr_scale` and
-    `grad_clip` belong to its loop, ROADMAP A7.)"""
+                   accumulate: int = 1, lr_scale: float = 1.0,
+                   grad_clip: Optional[float] = None) -> Optimizer:
+    """The training optimizer of a full cfg: clip -> AdamW under the cfg's
+    schedule -> gradient accumulation."""
     return get_opt(cfg.get('optimizer', {}), nets, steps_per_epoch, cfg.get('scheduler'),
-                   accumulate=accumulate)
+                   accumulate=accumulate, lr_scale=lr_scale, grad_clip=grad_clip)

@@ -75,7 +75,7 @@ def save_disp(disp: np.ndarray, img_file: Path, out_dir: Path, out_ext: list) ->
         if ext == '.png':
             from PIL import Image
 
-            from slowtv_monodepth_tpu.tools.viz import rgb_from_disp  # numpy + matplotlib
+            from .tools.viz import rgb_from_disp
             rgb = (rgb_from_disp(disp) * 255).astype(np.uint8)
             Image.fromarray(rgb).save(out_dir / f'{name}{ext}')
         elif ext == '.npy':

@@ -73,7 +73,7 @@ def seeded_weights(seed: int = SEED) -> dict:
     from . import parsers
     from .models import seeded_state_dict
     with torch.device('meta'):
-        nets = parsers.get_net(CFG['net'], fused_stages=False)
+        nets = parsers.get_net(CFG['net'])
     return {k: seeded_state_dict(net, seed) for k, net in nets.items()}
 
 

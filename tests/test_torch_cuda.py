@@ -145,17 +145,136 @@ def test_dwconv_gradient_on_the_card_matches_plain(card, b, h, w, c, k):
     assert dwconv.dwconv_dw.launches == n_dw + 1
 
 
-def test_fused_stage_raises_under_grad(card):
+def _stage_args(rs, b, h, w, ci, cd):
+    return [_rand(rs, b, h, w, ci, scale=0.5),
+            _rand(rs, cd, ci, 3, 3, scale=1 / np.sqrt(9 * ci)), _rand(rs, cd, scale=0.1),
+            _rand(rs, cd, cd, 3, 3, scale=1 / np.sqrt(9 * cd)), _rand(rs, cd, scale=0.1),
+            _rand(rs, 1, cd, 3, 3, scale=1 / np.sqrt(9 * cd)), _rand(rs, 1, scale=0.1)]
+
+
+STAGE_BWD_CASES = [(2, 16, 24, 64, 32), (1, 8, 12, 32, 16), (2, 23, 37, 6, 5), (1, 21, 19, 20, 20),
+                   (1, 2, 3, 4, 3), (2, 3, 2, 2, 2), (1, 2, 2, 40, 33)]
+
+
+@pytest.mark.parametrize('cotangents', ['both', 'feat', 'disp'])
+@pytest.mark.parametrize('b,h,w,ci,cd', STAGE_BWD_CASES)
+def test_decoder_stage_backward_kernel_matches_plain(card, b, h, w, ci, cd, cotangents):
+    """Kernel 4 through the autograd Function against autograd through the
+    plain stage in float64; each gradient to 1e-5 of its own largest magnitude
+    (an exactly zero gradient must come out exactly zero), the weight and bias
+    sums times sqrt(pixels) / 16 for their length (>= 1)."""
     from slowtv_monodepth_tpu_torch.ops import decoder_stage
     rs = np.random.RandomState(5)
-    args = [_rand(rs, 1, 8, 12, 32, scale=0.5), _rand(rs, 16, 32, 3, 3, scale=0.06),
-            _rand(rs, 16), _rand(rs, 16, 16, 3, 3, scale=0.08), _rand(rs, 16),
-            _rand(rs, 1, 16, 3, 3, scale=0.08), _rand(rs, 1)]
-    args[1].requires_grad_()
-    with pytest.raises(NotImplementedError, match='kernel 4'):
-        decoder_stage.fused_upconv_stage(*args)
+    args = _stage_args(rs, b, h, w, ci, cd)
+    g_feat = _rand(rs, b, 2 * h, 2 * w, cd) if cotangents != 'disp' else None
+    g_disp = _rand(rs, b, 2 * h, 2 * w, 1) if cotangents != 'feat' else None
+    leaves = [t.clone().requires_grad_() for t in args]
+    n = decoder_stage.fused_upconv_stage_bwd.launches
+    feat, disp = decoder_stage.fused_upconv_stage(*leaves)
+    assert feat.grad_fn is not None and disp.grad_fn is not None, 'cut off from autograd'
+    pairs = [(o, g) for o, g in ((feat, g_feat), (disp, g_disp)) if g is not None]
+    got = torch.autograd.grad([o for o, _ in pairs], leaves, [g for _, g in pairs])
+    torch.cuda.synchronize()
+    assert decoder_stage.fused_upconv_stage_bwd.launches == n + 1
+    want = decoder_stage.fused_upconv_stage_bwd_plain(
+        *_f64(*args), *(None if g is None else g.double() for g in (g_feat, g_disp)))
+    wsum = max(1.0, np.sqrt(4 * b * h * w) / 16)
+    for name, g, w_ in zip(('dx', 'dwa', 'dba', 'dwb', 'dbb', 'dwo', 'dbo'), got, want):
+        assert g.shape == w_.shape
+        tol = ATOL * w_.abs().max().item() * (1.0 if name == 'dx' else wsum)
+        err = (g - w_).abs().max().item()
+        assert err <= tol, f'{name}: {err:.3g} > {tol:.3g}'
+
+
+def test_decoder_stage_backward_honours_needs_input_grad(card):
+    """Only the weights of conv_b require grad: the others come back None."""
+    from slowtv_monodepth_tpu_torch.ops import decoder_stage
+    rs = np.random.RandomState(8)
+    args = _stage_args(rs, 1, 6, 5, 8, 4)
+    args[3].requires_grad_()
+    feat, disp = decoder_stage.fused_upconv_stage(*args)
+    (feat.sum() + disp.sum()).backward()
+    torch.cuda.synchronize()
+    want = decoder_stage.fused_upconv_stage_bwd_plain(
+        *_f64(*args), torch.ones_like(feat).double(), torch.ones_like(disp).double())
+    assert _close(args[3].grad, want[3])
+    assert all(t.grad is None for i, t in enumerate(args) if i != 3)
     with torch.no_grad():
         decoder_stage.fused_upconv_stage(*args)  # serving still runs
+
+
+def test_depthnet_gradients_with_fused_stages_match_plain_path(card):
+    """Every parameter's gradient, kernel path (float32) vs plain path (float64)."""
+    from slowtv_monodepth_tpu_torch.models import DepthNet, seeded_state_dict
+    from slowtv_monodepth_tpu_torch.ops import decoder_stage
+    cfg = dict(enc_name='convnext_atto', out_scales=(0, 1, 2, 3))
+    nets = [DepthNet(**cfg, kernels=k) for k in (True, False)]
+    sd = {k: torch.from_numpy(v) for k, v in seeded_state_dict(nets[0], 0).items()}
+    for net in nets:
+        net.load_state_dict(sd)
+    kernel_net, plain_net = nets[0].cuda().train(), nets[1].double().cuda().train()
+    x = _rand(np.random.RandomState(2), 2, 3, 64, 96)
+    n = decoder_stage.fused_upconv_stage_bwd.launches
+    for net, inp in ((kernel_net, x), (plain_net, x.double())):
+        sum((d * d).mean() for d in net(inp)['disp'].values()).backward()
+    assert decoder_stage.fused_upconv_stage_bwd.launches == n + 2
+    for (k, p), q in zip(kernel_net.named_parameters(), plain_net.parameters()):
+        assert p.grad is not None and torch.isfinite(p.grad).all(), k
+        assert (p.grad - q.grad).abs().max().item() <= 1e-4 * max(
+            1e-6, q.grad.abs().max().item()), k
+
+
+WARP_BF16_CASES = [(2, 24, 160, 3, 16, 200), (1, 16, 128, 1, 16, 128), (3, 37, 53, 2, 37, 53),
+                   (1, 5, 7, 8, 9, 4), (2, 9, 11, 4, 6, 7), (1, 8, 8, 5, 8, 8)]
+
+
+@pytest.mark.parametrize('b,h,w,c,ho,wo', WARP_BF16_CASES)
+def test_packed_warp_kernel_matches_plain_and_float32_kernel(card, b, h, w, c, ho, wo):
+    """Kernel 6 on a bfloat16 source against the plain version on the widened
+    source (float64) and against kernel 5 on the widened source."""
+    from slowtv_monodepth_tpu_torch.ops import sample
+    rs = np.random.RandomState(6)
+    img = _rand(rs, b, h, w, c).to(torch.bfloat16)
+    fx = torch.from_numpy(np.clip(rs.uniform(-0.2, 1.2, (b, ho, wo)) * (w - 1), 0, w - 1)
+                          .astype(np.float32)).cuda()
+    fy = torch.from_numpy(np.clip(rs.uniform(-0.2, 1.2, (b, ho, wo)) * (h - 1), 0, h - 1)
+                          .astype(np.float32)).cuda()
+    n5, n6 = sample.warp_bilinear.launches, sample.warp_bilinear_packed.launches
+    got = sample.warp_bilinear(img, fx, fy)
+    torch.cuda.synchronize()
+    assert (sample.warp_bilinear.launches, sample.warp_bilinear_packed.launches) == (n5, n6 + 1)
+    want = sample.warp_bilinear_plain(img.double(), fx.double(), fy.double())
+    k5 = sample.warp_bilinear(img.float(), fx, fy)
+    for g, w_, f in zip(got, want, k5):
+        assert g.dtype == torch.float32 and _close(g, w_)
+        assert (g - f).abs().max().item() <= 1e-6 * max(1.0, f.abs().max().item())
+
+
+def test_warp_refuses_other_dtypes_on_the_card(card):
+    from slowtv_monodepth_tpu_torch.ops import sample
+    img = torch.zeros(1, 4, 4, 3, device='cuda', dtype=torch.float16)
+    f = torch.zeros(1, 4, 4, device='cuda')
+    with pytest.raises(TypeError):
+        sample.warp_bilinear(img, f, f)
+
+
+def test_grid_sample_bf16_source_gradients_on_the_card(card):
+    """bf16 source through `grid_sample`: grid gradient, and the image's
+    cotangent in bfloat16 (float32 scatter-add, cast back)."""
+    from slowtv_monodepth_tpu_torch.ops import sample
+    rs = np.random.RandomState(9)
+    img = _rand(rs, 2, 9, 11, 3).to(torch.bfloat16).requires_grad_()
+    grid = torch.from_numpy(rs.uniform(-1.1, 1.1, (2, 6, 7, 2)).astype(np.float32)).cuda()
+    grid.requires_grad_()
+    g = _rand(rs, 2, 6, 7, 3)
+    sample.grid_sample(img, grid).backward(g)
+    ref_img = img.detach().double().requires_grad_()
+    ref_grid = grid.detach().double().requires_grad_()
+    sample.grid_sample(ref_img, ref_grid, kernels=False).backward(g.double())
+    assert img.grad.dtype == torch.bfloat16
+    assert (img.grad.double() - ref_img.grad).abs().max().item() <= 2 ** -7 * max(
+        1.0, ref_img.grad.abs().max().item())
+    assert _close(grid.grad, ref_grid.grad)
 
 
 @pytest.mark.parametrize('b,h,w,c,ho,wo', [(2, 24, 160, 3, 16, 200), (1, 16, 128, 1, 16, 128),
