@@ -8,15 +8,21 @@ Phases, in order; any failure exits non-zero and prints no result:
 2. build: compile the port's CUDA kernels from `slowtv_monodepth_tpu_torch/csrc`.
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the serving path's shapes (B=2), ragged shapes and the shapes
-   two of the training run's augmentation buckets give it; times both.
+   two of the training run's augmentation buckets give it; times both. The
+   fused ConvNeXt block (kernel 9) is held to its plain version in float64,
+   erf and tanh, and timed at the four ConvNeXt-B stage shapes at B=1 and B=4.
 4. golden: ConvNeXt-B + monodepth at full width with seeded weights
    (`models.seeded_state_dict`) against the JAX package's outputs stored in
-   `tests/fixtures/torch_port_golden.npz`.
+   `tests/fixtures/torch_port_golden.npz`, with the ConvNeXt blocks unfused
+   and again with `fused_blocks=True`.
 5. slice: a reference-layout checkpoint of those weights with the KBR
    `net.depth` cfg -> `BenchmarkPredictor.load_model` -> `quickstart.predict`
    on 6 synthetic 384x640 scenes -> .npy files; asserts the outputs and the
-   launch counts (36 dwconv + 2 decoder stages per request), then times warm
-   requests at B=1 and B=4 on the kernel path and on the plain path.
+   launch counts (36 dwconv + 2 decoder stages per request). Then the same
+   through a second checkpoint whose cfg says `fused_blocks: True` (36 fused
+   blocks, 0 dwconv, 2 decoder stages per request; the same maps; a forward
+   under grad raises). Times warm requests at B=1 and B=4 on the kernel
+   path, with the fused blocks on, and on the plain path.
 6. training kernels: the tap gradient (kernel 2), the decoder stage's
    backward (4), the warp on float32 (5) and on packed bfloat16 sources (6)
    and the photometric error forward and backward (7, 8) against their plain
@@ -101,7 +107,8 @@ TRAIN_UPDATES = 3
 # and an input-gradient dwconv launch and a tap gradient, the two fused
 # decoder stages forward and backward.
 TRAIN_LAUNCHES = {'dwconv': 108, 'decoder_stage': 2, 'decoder_stage_bwd': 2, 'dwconv_dw': 54,
-                  'warp': 1, 'warp_packed': 0, 'photo_fwd': 2, 'photo_bwd': 1}
+                  'warp': 1, 'warp_packed': 0, 'photo_fwd': 2, 'photo_bwd': 1,
+                  'convnext_block': 0}  # training builds its nets with the blocks unfused
 # The run phase: cfg/kbr/default.yaml's trainer section (its `matmul: 'high'`
 # is run as well; the first run pins 'highest', the numerics of every other phase).
 RUN_SEED = 42
@@ -124,6 +131,10 @@ CONVNEXT_B_BLOCKS = (3, 3, 27, 3)
 DWCONV_ATOL = 1e-5   # 49-tap sums of O(1) values (measured ~1.4e-6)
 STAGE_ATOL = 1e-5    # 9*ci-term sums (ci <= 64) through ELU, sigmoid (~2.5e-6)
 GOLDEN_ATOL = 1e-5   # 36 blocks + decoder vs the JAX package on the CPU (~8e-7)
+# The fused ConvNeXt block against its plain version in float64, relative to
+# max|y|: two float32 FMA chains of C and 4C <= 4096 O(1) terms each, summed in
+# another order (measured ~5e-7; the plain version in float32 sits at ~1e-6).
+BLOCK_RTOL = 5e-6
 # Against the plain version in float64:
 DW_ATOL = 1e-5       # tap gradient, normalized to O(1) taps; sums over b*h*w terms
 WARP_ATOL = 1e-5     # 4-corner bilinear of values in [0, 1]
@@ -233,9 +244,18 @@ def phase_build() -> None:
     _build.load()
     print(f'build: {b.path.relative_to(ROOT)} '
           f'({"nvcc " + format(b.seconds, ".1f") + " s" if b.seconds else "already built"})')
-    for line in b.log.splitlines():
+    log = b.log or b.path.with_suffix('.log').read_text()
+    entry = ''
+    for line in log.splitlines():
         if 'registers' in line or 'spill' in line or 'Compiling entry' in line:
             print(f'  {line.strip()}')
+        if 'Compiling entry' in line:
+            entry = line
+        if 'convnext_block_fwd_kernel' in entry and 'spill' in line \
+                and '0 bytes spill stores, 0 bytes spill loads' not in line:
+            fail(f'the fused ConvNeXt block kernel spills registers: {line.strip()}')
+    if 'convnext_block_fwd_kernel' not in log:
+        fail('the build log does not show the fused ConvNeXt block kernel')
 
 
 def _rand(rs, *shape, scale=1.0):
@@ -278,7 +298,14 @@ def phase_kernels() -> dict:
                               bound_ms(4 * (2 * px + c * k * k + c), 2 * k * k * px), pms)
         print(line)
         if not err <= DWCONV_ATOL:
-            fail(line)
+            # Say which side left the function before failing: both against the
+            # plain version in float64, and the same compare evaluated once more.
+            ref = depthwise_conv_plain(x.double(), wt.double(), bias.double())
+            ek = (depthwise_conv(x, wt, bias) - ref).abs()
+            ep = (depthwise_conv_plain(x, wt, bias) - ref).abs()
+            fail(f'{line}; evaluated again: kernel vs plain in float64 {ek.max().item():.2e} '
+                 f'({int((ek > DWCONV_ATOL).sum())} of {ek.numel()} values off), plain vs plain in '
+                 f'float64 {ep.max().item():.2e} ({int((ep > DWCONV_ATOL).sum())} values off)')
 
     # (b, h, w, ci, cd, stages per forward): KBR stages 1 and 0 at B=2
     # (timed) and B=1, then ragged ones.
@@ -314,17 +341,112 @@ def phase_kernels() -> dict:
         print(line)
         if not err <= STAGE_ATOL:
             fail(line)
+    res['convnext_block'] = _block_kernel_cases(rs)
     torch.cuda.synchronize()
     return res
 
 
-def _seeded_net(seed: int, kernels: bool, sd=None):
+def block_cost(b, h, w, c) -> tuple[float, float]:
+    """(bytes, float32 operations) of one ConvNeXt block: x in and y out, the
+    parameters once; the two matrix products (16 C^2 per pixel) and the 49 taps."""
+    p = b * h * w
+    return 4 * (2 * p * c + 8 * c * c + 49 * c + 9 * c), 16 * p * c * c + 98 * p * c
+
+
+def block_bwd_cost(b, h, w, c) -> tuple[float, float]:
+    """(bytes, float32 operations) of the fused block's backward (the TPU kernel
+    `pallas_convnext.py:_block_bwd_jit`, not ported yet): both forward products
+    again and four more of their size (two input gradients, two weight
+    gradients: 48 C^2 per pixel in all), the taps forward and their two
+    transposes; x and dy in, dx out, the parameters in and their gradients out."""
+    p = b * h * w
+    return 4 * (3 * p * c + 2 * (8 * c * c + 49 * c + 9 * c)), 48 * p * c * c + 3 * 98 * p * c
+
+
+def _block_kernel_cases(rs) -> dict:
+    """Kernel 9 against the unfused block in float64; times at the ConvNeXt-B shapes."""
+    from slowtv_monodepth_tpu_torch.ops import (depthwise_conv, fused_convnext_block,
+                                                fused_convnext_block_plain)
+    from slowtv_monodepth_tpu_torch.ops.convnext_block import tile_pixels
+    import torch.nn.functional as F
+    res = new_result()
+    stages = list(zip((96, 48, 24, 12), (160, 80, 40, 20), (128, 256, 512, 1024),
+                      CONVNEXT_B_BLOCKS))
+    # (b, h, w, c): the four stage shapes at B=2 and at B=1 (where clusters of 4
+    # and 8 blocks share a tile), ragged shapes (pixel counts off every tile,
+    # heights under the 7x7 halo, channels off 32 and 256), then what a request
+    # at two of the run's bucket shapes gives the first and last stage.
+    cases = [(b, h, w, c) for b in (2, 1) for h, w, c, _ in stages]
+    cases += [(2, 37, 53, 160), (1, 5, 7, 96), (1, 3, 4, 40), (3, 9, 9, 264), (1, 7, 11, 1536)]
+    for _, (bh, bw) in run_buckets():
+        cases += [(1, bh // 4, bw // 4, 128), (1, bh // 32, bw // 32, 1024)]
+
+    def make(b, h, w, c):
+        return (_rand(rs, b, h, w, c), _rand(rs, c, 1, 7, 7, scale=1 / 7), _rand(rs, c, scale=0.1),
+                1 + _rand(rs, c, scale=0.1), _rand(rs, c, scale=0.1),
+                _rand(rs, 4 * c, c, scale=c ** -0.5), _rand(rs, 4 * c, scale=0.1),
+                _rand(rs, c, 4 * c, scale=(4 * c) ** -0.5), _rand(rs, c, scale=0.1),
+                _rand(rs, c, scale=0.5))
+
+    for shape in cases:
+        args = make(*shape)
+        for approximate in (False, True):
+            want = fused_convnext_block_plain(*(t.double() for t in args), approximate=approximate)
+            got = fused_convnext_block(*args, approximate=approximate)
+            torch.cuda.synchronize()
+            scale = float(want.abs().max())
+            err = _max_err(got, want) / scale
+            p32 = _max_err(fused_convnext_block_plain(*args, approximate=approximate), want) / scale
+            res['err'] = max(res['err'], err)
+            line = (f'convnext_block {shape} {"tanh" if approximate else "erf"}: max|kernel-plain(f64)| '
+                    f'/ max|y| {err:.2e} (tol {BLOCK_RTOL:.0e}; plain f32 {p32:.2e}; max|y| {scale:.2f})')
+            print(line)
+            if not err <= BLOCK_RTOL:
+                fail(line)
+
+    def unfused(x, dww, dwb, lnw, lnb, w1, b1, w2, b2, gamma):
+        """The block as the net runs it with the blocks unfused: kernel 1, then
+        PyTorch's LayerNorm and cuBLAS."""
+        u = F.layer_norm(depthwise_conv(x, dww, dwb), (x.shape[-1],), lnw, lnb, 1e-6)
+        return x + gamma * F.linear(F.gelu(F.linear(u, w1, b1)), w2, b2)
+
+    # Times: a request is B=1 (what the kernels line carries), a batch B=4.
+    for b in (1, 4):
+        total = new_result()
+        for h, w, c, n in stages:
+            args = make(b, h, w, c)
+            ms = cuda_ms(lambda: fused_convnext_block(*args), iters=10)
+            pms = cuda_ms(lambda: fused_convnext_block_plain(*args), iters=10)
+            ums = cuda_ms(lambda: unfused(*args), iters=10)
+            cost = block_cost(b, h, w, c)
+            m, s = tile_pixels(b * h * w, c)
+            times = add_times(res if b == 1 else total, n, ms, pms, bound_ms(*cost))
+            print(f'convnext_block {(b, h, w, c)}: tiles of {m} pixels, {s} block(s) each, '
+                  f'{cost[1] / ms / 1e9:.1f} TFLOP/s; unfused with kernel 1 {ums:.4f} ms{times}')
+            total['unfused'] = total.get('unfused', 0.0) + n * ums
+        t = res if b == 1 else total
+        print(f'convnext_block, 36 blocks at B={b}: kernel {t["ms"]:.3f} ms, plain {t["plain_ms"]:.3f} '
+              f'ms, unfused with kernel 1 {total["unfused"]:.3f} ms, bound {t["bound_ms"]:.3f} ms')
+    # The backward's bound, from the shapes alone: the KBR micro-step at B=4 with
+    # every block fused would launch it for 36 ConvNeXt-B blocks and for the 18
+    # ConvNeXt-T blocks of the pose net on its 2 x 4 image pairs.
+    bwd = [bound_ms(*block_bwd_cost(TRAIN_B, h, w, c)) for h, w, c, n in stages for _ in range(n)]
+    bwd += [bound_ms(*block_bwd_cost(2 * TRAIN_B, h, w, c)) for h, w, c, n in
+            zip((96, 48, 24, 12), (160, 80, 40, 20), (96, 192, 384, 768), (3, 3, 9, 3))
+            for _ in range(n)]
+    print(f'convnext_block backward (not ported yet): {len(bwd)} launches per KBR micro-step at '
+          f'B={TRAIN_B}, 384x640, with every block fused; bound {sum(max(t) for t in bwd):.3f} ms '
+          f'({"operations" if all(t[1] >= t[0] for t in bwd) else "mixed"})')
+    return res
+
+
+def _seeded_net(seed: int, kernels: bool, sd=None, fused_blocks: bool = False):
     from slowtv_monodepth_tpu_torch.models import DepthNet, seeded_state_dict
     if sd is None:
         with torch.device('meta'):
             meta = DepthNet(**KBR_DEPTH_CFG)
         sd = {k: torch.from_numpy(v) for k, v in seeded_state_dict(meta, seed).items()}
-    net = DepthNet(**KBR_DEPTH_CFG, kernels=kernels)
+    net = DepthNet(**KBR_DEPTH_CFG, kernels=kernels, fused_blocks=fused_blocks)
     net.load_state_dict(sd)
     return net.cuda().eval(), sd
 
@@ -334,18 +456,19 @@ def phase_golden():
         gold = {k: f[k] for k in f.files}
     net, sd = _seeded_net(int(gold['seed']), kernels=True)
     x = torch.from_numpy(gold['x']).cuda().permute(0, 3, 1, 2)
-    with torch.no_grad():
-        disp = net(x)['disp']
-    for s in range(4):
-        got = disp[s].permute(0, 2, 3, 1).cpu().numpy()
-        want = gold[f'disp_{s}']
-        if got.shape != want.shape:
-            fail(f'golden disp {s}: shape {got.shape} vs {want.shape}')
-        err = float(np.abs(got - want).max())
-        print(f'golden ConvNeXt-B disp[{s}] {got.shape}: max|port-JAX| {err:.2e} '
-              f'(tol {GOLDEN_ATOL:.0e})')
-        if not err <= GOLDEN_ATOL:
-            fail(f'golden disp {s} off by {err}')
+    for tag, net in (('', net), (', fused blocks', _seeded_net(0, True, sd, fused_blocks=True)[0])):
+        with torch.no_grad():
+            disp = net(x)['disp']
+        for s in range(4):
+            got = disp[s].permute(0, 2, 3, 1).cpu().numpy()
+            want = gold[f'disp_{s}']
+            if got.shape != want.shape:
+                fail(f'golden disp {s}{tag}: shape {got.shape} vs {want.shape}')
+            err = float(np.abs(got - want).max())
+            print(f'golden ConvNeXt-B{tag} disp[{s}] {got.shape}: max|port-JAX| {err:.2e} '
+                  f'(tol {GOLDEN_ATOL:.0e})')
+            if not err <= GOLDEN_ATOL:
+                fail(f'golden disp {s}{tag} off by {err}')
     return sd
 
 
@@ -370,22 +493,29 @@ def _time_requests(net, imgs: np.ndarray, n: int = 5) -> list[float]:
 
 def phase_slice(sd, scenes) -> dict:
     from slowtv_monodepth_tpu_torch.core import BenchmarkPredictor, save_checkpoint
-    from slowtv_monodepth_tpu_torch.ops import depthwise_conv, fused_upconv_stage
+    from slowtv_monodepth_tpu_torch.ops import (depthwise_conv, fused_convnext_block,
+                                                fused_upconv_stage)
     from slowtv_monodepth_tpu_torch.quickstart import predict, save_disp
 
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        cfg = {'net': {'depth': KBR_DEPTH_CFG}, 'trainer': KBR_TRAINER_CFG}
-        save_checkpoint(tmp / 'kbr_seeded.ckpt', {'depth': sd}, cfg)
-        net = BenchmarkPredictor('cuda').load_model(tmp / 'kbr_seeded.ckpt')
-
-        depthwise_conv.launches = fused_upconv_stage.launches = 0
+    def serve(tmp: Path, name: str, depth_cfg: dict):
+        """checkpoint -> predictor -> one request per scene -> (net, launches, maps)."""
+        cfg = {'net': {'depth': depth_cfg}, 'trainer': KBR_TRAINER_CFG}
+        save_checkpoint(tmp / f'{name}.ckpt', {'depth': sd}, cfg)
+        net = BenchmarkPredictor('cuda').load_model(tmp / f'{name}.ckpt')
+        counted = {'dwconv': depthwise_conv, 'decoder_stage': fused_upconv_stage,
+                   'convnext_block': fused_convnext_block}
+        for f in counted.values():
+            f.launches = 0
         for i, img in enumerate(scenes):
-            save_disp(predict(net, img), f'request_{i}', tmp, ['.npy'])
+            save_disp(predict(net, img), f'{name}_{i}', tmp, ['.npy'])
         torch.cuda.synchronize()
-        launches = {'dwconv': depthwise_conv.launches,
-                    'decoder_stage': fused_upconv_stage.launches}
-        outs = [np.load(tmp / f'request_{i}.npy') for i in range(len(scenes))]
+        return (net, {k: f.launches for k, f in counted.items()},
+                [np.load(tmp / f'{name}_{i}.npy') for i in range(len(scenes))])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        net, launches, outs = serve(Path(tmp), 'request', KBR_DEPTH_CFG)
+        fused, fused_launches, fused_outs = serve(Path(tmp), 'fused_request',
+                                                  {**KBR_DEPTH_CFG, 'fused_blocks': True})
 
     print(f'slice: {len(scenes)} requests, launches {launches}')
     for i, d in enumerate(outs):
@@ -395,31 +525,53 @@ def phase_slice(sd, scenes) -> dict:
               f'std {d.std():.4f} {"ok" if ok else "BAD"}')
         if not ok:
             fail(f'request {i} output is not a finite, non-constant (0, 1) map')
-    want = {'dwconv': sum(CONVNEXT_B_BLOCKS) * len(scenes), 'decoder_stage': 2 * len(scenes)}
+    n_blocks = sum(CONVNEXT_B_BLOCKS) * len(scenes)
+    want = {'dwconv': n_blocks, 'decoder_stage': 2 * len(scenes), 'convnext_block': 0}
     if launches != want:
         fail(f'launch counts {launches}, expected {want}')
 
+    # The same requests through the checkpoint whose cfg turns the fused blocks on.
+    want = {'dwconv': 0, 'decoder_stage': 2 * len(scenes), 'convnext_block': n_blocks}
+    if fused_launches != want:
+        fail(f'fused blocks: launch counts {fused_launches}, expected {want}')
+    err = max(float(np.abs(a - b).max()) for a, b in zip(fused_outs, outs))
+    print(f'slice, fused blocks: {len(scenes)} requests, launches {fused_launches}; '
+          f'max|fused - unfused| over the maps {err:.2e} (tol {GOLDEN_ATOL:.0e})')
+    if not err <= GOLDEN_ATOL:
+        fail(f'the fused blocks serve another map: off by {err}')
+    x = torch.zeros(1, 3, 64, 96, device='cuda')
+    try:  # no backward kernel yet: under grad the card must refuse, not cut autograd
+        fused(x)
+    except NotImplementedError as e:
+        if 'kernel 10' not in str(e):
+            raise
+        print('slice, fused blocks: a forward under grad raises (the backward kernel is open)')
+    else:
+        fail('a forward of the fused blocks under grad did not raise')
+    if fused_convnext_block.launches != n_blocks:
+        fail('the refused forward launched the kernel')
+
     plain, _ = _seeded_net(0, kernels=False, sd=sd)
-    lat = {}
+    nets = {'kernel': net, 'fused': fused, 'plain': plain}
     for b in (1, 4):
         imgs = np.stack([scenes[i % len(scenes)] for i in range(b)])
-        samples = {'kernel': [], 'plain': []}
-        for name in ('plain', 'kernel', 'kernel', 'plain'):
-            samples[name] += _time_requests(net if name == 'kernel' else plain, imgs)
+        samples = {name: [] for name in nets}
+        for name in ('plain', 'kernel', 'fused', 'fused', 'kernel', 'plain'):
+            samples[name] += _time_requests(nets[name], imgs)
         for name, ts in samples.items():
             med = float(np.median(ts))
-            lat[(b, name)] = med
             print(f'serving B={b} {name:6s}: median {med:.2f} ms/request '
                   f'(min {min(ts):.2f}, max {max(ts):.2f}, n={len(ts)}), '
                   f'{1e3 * b / med:.1f} images/s')
-    return launches
+    return {**launches, 'convnext_block': fused_launches['convnext_block']}
 
 
 # ------------------------------------------------------------- training path
 def _counters() -> dict:
     """Kernel name -> its wrapper, which carries the `launches` count."""
-    from slowtv_monodepth_tpu_torch.ops import decoder_stage, dwconv, photo, sample
-    return {'dwconv': dwconv.depthwise_conv, 'decoder_stage': decoder_stage.fused_upconv_stage,
+    from slowtv_monodepth_tpu_torch.ops import convnext_block, decoder_stage, dwconv, photo, sample
+    return {'convnext_block': convnext_block.fused_convnext_block,
+            'dwconv': dwconv.depthwise_conv, 'decoder_stage': decoder_stage.fused_upconv_stage,
             'decoder_stage_bwd': decoder_stage.fused_upconv_stage_bwd,
             'dwconv_dw': dwconv.dwconv_dw, 'warp': sample.warp_bilinear,
             'warp_packed': sample.warp_bilinear_packed,
@@ -891,7 +1043,7 @@ def _expected_run_counts(n: int, v: int, warp_bf16: bool = False) -> dict:
     step_warp = {'warp_packed' if warp_bf16 else 'warp': n + v}
     counts = {'dwconv': 108 * n + 54 * v, 'decoder_stage': 2 * (n + v), 'decoder_stage_bwd': 2 * n,
               'dwconv_dw': 54 * n, 'warp': 0, 'warp_packed': 0, 'photo_fwd': 2 * (n + v),
-              'photo_bwd': n}
+              'photo_bwd': n, 'convnext_block': 0}
     counts.update(step_warp)
     counts['warp'] += 4 * n
     return counts
@@ -1062,12 +1214,14 @@ def main() -> None:
                'warp': ('warp.cu', 'pallas_warp.py:130'),
                'warp_packed': ('warp.cu', 'pallas_warp.py:225'),
                'photo_fwd': ('photo.cu', 'pallas_photo.py:116'),
-               'photo_bwd': ('photo.cu', 'pallas_photo.py:159')}
-    # Launches: the serving slice's for kernels 1 and 3, the training slice's
-    # for 2, 5, 7, 8, the training run's for this slice's 4 and 6.
+               'photo_bwd': ('photo.cu', 'pallas_photo.py:159'),
+               'convnext_block': ('convnext_block.cu', 'pallas_convnext.py:147')}
+    # Launches: the serving slice's for kernels 1 and 3, its fused-blocks half
+    # for 9, the training slice's for 2, 5, 7, 8, the training run's for 4 and 6.
     counts = {**train_launches, **launches,
               **{k: run_launches[k] for k in ('decoder_stage_bwd', 'warp_packed')}}
-    if not all(counts[name] > 0 and run_launches[name] > 0 for name in sources):
+    if not all(counts[name] > 0 and (run_launches[name] > 0 or name == 'convnext_block')
+               for name in sources):  # training runs with the blocks unfused
         fail(f'a kernel was never launched on its main path: {counts}, run {run_launches}')
     line = {'kernels': [
         {'name': name, 'route': 'cuda', 'source': f'slowtv_monodepth_tpu_torch/csrc/{src}',
@@ -1078,11 +1232,13 @@ def main() -> None:
                       else 'operations'),
          'library_ms': kern[name]['library_ms']}
         for name, (src, rep) in sources.items()]}
-    print('(launches: dwconv and decoder_stage in the serving slice, decoder_stage_bwd in the '
-          "training run's first epoch, warp_packed in its bf16 epoch, the others in the training "
-          'slice; ms / plain_ms / bound_ms / library_ms: device time per ConvNeXt-B + decoder '
-          'forward at B=2, 384x640, for dwconv and decoder_stage, per KBR micro-step at B=4, '
-          '384x640 for the others; bound_ms from 67 TFLOP/s float32 and 3.35 TB/s; photo_bwd and '
+    print('(launches: dwconv and decoder_stage in the serving slice, convnext_block in its '
+          "fused-blocks half, decoder_stage_bwd in the training run's first epoch, warp_packed in "
+          'its bf16 epoch, the others in the training slice; ms / plain_ms / bound_ms / library_ms: '
+          'device time per ConvNeXt-B + decoder forward at B=2, 384x640, for dwconv and '
+          'decoder_stage, per request (36 blocks at B=1, 384x640) for convnext_block, per KBR '
+          'micro-step at B=4, 384x640 for the others; convnext_block max_abs_err is relative to '
+          'max|y|; bound_ms from 67 TFLOP/s float32 and 3.35 TB/s; photo_bwd and '
           "decoder_stage_bwd max_abs_err are relative to the gradient's own largest magnitude; total run "
           f'{time.perf_counter() - t0:.0f} s)')
     print(json.dumps(line))

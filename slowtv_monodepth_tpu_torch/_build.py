@@ -38,6 +38,7 @@ _FLOAT = ctypes.c_float
 SIGNATURES = {
     'slowtv_dwconv_fwd_f32': [_PTR] * 4 + [_INT] * 6 + [_PTR],
     'slowtv_dwconv_dw_f32': [_PTR] * 4 + [_INT] * 7 + [_PTR],
+    'slowtv_convnext_block_fwd_f32': [_PTR] * 11 + [_INT] * 8 + [_PTR],
     'slowtv_decoder_stage_fwd_f32': [_PTR] * 10 + [_INT] * 6 + [_PTR],
     'slowtv_decoder_stage_bwd_f32': [_PTR] * 17 + [_INT] * 7 + [_PTR],
     'slowtv_warp_bilinear_f32': [_PTR] * 6 + [_INT] * 7 + [_PTR],

@@ -39,6 +39,9 @@ class DepthNet(nn.Module):
         timing the plain path on the card.
     :param fused_stages: run the decoders' skip-less stages as fused stages
         (the default, in serving and in training). False runs plain modules.
+    :param fused_blocks: run every ConvNeXt block of the encoder as one fused
+        call (`ops.fused_convnext_block`); off by default. On the card it is
+        forward only (serving) until the block's backward kernel is ported.
     """
 
     def __init__(self, enc_name: str = 'convnext_base', pretrained: bool = True,
@@ -48,7 +51,8 @@ class DepthNet(nn.Module):
                  use_virtual_stereo: bool = False, use_stereo_blend: bool = False,
                  gelu: str = 'exact', dec_pad_mode: str = 'reflect',
                  dec_phase_up: bool = False, enc_remat: str = '',
-                 kernels: bool = True, fused_stages: bool = True):
+                 kernels: bool = True, fused_stages: bool = True,
+                 fused_blocks: bool = False):
         super().__init__()
         del pretrained
         if dec_name not in DECODERS:
@@ -69,7 +73,7 @@ class DepthNet(nn.Module):
         self.use_stereo_blend = use_stereo_blend
 
         self.encoder, num_ch_enc, enc_sc = create_encoder(
-            enc_name, gelu=gelu, kernels=kernels)
+            enc_name, gelu=gelu, kernels=kernels, fused_blocks=fused_blocks)
         dec = DECODERS[dec_name]
         self.decoders = nn.ModuleDict({'disp': dec(
             num_ch_enc=num_ch_enc, enc_sc=enc_sc, upsample_mode='nearest',

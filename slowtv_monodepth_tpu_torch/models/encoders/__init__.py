@@ -8,7 +8,7 @@ __all__ = ['create_encoder', 'ConvNeXtEncoder', 'CONVNEXT_SPECS']
 
 
 def create_encoder(name: str, in_chans: int = 3, gelu: str = 'exact',
-                   kernels: bool = True):
+                   kernels: bool = True, fused_blocks: bool = False):
     """Build an encoder by timm-style name.
 
     :return: (module, channels per stage, reduction per stage)
@@ -20,5 +20,6 @@ def create_encoder(name: str, in_chans: int = 3, gelu: str = 'exact',
             'queue A item 10 (remaining networks).')
     spec = CONVNEXT_SPECS[name]
     enc = ConvNeXtEncoder(depths=spec['depths'], dims=spec['dims'],
-                          in_chans=in_chans, gelu=gelu, kernels=kernels)
+                          in_chans=in_chans, gelu=gelu, kernels=kernels,
+                          fused_blocks=fused_blocks)
     return enc, list(spec['channels']), list(spec['reductions'])

@@ -1,3 +1,4 @@
+from .convnext_block import fused_convnext_block, fused_convnext_block_plain
 from .decoder_stage import (fused_upconv_stage, fused_upconv_stage_bwd,
                             fused_upconv_stage_bwd_plain, fused_upconv_stage_plain)
 from .dwconv import depthwise_conv, depthwise_conv_plain, dwconv_dw, dwconv_dw_plain
@@ -7,7 +8,8 @@ from .ops import (IMAGENET_MEAN, IMAGENET_STD, clip, eps, mean_normalize, resize
 from .photo import photo_bwd, photo_err_ssim, photo_fwd
 from .sample import grid_sample, warp_bilinear, warp_bilinear_packed, warp_bilinear_plain
 
-__all__ = ['fused_upconv_stage', 'fused_upconv_stage_plain', 'fused_upconv_stage_bwd',
+__all__ = ['fused_convnext_block', 'fused_convnext_block_plain', 'fused_upconv_stage',
+           'fused_upconv_stage_plain', 'fused_upconv_stage_bwd',
            'fused_upconv_stage_bwd_plain', 'depthwise_conv', 'depthwise_conv_plain',
            'dwconv_dw', 'dwconv_dw_plain', 'T_from_AAt', 'blend_stereo',
            'resize_K', 'to_inv', 'to_scaled', 'view_synth', 'IMAGENET_MEAN',

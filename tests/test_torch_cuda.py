@@ -315,3 +315,83 @@ def test_photo_kernels_match_plain(card, m, h, w, c, ties):
     assert _close(out, photo.photo_fwd_plain(xd, yd, 0.85))
     for got, want in zip((dx, dy), photo.photo_bwd_plain(xd, yd, gd, 0.85)):
         assert _close(got, want)
+
+
+# ------------------------------------------------------------ fused ConvNeXt block
+def _block_args(rs, b, h, w, c):
+    return [_rand(rs, b, h, w, c), _rand(rs, c, 1, 7, 7, scale=1 / 7), _rand(rs, c, scale=0.1),
+            1 + _rand(rs, c, scale=0.1), _rand(rs, c, scale=0.1),
+            _rand(rs, 4 * c, c, scale=c ** -0.5), _rand(rs, 4 * c, scale=0.1),
+            _rand(rs, c, 4 * c, scale=(4 * c) ** -0.5), _rand(rs, c, scale=0.1),
+            _rand(rs, c, scale=0.5)]
+
+
+@pytest.mark.parametrize('approximate', [False, True], ids=['erf', 'tanh'])
+@pytest.mark.parametrize('b,h,w,c', [(2, 12, 16, 128), (1, 5, 7, 96), (2, 37, 53, 160),
+                                     (1, 3, 4, 40), (3, 9, 9, 264), (1, 7, 11, 1536),
+                                     (1, 1, 1, 8), (2, 24, 40, 512)])
+def test_convnext_block_kernel_matches_plain(card, b, h, w, c, approximate):
+    """Kernel 9 against the unfused block in float64: heights under the 7x7
+    halo, pixel counts off every tile, channels off 32 and off 256."""
+    from slowtv_monodepth_tpu_torch.ops import convnext_block as cb
+    args = _block_args(np.random.RandomState(10), b, h, w, c)
+    n = cb.fused_convnext_block.launches
+    out = cb.fused_convnext_block(*args, approximate=approximate)
+    torch.cuda.synchronize()
+    assert cb.fused_convnext_block.launches == n + 1
+    assert out.data_ptr() != args[0].data_ptr()
+    assert _close(out, cb.fused_convnext_block_plain(*_f64(*args), approximate=approximate))
+
+
+def test_convnext_block_raises_under_grad_on_the_card(card):
+    """No backward kernel yet: a gradient asked for on the card raises, and
+    never comes back as a tensor without a grad_fn."""
+    from slowtv_monodepth_tpu_torch.ops import convnext_block as cb
+    args = _block_args(np.random.RandomState(11), 1, 6, 8, 32)
+    args[5].requires_grad_()
+    n = cb.fused_convnext_block.launches
+    with pytest.raises(NotImplementedError, match='kernel 10'):
+        cb.fused_convnext_block(*args)
+    assert cb.fused_convnext_block.launches == n
+    with torch.no_grad():
+        out = cb.fused_convnext_block(*args)  # serving still runs
+    assert _close(out, cb.fused_convnext_block_plain(*_f64(*(t.detach() for t in args))))
+
+
+def test_convnext_block_takes_a_view_that_starts_off_alignment(card):
+    """x one float into its storage (not 16-byte aligned); misaligned fc
+    weights, which the kernel reads 16 bytes at a time, are refused."""
+    from slowtv_monodepth_tpu_torch.ops import convnext_block as cb
+    rs = np.random.RandomState(12)
+    args = _block_args(rs, 1, 10, 12, 32)
+    x = torch.empty(args[0].numel() + 1, device='cuda')[1:].view(args[0].shape)
+    x.copy_(args[0])
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    out = cb.fused_convnext_block(x, *args[1:])
+    torch.cuda.synchronize()
+    assert _close(out, cb.fused_convnext_block_plain(*_f64(*args)))
+    w1 = torch.empty(args[5].numel() + 1, device='cuda')[1:].view(args[5].shape).copy_(args[5])
+    with pytest.raises(ValueError, match='16-byte'):
+        cb.fused_convnext_block(*args[:5], w1, *args[6:])
+
+
+def test_depthnet_fused_blocks_match_plain_path_in_float64(card):
+    from slowtv_monodepth_tpu_torch.models import DepthNet, seeded_state_dict
+    from slowtv_monodepth_tpu_torch.ops import convnext_block as cb, decoder_stage, dwconv
+    cfg = dict(enc_name='convnext_atto', out_scales=(0, 1, 2, 3))
+    fused_net, plain_net = DepthNet(**cfg, fused_blocks=True), DepthNet(**cfg, kernels=False)
+    sd = {k: torch.from_numpy(v) for k, v in seeded_state_dict(fused_net, 0).items()}
+    for net in (fused_net, plain_net):
+        net.load_state_dict(sd)
+    fused_net, plain_net = fused_net.cuda().eval(), plain_net.double().cuda().eval()
+    x = _rand(np.random.RandomState(2), 2, 3, 64, 96)
+    n = (cb.fused_convnext_block.launches, dwconv.depthwise_conv.launches,
+         decoder_stage.fused_upconv_stage.launches)
+    with torch.no_grad():
+        got, want = fused_net(x)['disp'], plain_net(x.double())['disp']
+    assert (cb.fused_convnext_block.launches, dwconv.depthwise_conv.launches,
+            decoder_stage.fused_upconv_stage.launches) == (n[0] + 12, n[1], n[2] + 2)
+    for s in range(4):
+        assert _close(got[s], want[s])
+    with pytest.raises(NotImplementedError, match='kernel 10'):
+        fused_net(x)  # under grad: the parameters require it

@@ -168,3 +168,81 @@ def test_unported_configurations_raise():
         DepthNet(enc_name=ENC, dec_name='hrdepth')
     with pytest.raises(NotImplementedError):
         DepthNet(enc_name=ENC, dec_phase_up=True)
+
+
+# ------------------------------------------------------------- fused ConvNeXt blocks
+FUSED_ENC = dict(depths=(1, 2, 1, 1), dims=(128, 128, 256, 256))
+FUSED_SHAPE = (1, 96, 128, 3)   # stages at 24x32, 12x16, 6x8 and (below the JAX kernel's halo) 3x4
+
+
+@pytest.fixture(scope='module')
+def fused_encoder():
+    """A ConvNeXt encoder on lane-aligned widths, seeded, on both sides with
+    every block fused: the JAX encoder under `SLOWTV_FORCE_PALLAS_CONVNEXT`
+    (its block kernel in interpret mode wherever it takes the shape, as
+    `tests/test_pallas_convnext.py` forces it), the port with `fused_blocks`."""
+    from slowtv_monodepth_tpu.models.encoders import ConvNeXtEncoder as JaxEncoder
+    from slowtv_monodepth_tpu.models.encoders.import_torch import convert_convnext
+    from slowtv_monodepth_tpu.ops import pallas_convnext
+    from slowtv_monodepth_tpu_torch.models.encoders import ConvNeXtEncoder
+    from slowtv_monodepth_tpu_torch.models.from_jax import _convnext as convnext_from_jax
+
+    nets = {fused: ConvNeXtEncoder(**FUSED_ENC, fused_blocks=fused).eval()
+            for fused in (True, False)}
+    params = convert_convnext(seeded_state_dict(nets[True], 11), FUSED_ENC['depths'])
+    for net in nets.values():
+        net.load_state_dict(convnext_from_jax(params))
+    x = np.random.RandomState(12).standard_normal(FUSED_SHAPE).astype(np.float32)
+    calls = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv('SLOWTV_FORCE_PALLAS_CONVNEXT', '1')
+        inner = pallas_convnext.fused_convnext_block
+        mp.setattr(pallas_convnext, 'fused_convnext_block',
+                   lambda *a, **k: calls.append(a[0].shape) or inner(*a, **k))
+        ref = JaxEncoder(**FUSED_ENC).apply({'params': params}, jnp.asarray(x))
+    with torch.no_grad():
+        xt = torch.from_numpy(x).permute(0, 3, 1, 2)
+        feats = {fused: [nhwc(f) for f in net(xt)] for fused, net in nets.items()}
+    return {'nets': nets, 'jax': [np.asarray(f) for f in ref], 'port': feats, 'calls': calls}
+
+
+@pytest.mark.parametrize('stage', [0, 1, 2, 3])
+def test_fused_encoder_features_match_jax_fused_encoder(fused_encoder, stage):
+    got, want = fused_encoder['port'][True][stage], fused_encoder['jax'][stage]
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=FEAT_RTOL * np.abs(want).max())
+
+
+def test_jax_side_of_the_fused_encoder_ran_its_block_kernel(fused_encoder):
+    """Four of the five blocks (h >= 6) went through the JAX block kernel."""
+    assert fused_encoder['calls'] == [(1, 24, 32, 128), (1, 12, 16, 128), (1, 12, 16, 128),
+                                      (1, 6, 8, 256)]
+
+
+@pytest.mark.parametrize('stage', [0, 1, 2, 3])
+def test_fused_encoder_matches_unfused_encoder(fused_encoder, stage):
+    got, want = fused_encoder['port'][True][stage], fused_encoder['port'][False][stage]
+    np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max())
+
+
+def test_state_dict_keys_do_not_depend_on_fused_blocks(fused_encoder):
+    on, off = (fused_encoder['nets'][f].state_dict() for f in (True, False))
+    assert list(on) == list(off)
+    assert all(torch.equal(on[k], off[k]) for k in on)
+    cfg = depth_cfg()
+    assert list(DepthNet(**cfg, fused_blocks=True).state_dict()) == list(DepthNet(**cfg).state_dict())
+
+
+@pytest.mark.parametrize('gelu', ['exact', 'tanh'])
+def test_fused_depthnet_matches_jax_depthnet(gelu):
+    """`DepthNet(fused_blocks=True)` at widths off the 128 lanes (ConvNeXt-atto:
+    40..320), where the JAX package runs its unfused blocks."""
+    cfg = depth_cfg(gelu=gelu)
+    net, params = seeded_pair(cfg, seed=13, fused_blocks=True)
+    x = _input(seed=14)
+    ref = JaxDepthNet(**cfg, pretrained=False).apply({'params': params}, jnp.asarray(x),
+                                                     train=False)
+    out = port_forward(net, x)
+    for s in range(4):
+        np.testing.assert_allclose(nhwc(out['disp'][s]), np.asarray(ref['disp'][s]),
+                                   atol=DISP_ATOL)

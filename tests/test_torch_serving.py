@@ -194,3 +194,50 @@ def test_chip_smoke_refuses_without_a_card():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_fused_blocks_checkpoint_serves_through_predictor_and_quickstart(tmp_path):
+    """The slice with the fused ConvNeXt blocks on: a checkpoint whose cfg says
+    `fused_blocks: True` -> `BenchmarkPredictor.load_model` -> `quickstart.predict`,
+    against the JAX quickstart's steps on the same image file."""
+    from PIL import Image
+
+    from api.quickstart import run as jax_run
+    from slowtv_monodepth_tpu.models import DepthNet as JaxDepthNet
+    from slowtv_monodepth_tpu_torch import quickstart
+    from slowtv_monodepth_tpu_torch.models.encoders.convnext import ConvNeXtBlock
+
+    cfg = depth_cfg(out_scales=(0, 1, 2, 3))
+    net, params = seeded_pair(cfg, seed=8)
+    fused_cfg = {**cfg, 'fused_blocks': True}
+    save_checkpoint(tmp_path / 'fused.ckpt', {'depth': net.state_dict()},
+                    {'net': {'depth': fused_cfg}, 'trainer': {'min_depth': 0.1, 'max_depth': 100}})
+    model = BenchmarkPredictor('cpu').load_model(tmp_path / 'fused.ckpt')
+    blocks = [m for m in model.modules() if isinstance(m, ConvNeXtBlock)]
+    assert len(blocks) == 12 and all(m.fused for m in blocks)
+    assert not any(m.fused for m in net.modules() if isinstance(m, ConvNeXtBlock))
+
+    rgb = (np.random.RandomState(5).rand(100, 150, 3) * 255).astype(np.uint8)
+    Image.fromarray(rgb).save(tmp_path / 'scene.png')
+    got = quickstart.predict(model, quickstart.load_img(tmp_path / 'scene.png'), 160, 96)
+
+    img, ref_shape = jax_run.load_img(tmp_path / 'scene.png', 160, 96)
+    disp = JaxDepthNet(**cfg, pretrained=False).apply(
+        {'params': params}, jnp.asarray(img), train=False)['disp'][0]
+    want = np.asarray(jax_run.resize(disp, tuple(ref_shape))).squeeze()
+    assert got.shape == want.shape == (100, 150)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    # The same weights served unfused give the same map (one more sum order).
+    np.testing.assert_allclose(got, quickstart.predict(net, rgb.astype(np.float32) / 255, 160, 96),
+                               atol=ATOL)
+
+
+def test_training_cfg_passes_fused_blocks_to_the_depth_net():
+    """`fused_blocks` is a constructor argument of the net, so a cfg's
+    `net.depth` section reaches it through `parsers.get_net` with no new flag."""
+    from slowtv_monodepth_tpu_torch import parsers
+    from slowtv_monodepth_tpu_torch.models.encoders.convnext import ConvNeXtBlock
+    for fused in (True, False):
+        nets = parsers.get_net({'depth': {**depth_cfg(), 'fused_blocks': fused}})
+        assert all(m.fused == fused for m in nets['depth'].modules()
+                   if isinstance(m, ConvNeXtBlock))
