@@ -10,7 +10,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    the card, at the serving path's shapes (B=2), ragged shapes and the shapes
    two of the training run's augmentation buckets give it; times both. The
    fused ConvNeXt block (kernel 9) is held to its plain version in float64,
-   erf and tanh, and timed at the four ConvNeXt-B stage shapes at B=1 and B=4.
+   erf and tanh, at the four ConvNeXt-B stage shapes (timed at B=1 and B=4)
+   and the four ConvNeXt-T ones of the pose net (B=8).
 4. golden: ConvNeXt-B + monodepth at full width with seeded weights
    (`models.seeded_state_dict`) against the JAX package's outputs stored in
    `tests/fixtures/torch_port_golden.npz`, with the ConvNeXt blocks unfused
@@ -21,7 +22,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    launch counts (36 dwconv + 2 decoder stages per request). Then the same
    through a second checkpoint whose cfg says `fused_blocks: True` (36 fused
    blocks, 0 dwconv, 2 decoder stages per request; the same maps; a forward
-   under grad raises). Times warm requests at B=1 and B=4 on the kernel
+   under grad keeps its grad_fn). Times warm requests at B=1 and B=4 on the kernel
    path, with the fused blocks on, and on the plain path.
 6. training kernels: the tap gradient (kernel 2), the decoder stage's
    backward (4), the warp on float32 (5) and on packed bfloat16 sources (6)
@@ -31,7 +32,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    from 720x1280 sources at the coords the augmentation gives it); times
    kernel, plain and, where one PyTorch call computes the function, that call
    (float32). Kernel 6 is also held to kernel 5 on the
-   widened source.
+   widened source. The fused block's backward (kernel 10, with kernels 1 and 2
+   finishing dx and the taps' gradient) at the eight block shapes of the
+   step (ConvNeXt-B at B=4, ConvNeXt-T at B=8), ragged shapes, erf and tanh:
+   each of its ten gradients within twice the plain float32 version's error
+   against float64, two calls bitwise equal; timed beside the plain backward
+   and the unfused block's backward.
 7. training golden: one KBR micro-step at full width (ConvNeXt-B + ConvNeXt-T,
    B=2, 64x96) against the JAX package's loss, gradients and loss after one
    update, stored in `tests/fixtures/torch_train_golden.npz`
@@ -47,6 +53,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    (`kernels=False`) and reads the peak device memory.
 9. train -> serve: the trained weights -> `core.save_checkpoint` ->
    `BenchmarkPredictor.load_model` -> one `quickstart.predict` request.
+9b. fused training: the training golden again with `fused_blocks: True` on
+   both nets, then the training slice with them (3 updates; every parameter's
+   gradient; per micro-step convnext_block 54, convnext_block_bwd 54, dwconv
+   54, dwconv_dw 54, warp 1, photo_fwd 2, photo_bwd 1, decoder_stage 2,
+   decoder_stage_bwd 2), its peak device memory, and its micro-step timed
+   beside the unfused one.
 10. run: `MonoDepthLoop` on the KBR cfg at full width (aspect-ratio
    augmentation at p=0.7 towards 384x640, accumulate 2, batch 4) over an
    in-memory loader of synthetic 720x1280 scenes in the layout the port's
@@ -108,7 +120,13 @@ TRAIN_UPDATES = 3
 # decoder stages forward and backward.
 TRAIN_LAUNCHES = {'dwconv': 108, 'decoder_stage': 2, 'decoder_stage_bwd': 2, 'dwconv_dw': 54,
                   'warp': 1, 'warp_packed': 0, 'photo_fwd': 2, 'photo_bwd': 1,
-                  'convnext_block': 0}  # training builds its nets with the blocks unfused
+                  'convnext_block': 0,  # training builds its nets with the blocks unfused
+                  'convnext_block_bwd': 0}
+# With `fused_blocks: True` on both nets: each of the 54 blocks one forward
+# launch (kernel 9) and one backward (kernel 10, then kernel 1 for dx and
+# kernel 2 for the taps' gradient).
+FUSED_TRAIN_LAUNCHES = {**TRAIN_LAUNCHES, 'dwconv': 54, 'convnext_block': 54,
+                        'convnext_block_bwd': 54}
 # The run phase: cfg/kbr/default.yaml's trainer section (its `matmul: 'high'`
 # is run as well; the first run pins 'highest', the numerics of every other phase).
 RUN_SEED = 42
@@ -127,6 +145,11 @@ RUN_CROPS = ((345, 1141), (620, 496))   # -> buckets 224x832 and 480x384
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 CONVNEXT_B_BLOCKS = (3, 3, 27, 3)
+# (b, h, w, c, blocks) of every block shape of the KBR micro-step at B=4, 384x640:
+# ConvNeXt-B on the 4 images, ConvNeXt-T on the 2 x 4 image pairs.
+STEP_BLOCKS = [(4, 96, 160, 128, 3), (4, 48, 80, 256, 3), (4, 24, 40, 512, 27),
+               (4, 12, 20, 1024, 3), (8, 96, 160, 96, 3), (8, 48, 80, 192, 3),
+               (8, 24, 40, 384, 9), (8, 12, 20, 768, 3)]
 # Tolerances (float32 on both sides, sums taken in another order):
 DWCONV_ATOL = 1e-5   # 49-tap sums of O(1) values (measured ~1.4e-6)
 STAGE_ATOL = 1e-5    # 9*ci-term sums (ci <= 64) through ELU, sigmoid (~2.5e-6)
@@ -143,6 +166,12 @@ WARP_ATOL = 1e-5     # 4-corner bilinear of values in [0, 1]
 # and for the weight and bias gradients (sums over P = b*2h*2w pixels)
 # 1e-5 * max(1, sqrt(P) / 16).
 STAGE_BWD_RTOL = 1e-5
+# The fused block's backward (kernel 10 + kernels 1 and 2) against float64, each
+# gradient relative to its own largest magnitude: at most twice the plain
+# float32 version's error; at the ragged shapes only (35 pixels and fewer,
+# where both sit within a few float32 ulps of float64 and their ratio is
+# chance) twice that plus four ulps (2^-24 each) of the largest magnitude.
+BLOCK_BWD_FLOOR = 4 * 2.0 ** -24
 BF16_LOSS_RTOL = 5e-3  # first-step loss, bfloat16 warp sources (8 mantissa bits) vs float32
 # The photometric error's statistics are variances by cancellation,
 # P(x^2) - P(x)^2, as in the reference: in float32 on smooth image regions
@@ -254,8 +283,8 @@ def phase_build() -> None:
         if 'convnext_block_fwd_kernel' in entry and 'spill' in line \
                 and '0 bytes spill stores, 0 bytes spill loads' not in line:
             fail(f'the fused ConvNeXt block kernel spills registers: {line.strip()}')
-    if 'convnext_block_fwd_kernel' not in log:
-        fail('the build log does not show the fused ConvNeXt block kernel')
+    if 'convnext_block_fwd_kernel' not in log or 'convnext_block_bwd_rows_kernel' not in log:
+        fail('the build log does not show the fused ConvNeXt block kernels')
 
 
 def _rand(rs, *shape, scale=1.0):
@@ -353,22 +382,44 @@ def block_cost(b, h, w, c) -> tuple[float, float]:
     return 4 * (2 * p * c + 8 * c * c + 49 * c + 9 * c), 16 * p * c * c + 98 * p * c
 
 
-def block_bwd_cost(b, h, w, c) -> tuple[float, float]:
-    """(bytes, float32 operations) of the fused block's backward (the TPU kernel
-    `pallas_convnext.py:_block_bwd_jit`, not ported yet): both forward products
-    again and four more of their size (two input gradients, two weight
-    gradients: 48 C^2 per pixel in all), the taps forward and their two
-    transposes; x and dy in, dx out, the parameters in and their gradients out."""
+def block_bwd_cost(b, h, w, c, kernel10_only: bool = False) -> tuple[float, float]:
+    """(bytes, float32 operations) of the fused block's backward,
+    `fused_convnext_block_bwd`: the forward's fc1 product again and four more of
+    its size (two input gradients, two weight gradients: 40 C^2 per pixel; the
+    forward's fc2 product is not needed, dgamma = sum_j fc2 (dy^T hg) + b2 sum dy
+    comes from dW2's), the taps forward and their two transposes (kernels 1 and
+    2); x and dy in, dx out, the parameters in and their gradients out. With
+    `kernel10_only`, kernel 10's share: one pass of taps, du out in place of
+    dx, the taps' gradient not written."""
     p = b * h * w
-    return 4 * (3 * p * c + 2 * (8 * c * c + 49 * c + 9 * c)), 48 * p * c * c + 3 * 98 * p * c
+    params = 8 * c * c + 49 * c + 9 * c
+    if kernel10_only:
+        return 4 * (3 * p * c + 2 * params - 49 * c), 40 * p * c * c + 98 * p * c
+    return 4 * (3 * p * c + 2 * params), 40 * p * c * c + 3 * 98 * p * c
+
+
+def _block_args(rs, b, h, w, c) -> tuple:
+    """x and the block's nine parameters, fan-in scaled (O(1) activations)."""
+    return (_rand(rs, b, h, w, c), _rand(rs, c, 1, 7, 7, scale=1 / 7), _rand(rs, c, scale=0.1),
+            1 + _rand(rs, c, scale=0.1), _rand(rs, c, scale=0.1),
+            _rand(rs, 4 * c, c, scale=c ** -0.5), _rand(rs, 4 * c, scale=0.1),
+            _rand(rs, c, 4 * c, scale=(4 * c) ** -0.5), _rand(rs, c, scale=0.1),
+            _rand(rs, c, scale=0.5))
+
+
+def _unfused_block(x, dww, dwb, lnw, lnb, w1, b1, w2, b2, gamma):
+    """The block as the net runs it with the blocks unfused: kernel 1, then
+    PyTorch's LayerNorm and cuBLAS."""
+    import torch.nn.functional as F
+    from slowtv_monodepth_tpu_torch.ops import depthwise_conv
+    u = F.layer_norm(depthwise_conv(x, dww, dwb), (x.shape[-1],), lnw, lnb, 1e-6)
+    return x + gamma * F.linear(F.gelu(F.linear(u, w1, b1)), w2, b2)
 
 
 def _block_kernel_cases(rs) -> dict:
     """Kernel 9 against the unfused block in float64; times at the ConvNeXt-B shapes."""
-    from slowtv_monodepth_tpu_torch.ops import (depthwise_conv, fused_convnext_block,
-                                                fused_convnext_block_plain)
+    from slowtv_monodepth_tpu_torch.ops import fused_convnext_block, fused_convnext_block_plain
     from slowtv_monodepth_tpu_torch.ops.convnext_block import tile_pixels
-    import torch.nn.functional as F
     res = new_result()
     stages = list(zip((96, 48, 24, 12), (160, 80, 40, 20), (128, 256, 512, 1024),
                       CONVNEXT_B_BLOCKS))
@@ -378,18 +429,12 @@ def _block_kernel_cases(rs) -> dict:
     # at two of the run's bucket shapes gives the first and last stage.
     cases = [(b, h, w, c) for b in (2, 1) for h, w, c, _ in stages]
     cases += [(2, 37, 53, 160), (1, 5, 7, 96), (1, 3, 4, 40), (3, 9, 9, 264), (1, 7, 11, 1536)]
+    cases += [shape[:4] for shape in STEP_BLOCKS[4:]]  # the pose net's ConvNeXt-T, training only
     for _, (bh, bw) in run_buckets():
         cases += [(1, bh // 4, bw // 4, 128), (1, bh // 32, bw // 32, 1024)]
 
-    def make(b, h, w, c):
-        return (_rand(rs, b, h, w, c), _rand(rs, c, 1, 7, 7, scale=1 / 7), _rand(rs, c, scale=0.1),
-                1 + _rand(rs, c, scale=0.1), _rand(rs, c, scale=0.1),
-                _rand(rs, 4 * c, c, scale=c ** -0.5), _rand(rs, 4 * c, scale=0.1),
-                _rand(rs, c, 4 * c, scale=(4 * c) ** -0.5), _rand(rs, c, scale=0.1),
-                _rand(rs, c, scale=0.5))
-
     for shape in cases:
-        args = make(*shape)
+        args = _block_args(rs, *shape)
         for approximate in (False, True):
             want = fused_convnext_block_plain(*(t.double() for t in args), approximate=approximate)
             got = fused_convnext_block(*args, approximate=approximate)
@@ -404,20 +449,14 @@ def _block_kernel_cases(rs) -> dict:
             if not err <= BLOCK_RTOL:
                 fail(line)
 
-    def unfused(x, dww, dwb, lnw, lnb, w1, b1, w2, b2, gamma):
-        """The block as the net runs it with the blocks unfused: kernel 1, then
-        PyTorch's LayerNorm and cuBLAS."""
-        u = F.layer_norm(depthwise_conv(x, dww, dwb), (x.shape[-1],), lnw, lnb, 1e-6)
-        return x + gamma * F.linear(F.gelu(F.linear(u, w1, b1)), w2, b2)
-
     # Times: a request is B=1 (what the kernels line carries), a batch B=4.
     for b in (1, 4):
         total = new_result()
         for h, w, c, n in stages:
-            args = make(b, h, w, c)
+            args = _block_args(rs, b, h, w, c)
             ms = cuda_ms(lambda: fused_convnext_block(*args), iters=10)
             pms = cuda_ms(lambda: fused_convnext_block_plain(*args), iters=10)
-            ums = cuda_ms(lambda: unfused(*args), iters=10)
+            ums = cuda_ms(lambda: _unfused_block(*args), iters=10)
             cost = block_cost(b, h, w, c)
             m, s = tile_pixels(b * h * w, c)
             times = add_times(res if b == 1 else total, n, ms, pms, bound_ms(*cost))
@@ -427,16 +466,6 @@ def _block_kernel_cases(rs) -> dict:
         t = res if b == 1 else total
         print(f'convnext_block, 36 blocks at B={b}: kernel {t["ms"]:.3f} ms, plain {t["plain_ms"]:.3f} '
               f'ms, unfused with kernel 1 {total["unfused"]:.3f} ms, bound {t["bound_ms"]:.3f} ms')
-    # The backward's bound, from the shapes alone: the KBR micro-step at B=4 with
-    # every block fused would launch it for 36 ConvNeXt-B blocks and for the 18
-    # ConvNeXt-T blocks of the pose net on its 2 x 4 image pairs.
-    bwd = [bound_ms(*block_bwd_cost(TRAIN_B, h, w, c)) for h, w, c, n in stages for _ in range(n)]
-    bwd += [bound_ms(*block_bwd_cost(2 * TRAIN_B, h, w, c)) for h, w, c, n in
-            zip((96, 48, 24, 12), (160, 80, 40, 20), (96, 192, 384, 768), (3, 3, 9, 3))
-            for _ in range(n)]
-    print(f'convnext_block backward (not ported yet): {len(bwd)} launches per KBR micro-step at '
-          f'B={TRAIN_B}, 384x640, with every block fused; bound {sum(max(t) for t in bwd):.3f} ms '
-          f'({"operations" if all(t[1] >= t[0] for t in bwd) else "mixed"})')
     return res
 
 
@@ -540,16 +569,10 @@ def phase_slice(sd, scenes) -> dict:
     if not err <= GOLDEN_ATOL:
         fail(f'the fused blocks serve another map: off by {err}')
     x = torch.zeros(1, 3, 64, 96, device='cuda')
-    try:  # no backward kernel yet: under grad the card must refuse, not cut autograd
-        fused(x)
-    except NotImplementedError as e:
-        if 'kernel 10' not in str(e):
-            raise
-        print('slice, fused blocks: a forward under grad raises (the backward kernel is open)')
-    else:
-        fail('a forward of the fused blocks under grad did not raise')
-    if fused_convnext_block.launches != n_blocks:
-        fail('the refused forward launched the kernel')
+    disp = fused(x)['disp'][0]  # under grad: the autograd Function, never a cut graph
+    if disp.grad_fn is None or fused_convnext_block.launches != n_blocks + sum(CONVNEXT_B_BLOCKS):
+        fail('a forward of the fused blocks under grad lost its grad_fn or its launches')
+    print('slice, fused blocks: a forward under grad keeps its grad_fn')
 
     plain, _ = _seeded_net(0, kernels=False, sd=sd)
     nets = {'kernel': net, 'fused': fused, 'plain': plain}
@@ -571,6 +594,7 @@ def _counters() -> dict:
     """Kernel name -> its wrapper, which carries the `launches` count."""
     from slowtv_monodepth_tpu_torch.ops import convnext_block, decoder_stage, dwconv, photo, sample
     return {'convnext_block': convnext_block.fused_convnext_block,
+            'convnext_block_bwd': convnext_block.fused_convnext_block_bwd,
             'dwconv': dwconv.depthwise_conv, 'decoder_stage': decoder_stage.fused_upconv_stage,
             'decoder_stage_bwd': decoder_stage.fused_upconv_stage_bwd,
             'dwconv_dw': dwconv.dwconv_dw, 'warp': sample.warp_bilinear,
@@ -607,6 +631,7 @@ def phase_train_kernels(scenes) -> dict:
     rs = np.random.RandomState(1)
     res = {k: new_result() for k in ('dwconv_dw', 'decoder_stage_bwd', 'warp', 'warp_packed',
                                      'photo_fwd', 'photo_bwd')}
+    res['convnext_block_bwd'] = _block_bwd_cases(rs)
 
     def record(name, err, tol, line, n=0, fn=None, plain=None, bound=None, library=None):
         res[name]['err'] = max(res[name]['err'], err)
@@ -776,6 +801,71 @@ def phase_train_kernels(scenes) -> dict:
     return res
 
 
+BLOCK_GRADS = ('dx', 'd dw_weight', 'd dw_bias', 'd ln_weight', 'd ln_bias', 'd fc1_weight',
+               'd fc1_bias', 'd fc2_weight', 'd fc2_bias', 'd gamma')
+
+
+def _block_bwd_cases(rs) -> dict:
+    """Kernel 10 (+ kernels 1 and 2) against the plain backward in float64 at
+    the step's block shapes and ragged ones; times per KBR micro-step."""
+    from slowtv_monodepth_tpu_torch.ops import convnext_block as cb
+    res = new_result()
+    res.update(unfused_ms=0.0, k10_ms=0.0, k10_bound_ms=0.0)
+    # (b, h, w, c, blocks per micro-step, tanh, floor): the step's eight shapes
+    # (erf, the KBR recipe's GELU; tanh at one of them), then ragged ones: pixel
+    # counts off every tile, heights under the 7x7 halo, channels off 32 and over
+    # 256. The 4-ulp floor is for the ragged shapes of a few dozen pixels only.
+    cases = [(*shape, False, 0.0) for shape in STEP_BLOCKS] + [(4, 24, 40, 512, 0, True, 0.0)]
+    cases += [(*shape, BLOCK_BWD_FLOOR) for shape in (
+        (2, 37, 53, 160, 0, False), (2, 37, 53, 160, 0, True), (1, 5, 7, 96, 0, False),
+        (1, 3, 4, 40, 0, True), (3, 9, 9, 264, 0, False), (1, 1, 1, 8, 0, False))]
+    for b, h, w, c, n, approximate, floor in cases:
+        args = _block_args(rs, b, h, w, c)
+        dy = _rand(rs, b, h, w, c)
+        got = cb.fused_convnext_block_bwd(args[0], dy, *args[1:], approximate=approximate)
+        again = cb.fused_convnext_block_bwd(args[0], dy, *args[1:], approximate=approximate)
+        torch.cuda.synchronize()
+        if not all(torch.equal(u, v) for u, v in zip(got, again)):
+            fail(f'convnext_block_bwd {(b, h, w, c)}: two calls on the same inputs differ')
+        want = cb.fused_convnext_block_bwd_plain(*(t.double() for t in (args[0], dy, *args[1:])),
+                                                 approximate=approximate)
+        p32 = cb.fused_convnext_block_bwd_plain(args[0], dy, *args[1:], approximate=approximate)
+        scale = [float(t.abs().max()) for t in want]
+        err = [_max_err(u, t) / sc for u, t, sc in zip(got, want, scale)]
+        perr = [_max_err(u, t) / sc for u, t, sc in zip(p32, want, scale)]
+        res['err'] = max(res['err'], max(err))
+        line = (f'convnext_block_bwd {(b, h, w, c)} {"tanh" if approximate else "erf"}: ten '
+                f'gradients, max|kernel-plain(f64)| / max|grad| (tol 2x plain f32'
+                f'{" + 4 ulps" if floor else ""}; bitwise repeatable): ' + ', '.join(f'{k} {e:.1e} ({p:.1e})' for k, e, p in
+                                            zip(BLOCK_GRADS, err, perr)))
+        if n:
+            # ms, plain_ms and the bound over one span, the whole block backward
+            # (kernel 10, then kernels 1 and 2); kernel 10 alone beside it.
+            ms = cuda_ms(lambda: cb.fused_convnext_block_bwd(args[0], dy, *args[1:]), iters=10)
+            pms = cuda_ms(lambda: cb.fused_convnext_block_bwd_plain(args[0], dy, *args[1:]),
+                          iters=10)
+            k10 = cuda_ms(lambda: cb.block_bwd_kernel(args[0], dy, *args[1:]), iters=10)
+            k10_bound = max(bound_ms(*block_bwd_cost(b, h, w, c, kernel10_only=True)))
+            leaves = [t.clone().requires_grad_() for t in args]
+            y = _unfused_block(*leaves)
+            ums = cuda_ms(lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True), iters=10)
+            res['unfused_ms'] += n * ums
+            res['k10_ms'] += n * k10
+            res['k10_bound_ms'] += n * k10_bound
+            cost = block_bwd_cost(b, h, w, c)
+            line += (f'; {cost[1] / ms / 1e9:.1f} TFLOP/s; kernel 10 alone {k10:.4f} ms (bound '
+                     f'{k10_bound:.4f} ms); unfused block backward (kernels 1, 2, LayerNorm, '
+                     f'cuBLAS) {ums:.4f} ms' + add_times(res, n, ms, pms, bound_ms(*cost)))
+        print(line)
+        if not all(e <= 2 * p + floor for e, p in zip(err, perr)):
+            fail(line)
+    print(f'convnext_block_bwd, 54 blocks per KBR micro-step (B={TRAIN_B}, 384x640): block '
+          f'backward (kernels 10, 1, 2) {res["ms"]:.3f} ms, bound {res["bound_ms"]:.3f} ms; plain '
+          f'backward {res["plain_ms"]:.3f} ms; kernel 10 alone {res["k10_ms"]:.3f} ms, bound '
+          f'{res["k10_bound_ms"]:.3f} ms; unfused block backward {res["unfused_ms"]:.3f} ms')
+    return res
+
+
 def _photo_case(record, x, y, g, n_fwd, n_bwd):
     from slowtv_monodepth_tpu_torch.ops import photo
     xd, yd = x.double(), y.double()
@@ -800,12 +890,13 @@ def _photo_case(record, x, y, g, n_fwd, n_bwd):
            (4 * (4 * px + g.numel()), 250 * px))
 
 
-def phase_train_golden() -> None:
+def phase_train_golden(fused_blocks: bool = False) -> None:
     from slowtv_monodepth_tpu_torch import train_golden as tg
     gold = tg.load_fixture()
-    got = tg.port_step(gold, 'cuda', kernels=True)
+    got = tg.port_step(gold, 'cuda', kernels=True, fused_blocks=fused_blocks)
     rel = np.abs(got['grad_norms'] - gold['grad_norms']) / gold['grad_norms']
-    print(f'train golden (ConvNeXt-B + ConvNeXt-T, B=2, 64x96): loss {got["loss"]:.7f} vs JAX '
+    print(f'train golden (ConvNeXt-B + ConvNeXt-T, B=2, 64x96'
+          f'{", fused blocks" if fused_blocks else ""}): loss {got["loss"]:.7f} vs JAX '
           f'{float(gold["loss"]):.7f}; after one update {got["loss_after_update"]:.7f} vs '
           f'{float(gold["loss_after_update"]):.7f}; {len(rel)} grad norms, max rel err '
           f'{rel.max():.2e} (tol {tg.NORM_RTOL:.0e})')
@@ -832,10 +923,16 @@ def _train_batch(scenes):
     return {'imgs': t['imgs'], 'supp_imgs': t['supp_imgs']}, t
 
 
-def _build_trainer(kernels: bool, weights: dict):
+def _fused_cfg(cfg: dict) -> dict:
+    """`cfg` with `fused_blocks: True` on both nets."""
+    return {**cfg, 'net': {k: {**v, 'fused_blocks': True} for k, v in cfg['net'].items()}}
+
+
+def _build_trainer(kernels: bool, weights: dict, fused_blocks: bool = False):
     from slowtv_monodepth_tpu_torch import parsers
     from slowtv_monodepth_tpu_torch.core.trainer import MonoDepthTrainer
-    trainer = MonoDepthTrainer(KBR_TRAIN_CFG, kernels=kernels)
+    cfg = _fused_cfg(KBR_TRAIN_CFG) if fused_blocks else KBR_TRAIN_CFG
+    trainer = MonoDepthTrainer(cfg, kernels=kernels)
     for name, sd in weights.items():
         trainer.nets[name].load_state_dict(sd)
     trainer.to('cuda')
@@ -853,7 +950,10 @@ def _time_steps(step, x, y, gen, n: int = 5) -> list[float]:
     return times
 
 
-def phase_train(scenes) -> tuple[dict, object]:
+def phase_train(scenes, fused_blocks: bool = False) -> tuple[dict, object]:
+    """The KBR step at full width: 3 updates with every launch count and every
+    gradient checked, the peak memory, then micro-steps timed in turns against
+    the plain path (or, with `fused_blocks`, against the unfused kernel path)."""
     from slowtv_monodepth_tpu_torch import parsers
     from slowtv_monodepth_tpu_torch.models import seeded_state_dict
     with torch.device('meta'):
@@ -862,42 +962,47 @@ def phase_train(scenes) -> tuple[dict, object]:
                for k, net in meta.items()}
     x, y = _train_batch(scenes)
     gen = torch.Generator(device='cuda').manual_seed(0)
+    want = FUSED_TRAIN_LAUNCHES if fused_blocks else TRAIN_LAUNCHES
+    tag = 'train slice' + (', fused blocks' if fused_blocks else '')
 
     torch.cuda.reset_peak_memory_stats()
-    trainer, opt, step = _build_trainer(True, weights)
-    totals, losses = {k: 0 for k in TRAIN_LAUNCHES}, []
+    trainer, opt, step = _build_trainer(True, weights, fused_blocks)
+    totals, losses = {k: 0 for k in want}, []
     for micro in range(TRAIN_UPDATES * opt.accumulate):
         _reset_counts()
         losses.append(step(x, y, gen)['loss'].item())
         counts = _read_counts()
         totals = {k: totals[k] + counts[k] for k in totals}
-        if counts != TRAIN_LAUNCHES:
-            fail(f'micro-step {micro}: launch counts {counts}, expected {TRAIN_LAUNCHES}')
+        if counts != want:
+            fail(f'{tag}, micro-step {micro}: launch counts {counts}, expected {want}')
         if micro == 0:  # micro-step 1's gradients, still held for the accumulation
             for name, net in trainer.nets.items():
                 for k, p in net.named_parameters():
                     if p.grad is None or not bool(torch.isfinite(p.grad).all()) \
                             or not float(p.grad.abs().max()) > 0:
-                        fail(f'{name}.{k}: gradient missing, non-finite or zero')
+                        fail(f'{tag}: {name}.{k}: gradient missing, non-finite or zero')
             n_params = sum(1 for net in trainer.nets.values() for _ in net.parameters())
-            print(f'train slice: every one of {n_params} parameters of both nets has a '
+            print(f'{tag}: every one of {n_params} parameters of both nets has a '
                   'finite, non-zero gradient after micro-step 1')
     peak = torch.cuda.max_memory_allocated()
     if not all(np.isfinite(losses)) or opt.updates != TRAIN_UPDATES or trainer.bad_step.item() != -1:
-        fail(f'train slice: losses {losses}, updates {opt.updates}, bad_step {trainer.bad_step}')
-    print(f'train slice: KBR step, ConvNeXt-B + ConvNeXt-T, B={TRAIN_B}, 384x640, accumulate '
+        fail(f'{tag}: losses {losses}, updates {opt.updates}, bad_step {trainer.bad_step}')
+    print(f'{tag}: KBR step, ConvNeXt-B + ConvNeXt-T, B={TRAIN_B}, 384x640, accumulate '
           f'{opt.accumulate}, {opt.updates} updates: losses {[round(v, 5) for v in losses]}; '
-          f'launches per micro-step {TRAIN_LAUNCHES}; peak device memory '
+          f'launches per micro-step {want}; peak device memory '
           f'{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)')
 
-    plain = _build_trainer(False, weights)[2]
-    samples = {'kernel': [], 'plain': []}
-    for name in ('plain', 'kernel', 'kernel', 'plain'):
-        _time_steps(step if name == 'kernel' else plain, x, y, gen, 1)  # warm
-        samples[name] += _time_steps(step if name == 'kernel' else plain, x, y, gen)
+    # In turns: the other path, this one, this one, the other.
+    names = ('unfused', 'fused') if fused_blocks else ('plain', 'kernel')
+    other = _build_trainer(kernels=fused_blocks, weights=weights)[2]  # unfused kernels, or plain
+    steps = {names[0]: other, names[1]: step}
+    samples = {name: [] for name in names}
+    for name in (names[0], names[1], names[1], names[0]):
+        _time_steps(steps[name], x, y, gen, 1)  # warm
+        samples[name] += _time_steps(steps[name], x, y, gen)
     for name, ts in samples.items():
         med = float(np.median(ts))
-        print(f'train micro-step {name:6s}: median {med:.2f} ms (min {min(ts):.2f}, max '
+        print(f'train micro-step {name:7s}: median {med:.2f} ms (min {min(ts):.2f}, max '
               f'{max(ts):.2f}, n={len(ts)}); {2 * med:.1f} ms per optimizer update, '
               f'{1e3 * TRAIN_B / med:.2f} images/s')
     return totals, trainer
@@ -1043,7 +1148,7 @@ def _expected_run_counts(n: int, v: int, warp_bf16: bool = False) -> dict:
     step_warp = {'warp_packed' if warp_bf16 else 'warp': n + v}
     counts = {'dwconv': 108 * n + 54 * v, 'decoder_stage': 2 * (n + v), 'decoder_stage_bwd': 2 * n,
               'dwconv_dw': 54 * n, 'warp': 0, 'warp_packed': 0, 'photo_fwd': 2 * (n + v),
-              'photo_bwd': n, 'convnext_block': 0}
+              'photo_bwd': n, 'convnext_block': 0, 'convnext_block_bwd': 0}
     counts.update(step_warp)
     counts['warp'] += 4 * n
     return counts
@@ -1206,6 +1311,9 @@ def main() -> None:
     phase_train_to_serve(trainer, scenes)
     del trainer
     torch.cuda.empty_cache()
+    phase_train_golden(fused_blocks=True)
+    fused_launches, _ = phase_train(scenes, fused_blocks=True)
+    torch.cuda.empty_cache()
     run_launches = phase_run(scenes)
     sources = {'dwconv': ('dwconv.cu', 'pallas_dwconv.py:59'),
                'decoder_stage': ('decoder_stage.cu', 'pallas_decoder.py:249'),
@@ -1215,13 +1323,16 @@ def main() -> None:
                'warp_packed': ('warp.cu', 'pallas_warp.py:225'),
                'photo_fwd': ('photo.cu', 'pallas_photo.py:116'),
                'photo_bwd': ('photo.cu', 'pallas_photo.py:159'),
-               'convnext_block': ('convnext_block.cu', 'pallas_convnext.py:147')}
+               'convnext_block': ('convnext_block.cu', 'pallas_convnext.py:147'),
+               'convnext_block_bwd': ('convnext_block_bwd.cu', 'pallas_convnext.py:234')}
     # Launches: the serving slice's for kernels 1 and 3, its fused-blocks half
-    # for 9, the training slice's for 2, 5, 7, 8, the training run's for 4 and 6.
+    # for 9, the training slice's for 2, 5, 7, 8, the training run's for 4 and 6,
+    # the fused training slice's for 10.
     counts = {**train_launches, **launches,
-              **{k: run_launches[k] for k in ('decoder_stage_bwd', 'warp_packed')}}
-    if not all(counts[name] > 0 and (run_launches[name] > 0 or name == 'convnext_block')
-               for name in sources):  # training runs with the blocks unfused
+              **{k: run_launches[k] for k in ('decoder_stage_bwd', 'warp_packed')},
+              'convnext_block_bwd': fused_launches['convnext_block_bwd']}
+    if not all(counts[name] > 0 and (run_launches[name] > 0 or name.startswith('convnext_block'))
+               for name in sources):  # the run trains with the blocks unfused
         fail(f'a kernel was never launched on its main path: {counts}, run {run_launches}')
     line = {'kernels': [
         {'name': name, 'route': 'cuda', 'source': f'slowtv_monodepth_tpu_torch/csrc/{src}',
@@ -1239,8 +1350,11 @@ def main() -> None:
           'decoder_stage, per request (36 blocks at B=1, 384x640) for convnext_block, per KBR '
           'micro-step at B=4, 384x640 for the others; convnext_block max_abs_err is relative to '
           'max|y|; bound_ms from 67 TFLOP/s float32 and 3.35 TB/s; photo_bwd and '
-          "decoder_stage_bwd max_abs_err are relative to the gradient's own largest magnitude; total run "
-          f'{time.perf_counter() - t0:.0f} s)')
+          "decoder_stage_bwd max_abs_err are relative to the gradient's own largest magnitude; "
+          'convnext_block_bwd: launches in the fused training slice; ms, plain_ms and bound_ms '
+          'over the whole block backward (kernel 10, then kernels 1 and 2) for its 54 blocks per '
+          'micro-step; max_abs_err the worst of its ten gradients, each '
+          f'relative to its own largest magnitude; total run {time.perf_counter() - t0:.0f} s)')
     print(json.dumps(line))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -73,16 +73,15 @@ def net_state_dict(sd: Mapping[str, torch.Tensor], name: str) -> dict:
 
 def restore_checkpoint(path, nets: Mapping[str, torch.nn.Module], opt=None) -> dict:
     """Load a checkpoint's weights into `nets` and, with `opt`, its optimizer
-    state into `opt` -> {epoch, step, monitor, cfg} (what the file has of them)."""
+    state into `opt` when the file has one -> {epoch, step, monitor, cfg,
+    optimizer (whether the file had optimizer state)}."""
     ckpt = torch.load(Path(path), map_location='cpu', weights_only=False)
     for name, net in nets.items():
         net.load_state_dict(net_state_dict(ckpt['state_dict'], name))
-    if opt is not None:
-        if 'optimizer' not in ckpt:
-            raise ValueError(f'"{path}" holds no optimizer state: not a training checkpoint.')
+    if opt is not None and 'optimizer' in ckpt:
         opt.load_state_dict(ckpt['optimizer'])
     return {'epoch': ckpt.get('epoch', -1), 'step': ckpt.get('global_step', 0),
-            'monitor': ckpt.get('monitor'),
+            'monitor': ckpt.get('monitor'), 'optimizer': 'optimizer' in ckpt,
             'cfg': dict(ckpt.get('hyper_parameters', {}).get('cfg', {}))}
 
 

@@ -186,12 +186,19 @@ class MonoDepthLoop:
         """Warm start (`trainer.load_ckpt`) and resume (`trainer.resume_training`)."""
         tcfg = self.cfg.get('trainer', {})
         if load := tcfg.get('load_ckpt'):
+            # As the JAX loop (its `core/loop.py:212-215`): the whole state,
+            # optimizer included when the file has it, then the step from 0.
             LOGGER.info(f'Warm-starting from {load}...')
-            restore_checkpoint(load, self.trainer.nets)
+            restore_checkpoint(load, self.trainer.nets, self.opt)
+            self.trainer.step_count = torch.zeros((), dtype=torch.int64, device=self.device)
+            self.trainer.bad_step = torch.full_like(self.trainer.step_count, -1)
 
         if tcfg.get('resume_training', True):
             if last := get_latest_ckpt(self.ckpt_dir):
                 meta = restore_checkpoint(last, self.trainer.nets, self.opt)
+                if not meta['optimizer']:
+                    raise ValueError(f'"{last}" holds no optimizer state: not a training '
+                                     'checkpoint.')
                 self.start_epoch = int(meta['epoch']) + 1
                 self.global_step = int(meta['step'])
                 self.trainer.step_count = torch.tensor(self.global_step, device=self.device)

@@ -27,6 +27,7 @@ import torch
 
 from .. import parsers
 from ..models import PoseNet
+from ..models.encoders.pretrained import load_pretrained_encoder
 from ..ops import T_from_AAt, resize_K, resize_like, to_inv, to_scaled
 from . import handlers as h
 from .handlers import rigid_inverse
@@ -48,6 +49,9 @@ class MonoDepthTrainer:
         self.cfg = cfg
         self.kernels = kernels
         self.nets = parsers.get_net(cfg['net'], kernels=kernels)
+        for net in self.nets.values():  # the JAX package's `init_state` does this
+            if net.pretrained:
+                load_pretrained_encoder(net.enc_name)
         self.losses, self.weights = parsers.get_loss(cfg['loss'], kernels=kernels)
 
         tcfg = cfg.get('trainer', {})

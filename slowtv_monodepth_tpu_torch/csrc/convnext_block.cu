@@ -44,7 +44,7 @@
 // - Phase C: for each chunk of 256 hidden columns:
 //       h   = gelu(xln @ fc1[chunk, :]^T + b1[chunk])     (M, 256), shared
 //       acc += h @ fc2[:, chunk]^T                        (M, C),   shared
-//   Both are the same routine, `gemm_panel`: a (M, K) operand in shared memory
+//   Both are the same routine, `gemm_panel` (convnext_common.cuh): a (M, K) operand in shared memory
 //   times 256 rows of a K-contiguous weight matrix in device memory. PyTorch's
 //   (out, in) layouts are K-contiguous for both products, so nothing is
 //   transposed: every output is a dot product of two rows. 256 threads as
@@ -59,198 +59,9 @@
 // Later work: 8 x 8 register tiles with fc2's sums kept in registers (the FMA
 // loops run at about half the float32 peak), weight tiles multicast to a
 // cluster by TMA, wgmma from the same shared tiles where TF32 is allowed.
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
-
-// The block's dynamic shared memory. (tests/cuda_emu builds this file for the
-// CPU with its own definition.)
-#ifndef SLOWTV_DYNAMIC_SMEM
-#define SLOWTV_DYNAMIC_SMEM(name) extern __shared__ float4 name[]
-#endif
+#include "convnext_common.cuh"
 
 namespace {
-
-namespace cg = cooperative_groups;
-
-constexpr int kThreads = 256;
-constexpr int kTN = 64;          // thread columns
-constexpr int kTM = 4;           // thread rows (kTM * kTN threads)
-constexpr int kRN = 4;           // output columns per thread (n = tn + 64 * i)
-constexpr int kNP = kTN * kRN;   // panel width = hidden chunk = 256
-constexpr int kKT = 32;          // K per weight tile
-constexpr int kWS = kKT + 4;     // padded row stride of the weight tile
-constexpr int kHS = kNP + 4;     // padded row stride of the hidden chunk
-constexpr int kK = 7;            // depthwise taps per axis
-constexpr int kFetch = 8;        // float4 per thread and weight tile (256 * 8 / 256)
-constexpr int kStrip = 4;        // pixels per strip in phase A
-constexpr float kEps = 1e-6f;    // the LayerNorm's epsilon (as the TPU kernel's)
-
-// Timing aids, never defined in the library's build: each leaves one part of the
-// kernel out (the result is then wrong), so that the package's
-// tools/block_kernel_bench.py can say where the time goes.
-#ifdef K9_NO_TAPS
-constexpr bool kTaps = false;    // skip the 49 taps
-#else
-constexpr bool kTaps = true;
-#endif
-#ifdef K9_NO_FMA
-constexpr bool kFma = false;     // skip the matrix products' FMAs
-#else
-constexpr bool kFma = true;
-#endif
-#ifdef K9_NO_STREAM
-constexpr bool kStream = false;  // skip the weight tiles' loads, stores and barriers
-#else
-constexpr bool kStream = true;
-#endif
-
-__device__ __forceinline__ float gelu(float h, bool approximate) {
-  if (approximate) {
-    const float inner = 0.7978845608028654f * (h + 0.044715f * h * h * h);
-    return 0.5f * h * (1.f + tanhf(inner));
-  }
-  return 0.5f * h * (1.f + erff(h * 0.7071067811865475f));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Thread t's place in the 4 x 64 grid of register tiles: a warp covers 8
-// columns x 4 rows. The thread owns rows tm + 4 * r and columns tn + 64 * i.
-__device__ __forceinline__ int thread_col(int t) { return (t >> 5) * 8 + (t & 7); }
-__device__ __forceinline__ int thread_row(int t) { return (t & 31) >> 3; }
-
-// This thread's kFetch float4 of the [256][32] weight tile at k = kt: row
-// ln + 32 * i, columns lk .. lk + 3. Rows >= N and columns >= K read as zero.
-__device__ __forceinline__ void fetch_tile(float4 (&pre)[kFetch], const float* __restrict__ Wg,
-                                           long long ldw, int N, int K, int kt, int ln,
-                                           int lk) {
-#pragma unroll
-  for (int i = 0; i < kFetch; ++i) {
-    const int n = ln + 32 * i;
-    pre[i] = (n < N && kt + lk < K)
-                 ? __ldg(reinterpret_cast<const float4*>(Wg + n * ldw + kt + lk))
-                 : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-}
-
-// One step of 4 along K for this thread's RM x 4 register tile. FULL: all four
-// of its columns are live (no test).
-template <int RM, bool FULL>
-__device__ __forceinline__ void mma_step(const float* Ar, int lda, const float* Wr, int k4,
-                                         int ni, float (&acc)[RM][kRN]) {
-  float4 w[kRN];
-#pragma unroll
-  for (int i = 0; i < kRN; ++i) {
-    w[i] = *reinterpret_cast<const float4*>(&Wr[kTN * i * kWS + 4 * k4]);
-  }
-#pragma unroll
-  for (int r = 0; r < RM; ++r) {
-    const float4 a = *reinterpret_cast<const float4*>(&Ar[kTM * r * lda + 4 * k4]);
-#pragma unroll
-    for (int i = 0; i < kRN; ++i) {
-      if (FULL || i < ni) {
-        acc[r][i] = fmaf(a.x, w[i].x, acc[r][i]);
-        acc[r][i] = fmaf(a.y, w[i].y, acc[r][i]);
-        acc[r][i] = fmaf(a.z, w[i].z, acc[r][i]);
-        acc[r][i] = fmaf(a.w, w[i].w, acc[r][i]);
-      }
-    }
-  }
-}
-
-// One weight tile's worth of FMAs: nk4 steps; a whole tile (all but K's last
-// one, when K is no multiple of 32) is straight-line code.
-template <int RM, bool FULL>
-__device__ __forceinline__ void mma_tile(const float* Ar, int lda, const float* Wr, int nk4,
-                                         int ni, float (&acc)[RM][kRN]) {
-  if (!kFma) return;
-  if (nk4 == kKT / 4) {
-#pragma unroll
-    for (int k4 = 0; k4 < kKT / 4; ++k4) mma_step<RM, FULL>(Ar, lda, Wr, k4, ni, acc);
-  } else {
-    for (int k4 = 0; k4 < nk4; ++k4) mma_step<RM, FULL>(Ar, lda, Wr, k4, ni, acc);
-  }
-}
-
-// acc[r][i] = sum_k A[tm + 4 * r][k] * Wg[(tn + 64 * i) * ldw + k], k < K, for
-// the N <= 256 rows of Wg. A is in shared memory (row stride lda, 16-byte
-// aligned rows), Wg in device memory (16-byte aligned rows, K % 4 == 0). Ws is
-// the [256][kWS] staging tile. Every thread of the block must call it.
-//
-// A warp is 8 thread columns x 4 thread rows: a 128-bit read of the weight
-// tile touches 8 rows (one 128-byte wavefront, the 4 thread rows share it) and
-// one of A touches 4 rows (lda = 4 mod 32 keeps them on different banks).
-template <int RM>
-__device__ __forceinline__ void gemm_panel(const float* A, int lda,
-                                           const float* __restrict__ Wg, long long ldw,
-                                           int N, int K, float* Ws,
-                                           float (&acc)[RM][kRN]) {
-  const int t = threadIdx.x, tn = thread_col(t), tm = thread_row(t);
-  const int ln = t >> 3, lk = (t & 7) * 4;
-#pragma unroll
-  for (int r = 0; r < RM; ++r) {
-#pragma unroll
-    for (int i = 0; i < kRN; ++i) acc[r][i] = 0.f;
-  }
-  int ni = (N - tn + kTN - 1) / kTN;  // this thread's live columns
-  ni = ni < 0 ? 0 : (ni > kRN ? kRN : ni);
-
-  float4 pre[kFetch];
-  if (kStream) fetch_tile(pre, Wg, ldw, N, K, 0, ln, lk);
-  for (int kt = 0; kt < K; kt += kKT) {
-    if (kStream || kt == 0) __syncthreads();  // the last tile's reads and A's writers are done
-    if (kStream) {
-#pragma unroll
-      for (int i = 0; i < kFetch; ++i) {
-        *reinterpret_cast<float4*>(&Ws[(ln + 32 * i) * kWS + lk]) = pre[i];
-      }
-      if (kt + kKT < K) fetch_tile(pre, Wg, ldw, N, K, kt + kKT, ln, lk);
-      __syncthreads();
-    }
-    const int nk4 = (K - kt < kKT ? K - kt : kKT) / 4;
-    const float* Ar = A + tm * lda + kt;
-    const float* Wr = Ws + tn * kWS;
-    if (ni == kRN) {
-      mma_tile<RM, true>(Ar, lda, Wr, nk4, ni, acc);
-    } else {
-      mma_tile<RM, false>(Ar, lda, Wr, nk4, ni, acc);
-    }
-  }
-}
-
-// u[j] = bias + the 49 taps at pixel (py, px + j) of the image whose first row is
-// row0 (= b * H), channel c, j < L; zeros outside the image. One row window of
-// L + 6 loads feeds the 7 taps of all L outputs.
-template <int L>
-__device__ __forceinline__ void taps_strip(const float* __restrict__ x,
-                                           const float (&wr)[kK * kK], float bias,
-                                           long long row0, int py, int px, int H, int W,
-                                           int C, int c, float (&u)[L]) {
-  constexpr int P = kK / 2;
-#pragma unroll
-  for (int j = 0; j < L; ++j) u[j] = bias;
-#pragma unroll
-  for (int dy = 0; dy < kK; ++dy) {
-    const int iy = py + dy - P;
-    if (iy < 0 || iy >= H) continue;
-    const float* row = x + (row0 + iy) * W * (long long)C + c;
-    float v[L + kK - 1];
-#pragma unroll
-    for (int j = 0; j < L + kK - 1; ++j) {
-      const int ix = px + j - P;
-      v[j] = (ix >= 0 && ix < W) ? __ldg(row + (long long)ix * C) : 0.f;
-    }
-#pragma unroll
-    for (int dx = 0; dx < kK; ++dx) {
-#pragma unroll
-      for (int j = 0; j < L; ++j) u[j] = fmaf(v[j + dx], wr[dy * kK + dx], u[j]);
-    }
-  }
-}
 
 template <int RM>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -278,40 +89,8 @@ convnext_block_fwd_kernel(const float* __restrict__ x, const float* __restrict__
   constexpr int kStrips = M / kStrip;
   const int owned = rank < kStrips ? (kStrips - rank + S - 1) / S : 0;
 
-  // Phase A: depthwise 7x7 + bias. A thread keeps one channel's 49 taps in
-  // registers and walks this block's strips; with fewer than 256 channels the
-  // strips are dealt to 256 / C thread groups.
-  const int groups = C >= kThreads ? 1 : kThreads / C;
-  const int g = groups == 1 ? 0 : t / C;
-  for (int c = groups == 1 ? t : t % C; c < C && g < groups; c += kThreads) {
-    float wr[kK * kK];
-#pragma unroll
-    for (int i = 0; i < kK * kK; ++i) wr[i] = __ldg(dww + (long long)c * (kK * kK) + i);
-    const float bias = __ldg(dwb + c);
-    for (int k = rank + S * g; kTaps && k < kStrips; k += S * groups) {
-      const int m = k * kStrip;
-      const long long p = p0 + m;
-      const int px = (int)(p % W);
-      if (p + kStrip <= pixels && px + kStrip <= W) {  // one image row: share the loads
-        const long long by = p / W;  // b * H + y
-        const int py = (int)(by % H);
-        float u[kStrip];
-        taps_strip<kStrip>(x, wr, bias, by - py, py, px, H, W, C, c, u);
-#pragma unroll
-        for (int j = 0; j < kStrip; ++j) xln[(m + j) * ldx + c] = u[j];
-      } else {  // the strip wraps a row or runs off the last pixel
-        for (int j = 0; j < kStrip; ++j) {
-          float u[1] = {0.f};
-          if (p + j < pixels) {
-            const long long by = (p + j) / W;
-            const int py = (int)(by % H);
-            taps_strip<1>(x, wr, bias, by - py, py, (int)((p + j) % W), H, W, C, c, u);
-          }
-          xln[(m + j) * ldx + c] = u[0];
-        }
-      }
-    }
-  }
+  // Phase A: depthwise 7x7 + bias of this block's strips (taps_tile).
+  taps_tile(x, dww, dwb, xln, ldx, p0, pixels, M, H, W, C, rank, S);
   __syncthreads();
 
   // Phase B: LayerNorm over C of this block's pixels, one warp per pixel, two passes.
@@ -353,7 +132,7 @@ convnext_block_fwd_kernel(const float* __restrict__ x, const float* __restrict__
   float acc[RM][kRN];
   for (int j0 = rank * kNP; j0 < hidden; j0 += S * kNP) {
     const int nh = hidden - j0 < kNP ? hidden - j0 : kNP;
-    gemm_panel<RM>(xln, ldx, w1 + (long long)j0 * C, C, nh, C, Ws, acc);
+    gemm_panel<RM, false>(xln, ldx, w1 + (long long)j0 * C, C, nh, C, Ws, acc);
 #pragma unroll
     for (int i = 0; i < kRN; ++i) {
       const int n = tn + kTN * i;
@@ -367,7 +146,7 @@ convnext_block_fwd_kernel(const float* __restrict__ x, const float* __restrict__
     }
     for (int c0 = 0; c0 < C; c0 += kNP) {
       const int nc = C - c0 < kNP ? C - c0 : kNP;
-      gemm_panel<RM>(hs, kHS, w2 + (long long)c0 * hidden + j0, hidden, nc, nh, Ws, acc);
+      gemm_panel<RM, false>(hs, kHS, w2 + (long long)c0 * hidden + j0, hidden, nc, nh, Ws, acc);
 #pragma unroll
       for (int i = 0; i < kRN; ++i) {
         const int n = tn + kTN * i;

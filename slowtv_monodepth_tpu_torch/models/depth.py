@@ -17,6 +17,7 @@ import torch.nn as nn
 from ..ops import blend_stereo
 from .decoders import DECODERS
 from .encoders import create_encoder
+from .init import init_like_flax
 
 __all__ = ['DepthNet', 'seeded_state_dict']
 
@@ -25,7 +26,9 @@ MASKS = {None: None, 'explainability': 'sigmoid', 'uncertainty': 'relu'}
 
 class DepthNet(nn.Module):
     """:param enc_name: Encoder key (ConvNeXt family, `CONVNEXT_SPECS`).
-    :param pretrained: Kept for cfg parity; weights come from a checkpoint.
+    :param pretrained: Look for pretrained encoder weights when training
+        starts (`MonoDepthTrainer`, as the JAX package's `init_state`); a
+        served net takes its weights from a checkpoint.
     :param dec_name: Decoder type ('monodepth').
     :param out_scales: Multi-scale outputs as 2**s.
     :param mask_name: Optional mask decoder {None, 'explainability', 'uncertainty'}.
@@ -34,14 +37,20 @@ class DepthNet(nn.Module):
     :param use_stereo_blend: If True, blend predictions with a flipped pass.
     :param gelu: {'exact', 'tanh'} GELU flavor of the ConvNeXt blocks.
     :param dec_pad_mode: {'reflect', 'zeros'} decoder conv padding.
+    :param dec_phase_up, enc_remat: the JAX package's phase-decomposed
+        decoder upsampling and per-block rematerialization: exact transforms
+        with the same parameters, so a checkpoint trained with them loads and
+        serves; the port accepts and ignores them.
     :param kernels: run the hand-written kernels (depthwise conv, fused
         decoder stage). False runs their plain PyTorch versions: only for
         timing the plain path on the card.
     :param fused_stages: run the decoders' skip-less stages as fused stages
         (the default, in serving and in training). False runs plain modules.
     :param fused_blocks: run every ConvNeXt block of the encoder as one fused
-        call (`ops.fused_convnext_block`); off by default. On the card it is
-        forward only (serving) until the block's backward kernel is ported.
+        call (`ops.fused_convnext_block`: kernel 9 forward, kernel 10 and the
+        two dwconv kernels backward on the card); off by default.
+
+    Initial weights are flax's (`models.init.init_like_flax`).
     """
 
     def __init__(self, enc_name: str = 'convnext_base', pretrained: bool = True,
@@ -54,15 +63,12 @@ class DepthNet(nn.Module):
                  kernels: bool = True, fused_stages: bool = True,
                  fused_blocks: bool = False):
         super().__init__()
-        del pretrained
+        del dec_phase_up, enc_remat  # exact transforms: nothing to do here
+        self.enc_name, self.pretrained = enc_name, pretrained
         if dec_name not in DECODERS:
             raise NotImplementedError(
                 f'Decoder "{dec_name}" is not ported yet (have {sorted(DECODERS)}); '
                 'the other decoders are ROADMAP queue A item 10.')
-        if dec_phase_up or enc_remat:
-            raise NotImplementedError(
-                'dec_phase_up / enc_remat are TPU recipe options; the port runs '
-                'the exact recipe (ROADMAP ground rule "Recipe").')
         if mask_name not in MASKS:
             raise KeyError(f'Invalid mask. ({mask_name} vs. {set(MASKS)})')
         if mask_name and (num_ch_mask or 0) <= 0:
@@ -86,6 +92,7 @@ class DepthNet(nn.Module):
                 use_skip=True, out_sc=self.out_sc, out_ch=num_ch_mask,
                 out_act=MASKS[mask_name], pad_mode=dec_pad_mode, kernels=kernels,
                 fused_stages=fused_stages)
+        init_like_flax(self)
 
     def _forward(self, x: torch.Tensor) -> dict:
         feat = self.encoder(x.contiguous(memory_format=torch.channels_last))

@@ -19,6 +19,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .encoders import create_encoder
+from .init import init_like_flax
 
 __all__ = ['PoseNet']
 
@@ -34,11 +35,16 @@ def _head(n_ch: int, out_ch: int) -> nn.Sequential:
 class PoseNet(nn.Module):
     """:param enc_name: Encoder key (ConvNeXt family).
     :param learn_K: Also predict the normalized focal length and principal point.
-    :param pretrained: Kept for cfg parity; weights come from a checkpoint.
+    :param pretrained: Look for pretrained encoder weights when training
+        starts (see `DepthNet`).
     :param gelu: {'exact', 'tanh'} GELU flavor of the ConvNeXt blocks.
     :param input_scale: 1 only: the half-resolution pose input is a TPU recipe
         option of the JAX package.
     :param kernels: run the depthwise-conv kernel (see `DepthNet`).
+    :param fused_blocks: run every ConvNeXt block of the encoder as one fused
+        call (see `DepthNet`); off by default.
+
+    Initial weights are flax's (`models.init.init_like_flax`).
     """
     n_imgs = 2
     n_ch_dec = 256
@@ -46,21 +52,23 @@ class PoseNet(nn.Module):
 
     def __init__(self, enc_name: str = 'resnet18', learn_K: bool = False,
                  pretrained: bool = False, gelu: str = 'exact', input_scale: int = 1,
-                 kernels: bool = True):
+                 kernels: bool = True, fused_blocks: bool = False):
         super().__init__()
-        del pretrained
+        self.enc_name, self.pretrained = enc_name, pretrained
         if input_scale != 1:
             raise NotImplementedError(
                 'input_scale is a TPU recipe option; the port runs the exact recipe '
                 '(ROADMAP ground rule "Recipe").')
         self.learn_K = learn_K
         self.encoder, n_ch_enc, _ = create_encoder(
-            enc_name, in_chans=3 * self.n_imgs, gelu=gelu, kernels=kernels)
+            enc_name, in_chans=3 * self.n_imgs, gelu=gelu, kernels=kernels,
+            fused_blocks=fused_blocks)
         self.squeeze = nn.Sequential(nn.Conv2d(n_ch_enc[-1], self.n_ch_dec, 1), nn.ReLU())
         heads = {'pose': 6 * self.n_imgs}
         if learn_K:
             heads.update(focal=2, offset=2)
         self.decoders = nn.ModuleDict({k: _head(self.n_ch_dec, c) for k, c in heads.items()})
+        init_like_flax(self)
 
     @staticmethod
     def build_K(fs: torch.Tensor, cs: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
-"""Fused ConvNeXt block, forward, NHWC: one launch per block.
+"""Fused ConvNeXt block, NHWC: one launch per block forward, one per block backward.
 
-Counterpart of `slowtv_monodepth_tpu/ops/pallas_convnext.py:fused_convnext_block`:
+Counterpart of `slowtv_monodepth_tpu/ops/pallas_convnext.py:fused_convnext_block`
+and its custom VJP:
 
     y = x + gamma * fc2(gelu(fc1(LN(dwconv7x7(x) + b_dw))))
 
@@ -8,22 +9,26 @@ with a stride-1 zero-'SAME' 7x7 depthwise conv, a LayerNorm over the channels
 (biased variance, eps 1e-6), fc1: C -> 4C, GELU (erf, or tanh when
 `approximate`), fc2: 4C -> C, a per-channel layer scale and the residual.
 
-On a CUDA tensor `fused_convnext_block` launches the hand-written Hopper kernel
-`csrc/convnext_block.cu` (both matrix products, the taps, the LayerNorm and the
-GELU in one kernel; the (pixels, 4C) hidden activation never reaches device
-memory; with few pixels a cluster of thread blocks shares each pixel tile, see
-`tile_pixels`). On a CPU tensor it runs the plain PyTorch version
-`fused_convnext_block_plain`, which autograd differentiates and the tests hold
-against the JAX package. Any other device, or a tensor the kernel does not
-take, raises.
-
-The JAX function has a custom VJP (its backward kernel). That kernel is not
-ported yet (ROADMAP.md B, kernel 10), so on the card the wrapper raises when a
-gradient is asked for: serving runs, training through the fused block does not.
+On a CUDA tensor `fused_convnext_block` is a `torch.autograd.Function`:
+- forward: the hand-written Hopper kernel `csrc/convnext_block.cu` (kernel 9:
+  both matrix products, the taps, the LayerNorm and the GELU in one kernel; the
+  (pixels, 4C) hidden activation never reaches device memory; with few pixels
+  a cluster of thread blocks shares each pixel tile, see `tile_pixels`). It
+  saves x and the parameters only;
+- backward: `fused_convnext_block_bwd`, which recomputes the forward as the
+  JAX VJP does: `csrc/convnext_block_bwd.cu` (kernel 10: du, the cotangent
+  before the depthwise conv, and the gradients of b_dw, the LayerNorm, fc1,
+  fc2 and gamma), then kernel 1 with flipped taps (dx = dy + dwconv(du)) and
+  kernel 2 (the taps' gradient), through their launchers, as
+  `_block_core_bwd` finishes with `pallas_dwconv`'s two kernels.
+On a CPU tensor it runs the plain PyTorch version `fused_convnext_block_plain`
+under autograd, which the tests hold against the JAX package; the plain
+backward is `fused_convnext_block_bwd_plain`. Any other device, or a tensor a
+kernel does not take, raises.
 
 Activations are NHWC as in the JAX package; the parameters keep PyTorch's
 layouts (`nn.Conv2d(groups=C)`: (C, 1, 7, 7); `nn.Linear`: (out, in)), which the
-kernel reads as they are: no transposed copy per call. The TPU kernel's
+kernels read as they are: no transposed copy per call. The TPU kernel's
 128-lane channel padding (`c_real`) and its `h >= 6`, `Th | H` tiling limits do
 not exist here.
 """
@@ -33,10 +38,12 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from .dwconv import depthwise_conv_plain
+from .dwconv import _forward as _dwconv_forward
+from .dwconv import depthwise_conv_plain, dwconv_dw
 
-__all__ = ['fused_convnext_block', 'fused_convnext_block_plain', 'tile_pixels',
-           'MAX_CHANNELS', 'LN_EPS']
+__all__ = ['fused_convnext_block', 'fused_convnext_block_plain', 'fused_convnext_block_bwd',
+           'fused_convnext_block_bwd_plain', 'tile_pixels', 'bwd_tile_pixels', 'MAX_CHANNELS',
+           'LN_EPS']
 
 LN_EPS = 1e-6         # the block's LayerNorm epsilon (csrc/convnext_block.cu kEps)
 MAX_CHANNELS = 2048   # the smallest pixel tile's shared memory fits up to here
@@ -48,9 +55,26 @@ _MAX_CLUSTER = 8      # thread blocks per cluster (the portable limit)
 
 
 def _smem_bytes(m: int, c: int) -> int:
-    """Shared memory of one block: LN output (m, c + 4), fc2 sum (m, c), one
-    hidden chunk (m, 260), one weight tile (256, 36); float32."""
+    """Shared memory of one forward block: LN output (m, c + 4), fc2 sum (m, c),
+    one hidden chunk (m, 260), one weight tile (256, 36); float32."""
     return 4 * (m * (2 * c + 4) + 260 * m + 256 * 36)
+
+
+def _bwd_smem_bytes(m: int, c: int) -> int:
+    """Shared memory of one block of the backward's first launch: LN output,
+    xhat, dy * gamma and dxln (m, c + 4) each, one hidden chunk (m, 260), one
+    weight tile (256, 36), rstd (m); float32 (`launch_rows` in
+    csrc/convnext_block_bwd.cu computes the same)."""
+    return 4 * (4 * m * (c + 4) + 260 * m + 256 * 36 + m)
+
+
+def bwd_tile_pixels(c: int) -> int:
+    """Pixels per tile of the backward: the largest tile that fits shared memory."""
+    m = next((m for m in _TILES if _bwd_smem_bytes(m, c) <= _SMEM), None)
+    if m is None:
+        most = max(k for k in range(4, c, 4) if _bwd_smem_bytes(_TILES[-1], k) <= _SMEM)
+        raise ValueError(f'the backward kernel takes at most {most} channels, got {c}')
+    return m
 
 
 def tile_pixels(pixels: int, c: int) -> tuple[int, int]:
@@ -106,33 +130,16 @@ def fused_convnext_block_plain(x, dw_weight, dw_bias, ln_weight, ln_bias, fc1_we
     return x + gamma * F.linear(h, fc2_weight, fc2_bias)
 
 
-def fused_convnext_block(x, dw_weight, dw_bias, ln_weight, ln_bias, fc1_weight, fc1_bias,
-                         fc2_weight, fc2_bias, gamma, approximate: bool = False) -> torch.Tensor:
-    """One ConvNeXt block.
-
-    :param x: (b, h, w, c) float32 NHWC, contiguous; c a multiple of 4, <= 2048.
-    :param dw_weight: (c, 1, 7, 7) depthwise taps; dw_bias (c,).
-    :param ln_weight, ln_bias: (c,) LayerNorm scale and bias.
-    :param fc1_weight: (4c, c); fc1_bias (4c,). fc2_weight: (c, 4c); fc2_bias (c,).
-    :param gamma: (c,) layer scale.
-    :param approximate: tanh GELU instead of the exact erf one.
-    :return: (b, h, w, c) contiguous, a new tensor (never in place).
-
-    `fused_convnext_block.launches` counts the kernel launches on the card
-    (one per call). Under grad on the card it raises: the backward kernel is
-    not ported yet.
-    """
+def _forward(x, dw_weight, dw_bias, ln_weight, ln_bias, fc1_weight, fc1_bias, fc2_weight,
+             fc2_bias, gamma, approximate: bool) -> torch.Tensor:
+    """Kernel 9 on CUDA tensors `fused_convnext_block` has checked; the plain
+    version on CPU ones, which reach `_FusedBlock` only when it is applied
+    directly (the tests of its CPU path: `fused_convnext_block` itself runs the
+    plain version under autograd there)."""
     args = (x, dw_weight, dw_bias, ln_weight, ln_bias, fc1_weight, fc1_bias, fc2_weight,
             fc2_bias, gamma)
-    _check(*args)
     if x.device.type == 'cpu':
         return fused_convnext_block_plain(*args, approximate=approximate)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        raise NotImplementedError(
-            'fused_convnext_block has no backward on the card yet: the fused block\'s '
-            'backward kernel (kernel 10, pallas_convnext.py:_block_bwd_jit) is open in '
-            'ROADMAP.md B. Run under torch.no_grad(), or build the net with '
-            'fused_blocks=False to train.')
     if fc1_weight.data_ptr() % 16 or fc2_weight.data_ptr() % 16:
         raise ValueError('fc1_weight and fc2_weight must start on a 16-byte boundary')
     out = torch.empty_like(x)
@@ -148,4 +155,121 @@ def fused_convnext_block(x, dw_weight, dw_bias, ln_weight, ln_bias, fc1_weight, 
     return out
 
 
+class _FusedBlock(torch.autograd.Function):
+    """`pallas_convnext.py:_block_core` with its custom VJP: kernel 9 forward,
+    `fused_convnext_block_bwd` backward. Saves x and the parameters only."""
+
+    @staticmethod
+    def forward(ctx, x, *params_and_flag):
+        *params, approximate = params_and_flag
+        ctx.approximate = approximate
+        ctx.save_for_backward(x, *params)
+        return _forward(x, *params, approximate)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, *params = ctx.saved_tensors
+        grads = fused_convnext_block_bwd(x, dy.contiguous(), *params, approximate=ctx.approximate)
+        return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)), None)
+
+
+def fused_convnext_block(x, dw_weight, dw_bias, ln_weight, ln_bias, fc1_weight, fc1_bias,
+                         fc2_weight, fc2_bias, gamma, approximate: bool = False) -> torch.Tensor:
+    """One ConvNeXt block, differentiable in all ten inputs.
+
+    :param x: (b, h, w, c) float32 NHWC, contiguous; c a multiple of 4, <= 2048
+        (<= 1456 for a gradient on the card).
+    :param dw_weight: (c, 1, 7, 7) depthwise taps; dw_bias (c,).
+    :param ln_weight, ln_bias: (c,) LayerNorm scale and bias.
+    :param fc1_weight: (4c, c); fc1_bias (4c,). fc2_weight: (c, 4c); fc2_bias (c,).
+    :param gamma: (c,) layer scale.
+    :param approximate: tanh GELU instead of the exact erf one.
+    :return: (b, h, w, c) contiguous, a new tensor (never in place).
+
+    `fused_convnext_block.launches` counts the forward kernel's launches on
+    the card (one per call); `fused_convnext_block_bwd.launches` the
+    backward's (one per block backward).
+    """
+    args = (x, dw_weight, dw_bias, ln_weight, ln_bias, fc1_weight, fc1_bias, fc2_weight,
+            fc2_bias, gamma)
+    _check(*args)
+    if x.device.type == 'cpu':
+        return fused_convnext_block_plain(*args, approximate=approximate)
+    return _FusedBlock.apply(*args, bool(approximate))
+
+
 fused_convnext_block.launches = 0
+
+
+def fused_convnext_block_bwd_plain(x, dy, dw_weight, dw_bias, ln_weight, ln_bias, fc1_weight,
+                                   fc1_bias, fc2_weight, fc2_bias, gamma,
+                                   approximate: bool = False) -> tuple:
+    """Plain PyTorch version of the block's backward: the forward recomputed
+    under autograd -> the gradients of x and the nine parameters, in their
+    layouts (what `pallas_convnext.py:_block_core_bwd` returns)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (
+            x, dw_weight, dw_bias, ln_weight, ln_bias, fc1_weight, fc1_bias, fc2_weight,
+            fc2_bias, gamma)]
+        y = fused_convnext_block_plain(*leaves, approximate=approximate)
+        return torch.autograd.grad(y, leaves, dy)
+
+
+def fused_convnext_block_bwd(x, dy, dw_weight, dw_bias, ln_weight, ln_bias, fc1_weight,
+                             fc1_bias, fc2_weight, fc2_bias, gamma,
+                             approximate: bool = False) -> tuple:
+    """The block's backward -> (dx, d dw_weight, d dw_bias, d ln_weight,
+    d ln_bias, d fc1_weight, d fc1_bias, d fc2_weight, d fc2_bias, d gamma).
+
+    :param x: the forward's input; dy: the cotangent of y, (b, h, w, c) float32
+        contiguous; the parameters as `fused_convnext_block` takes them.
+
+    On a CUDA tensor: kernel 10 (`csrc/convnext_block_bwd.cu`), then kernel 1
+    on du with the taps flipped and kernel 2, counted by
+    `fused_convnext_block_bwd.launches` (one per call, however many CUDA
+    launches kernel 10 makes inside) and by the two dwconv counters; it raises
+    for a shape the kernel does not take. On a CPU tensor:
+    `fused_convnext_block_bwd_plain`.
+    """
+    params = (dw_weight, dw_bias, ln_weight, ln_bias, fc1_weight, fc1_bias, fc2_weight,
+              fc2_bias, gamma)
+    _check(x, *params)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device \
+            or not dy.is_contiguous():
+        raise ValueError(f'dy must be a contiguous {tuple(x.shape)} {x.dtype} tensor on '
+                         f'{x.device}, got {tuple(dy.shape)} {dy.dtype} on {dy.device}')
+    if x.device.type == 'cpu':
+        return fused_convnext_block_bwd_plain(x, dy, *params, approximate=approximate)
+    du, *grads = block_bwd_kernel(x, dy, *params, approximate=approximate)
+    dx = dy + _dwconv_forward(du, dw_weight.flip((-2, -1)).contiguous(), None)
+    return (dx, dwconv_dw(x, du, _K), *grads)
+
+
+def block_bwd_kernel(x, dy, dw_weight, dw_bias, ln_weight, ln_bias, fc1_weight, fc1_bias,
+                     fc2_weight, fc2_bias, gamma, approximate: bool = False) -> tuple:
+    """Kernel 10 alone, on CUDA tensors `fused_convnext_block_bwd` has checked
+    -> (du, d dw_bias, d ln_weight, d ln_bias, d fc1_weight, d fc1_bias,
+    d fc2_weight, d fc2_bias, d gamma); du is the cotangent of the depthwise
+    conv's output. Counted by `fused_convnext_block_bwd.launches`."""
+    params = (dw_weight, dw_bias, ln_weight, ln_bias, fc1_weight, fc1_bias, fc2_weight,
+              fc2_bias, gamma)
+    if any(t.data_ptr() % 16 for t in (dy, fc1_weight, fc2_weight)):
+        raise ValueError('dy, fc1_weight and fc2_weight must start on a 16-byte boundary')
+    b, h, w, c = x.shape
+    m = bwd_tile_pixels(c)
+    du = torch.empty_like(x)
+    grads = [torch.empty_like(t) for t in params[1:]]  # b_dw, LN, fc1, fc2, gamma
+    if x.numel() == 0:
+        return (du, *(g.zero_() for g in grads))
+    lib = _build.load()
+    scratch = torch.empty(lib.slowtv_convnext_block_bwd_scratch_floats(b, h, w, c, m),
+                          dtype=torch.float32, device=x.device)
+    err = lib.slowtv_convnext_block_bwd_f32(
+        *(t.data_ptr() for t in (x, dy, *params, du, *grads, scratch)), b, h, w, c, m,
+        int(bool(approximate)), x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, 'convnext-block backward kernel')
+    fused_convnext_block_bwd.launches += 1
+    return (du, *grads)
+
+
+fused_convnext_block_bwd.launches = 0

@@ -84,7 +84,7 @@ def get_ds(cfg: dict, mode: Optional[str] = None) -> dict:
             raise TypeError(f"Expected dict of dicts. Got '{kw}'.")
         if t not in DATA_REG:
             raise NotImplementedError(f'Dataset "{t}" is not ported yet (have {sorted(DATA_REG)}); '
-                                      'ROADMAP queue A item 5.')
+                                      'ROADMAP queue A item 7.')
         c = {k: v for k, v in kw.items() if k not in _MODES}
         if mode:
             c.update(kw.get(mode, {}))

@@ -77,12 +77,14 @@ def seeded_weights(seed: int = SEED) -> dict:
     return {k: seeded_state_dict(net, seed) for k, net in nets.items()}
 
 
-def port_step(gold: dict, device='cpu', kernels: bool = True) -> dict:
+def port_step(gold: dict, device='cpu', kernels: bool = True, fused_blocks: bool = False) -> dict:
     """One micro-step of the port's trainer on the fixture's inputs -> results
-    in the fixture's keys (numpy), plus `grad_finite_nonzero`."""
+    in the fixture's keys (numpy), plus `grad_finite_nonzero`. `fused_blocks`
+    turns the fused ConvNeXt blocks on in both nets (the same weights)."""
     from . import parsers
     from .core.trainer import MonoDepthTrainer
-    trainer = MonoDepthTrainer(CFG, kernels=kernels)
+    cfg = {**CFG, 'net': {k: {**v, 'fused_blocks': fused_blocks} for k, v in CFG['net'].items()}}
+    trainer = MonoDepthTrainer(cfg, kernels=kernels)
     for name, sd in seeded_weights(int(gold['seed'])).items():
         trainer.nets[name].load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
     trainer.to(device)

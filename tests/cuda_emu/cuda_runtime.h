@@ -2,8 +2,9 @@
 // for the CPU: one std::thread per CUDA thread, std::barrier for
 // __syncthreads and for each warp's shuffles, the blocks of a cluster run
 // together, blocks and clusters one after another (see emu.cpp). It covers
-// what csrc/convnext_block.cu uses and nothing more. Shared memory is filled
-// with NaN before every cluster, so a read of a value nobody wrote shows.
+// what csrc/convnext_block.cu and csrc/convnext_block_bwd.cu use and nothing
+// more. Shared memory is filled with NaN before every cluster, so a read of a
+// value nobody wrote shows.
 #pragma once
 #include <cmath>
 #include <cstddef>
@@ -25,6 +26,7 @@ extern thread_local dim3 threadIdx, blockIdx;
 template <class T> inline T __ldg(const T* p) { return *p; }
 void __syncthreads();
 float __shfl_xor_sync(unsigned mask, float v, int lane_mask);
+double __shfl_xor_sync(unsigned mask, double v, int lane_mask);
 float4* emu_smem();  // this block's dynamic shared memory
 #define SLOWTV_DYNAMIC_SMEM(name) float4* name = emu_smem()
 

@@ -16,19 +16,22 @@ thread_local unsigned tl_rank;  // this thread's block within its cluster
 unsigned g_cluster = 1;
 std::vector<std::unique_ptr<std::barrier<>>> g_block_barrier, g_warp_barrier;
 std::unique_ptr<std::barrier<>> g_cluster_barrier;
-std::vector<std::vector<float>> g_shuffle;      // per block, one slot per thread
+std::vector<std::vector<double>> g_shuffle;     // per block, one slot per thread
 std::vector<std::vector<float4>> g_smem;        // per block
 }  // namespace
 
 void __syncthreads() { g_block_barrier[tl_rank]->arrive_and_wait(); }
-float __shfl_xor_sync(unsigned, float v, int lane_mask) {
+double __shfl_xor_sync(unsigned, double v, int lane_mask) {
   const unsigned t = threadIdx.x, warps = g_warp_barrier.size() / g_cluster;
   std::barrier<>& warp = *g_warp_barrier[tl_rank * warps + t / 32];
   g_shuffle[tl_rank][t] = v;
   warp.arrive_and_wait();
-  const float r = g_shuffle[tl_rank][t ^ lane_mask];
+  const double r = g_shuffle[tl_rank][t ^ lane_mask];
   warp.arrive_and_wait();
   return r;
+}
+float __shfl_xor_sync(unsigned mask, float v, int lane_mask) {
+  return (float)__shfl_xor_sync(mask, (double)v, lane_mask);  // exact: a float fits a double
 }
 float4* emu_smem() { return g_smem[tl_rank].data(); }
 unsigned emu_cluster_rank() { return tl_rank; }
@@ -50,7 +53,7 @@ cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, K kernel, Args... 
   const unsigned threads = cfg->blockDim.x, warps = (threads + 31) / 32;
   if (cfg->gridDim.x % g_cluster || threads % 32) return cudaErrorInvalidValue;
   g_smem.assign(g_cluster, std::vector<float4>(cfg->dynamicSmemBytes / sizeof(float4) + 1));
-  g_shuffle.assign(g_cluster, std::vector<float>(threads));
+  g_shuffle.assign(g_cluster, std::vector<double>(threads));
   g_block_barrier.clear();
   g_warp_barrier.clear();
   for (unsigned b = 0; b < g_cluster; ++b) {

@@ -4,14 +4,20 @@ The JAX side is `pallas_convnext.fused_convnext_block`, whose Pallas kernels
 (forward and the custom VJP's backward) run in interpret mode off a TPU, and,
 for the shapes that kernel refuses (h < 6, channels off the 128 lanes), the
 unfused flax `ConvNeXtBlock`. The port's wrapper takes its plain PyTorch
-version because the tensors lie on the CPU; autograd through it is the oracle
-the port's backward kernel will be held to. Same numpy inputs on both sides,
-float32, weights fan-in scaled so that every activation is O(1).
+version because the tensors lie on the CPU; autograd through it, and the plain
+backward `fused_convnext_block_bwd_plain`, are the oracles the port's backward
+kernel is held to (on the card, and in `test_torch_convnext_block_emu.py`).
+Same numpy inputs on both sides, float32, weights fan-in scaled so that every
+activation is O(1). Also here: the autograd Function of the card's path run on
+CPU tensors, and `PoseNet(fused_blocks=True)` against the JAX pose net.
 
 Tolerances: forward 1e-5 of max|y| (sums of up to 4C = 512 float32 products in
 another order, the JAX kernel's polynomial erf good to 1.5e-7; measured
 ~1e-6); each gradient 1e-4 of its own largest magnitude, the JAX package's own
-limit (`tests/test_pallas_convnext.py:84`; sums over b*h*w = 384 pixels).
+limit (`tests/test_pallas_convnext.py:84`; sums over b*h*w = 384 pixels); the
+Function against autograd through the plain version 1e-6 of each gradient's
+largest magnitude (the same float32 arithmetic, summed in another order); the
+pose net atol 1e-5 as `tests/test_torch_pose.py`.
 """
 import jax
 import jax.numpy as jnp
@@ -126,13 +132,98 @@ def grads(request):
                                    * jnp.asarray(g)).sum(), argnums=tuple(range(10)))(*_to_jax(a))
     y, ts = _port(a, approximate, grad=True)
     y.backward(torch.from_numpy(g))
-    return {k: t.grad.numpy() for k, t in ts.items()}, _from_jax_grads(want)
+    plain_bwd = tb.fused_convnext_block_bwd_plain(
+        *(torch.from_numpy(v) for v in (a['x'], g, *(a[k] for k in NAMES[1:]))),
+        approximate=approximate)
+    return ({k: t.grad.numpy() for k, t in ts.items()}, _from_jax_grads(want),
+            dict(zip(NAMES, (v.numpy() for v in plain_bwd))))
 
 
 @pytest.mark.parametrize('name', NAMES)
 def test_plain_gradient_matches_jax_custom_vjp(grads, name):
-    got, want = grads
+    got, want, _ = grads
     _assert_close(got[name], want[name], GRAD_RTOL, name)
+
+
+@pytest.mark.parametrize('name', NAMES)
+def test_plain_backward_matches_jax_custom_vjp(grads, name):
+    """`fused_convnext_block_bwd_plain` against `_block_core_bwd` (its Pallas
+    backward kernel in interpret mode and the two dwconv transposes)."""
+    _, want, got = grads
+    _assert_close(got[name], want[name], GRAD_RTOL, name)
+
+
+@pytest.mark.parametrize('approximate', [False, True], ids=['erf', 'tanh'])
+def test_autograd_function_on_cpu_tensors_matches_autograd_of_plain(approximate):
+    """The card's Function (`_FusedBlock`) run on CPU tensors, where its forward
+    and backward take their plain versions: a non-contiguous cotangent, and
+    only some inputs asking for a gradient."""
+    a = _inputs(2, 5, 9, 24, seed=6)
+    g = np.random.RandomState(7).standard_normal((2, 24, 5, 9)).astype(np.float32)
+    dy = torch.from_numpy(g).permute(0, 2, 3, 1)  # (b, h, w, c), not contiguous
+    asks = ('x', 'fc1_weight', 'ln_bias', 'gamma')
+    ts = {k: torch.from_numpy(v.copy()).requires_grad_(k in asks) for k, v in a.items()}
+    y = tb._FusedBlock.apply(*ts.values(), approximate)
+    assert type(y.grad_fn).__name__ == '_FusedBlockBackward'
+    got = torch.autograd.grad(y, [ts[k] for k in asks], dy)
+    want_y, want_ts = _port(a, approximate, grad=True)
+    want = torch.autograd.grad(want_y, [want_ts[k] for k in asks], dy)
+    assert torch.equal(y, want_y.detach())
+    for k, u, v in zip(asks, got, want):
+        _assert_close(u.numpy(), v.numpy(), 1e-6, k)
+
+
+def test_pose_net_with_fused_blocks_matches_jax():
+    """`PoseNet(fused_blocks=True)` (every ConvNeXt block one fused call; on the
+    CPU its plain version) against the JAX pose net, weights carried across;
+    its state dict keys are the unfused net's."""
+    from slowtv_monodepth_tpu.models import PoseNet as JaxPoseNet
+    from slowtv_monodepth_tpu.models.import_reference import convert_reference_ckpt
+    from slowtv_monodepth_tpu_torch.models import PoseNet, pose_state_dict_from_jax, seeded_state_dict
+    cfg = {'enc_name': 'convnext_atto', 'learn_K': True}
+    net = PoseNet(**cfg, fused_blocks=True).eval()
+    assert list(net.state_dict()) == list(PoseNet(**cfg).state_dict())
+    sd = seeded_state_dict(net, 0)
+    params, _ = convert_reference_ckpt({f'nets.pose.{k}': v for k, v in sd.items()},
+                                       {'net': {'pose': cfg}})
+    net.load_state_dict(pose_state_dict_from_jax(params['pose']))
+    x = np.random.RandomState(1).rand(2, 64, 96, 6).astype(np.float32)
+    want = JaxPoseNet(**cfg).apply({'params': params['pose']}, jnp.asarray(x))
+    n = tb.fused_convnext_block.launches
+    with torch.no_grad():
+        got = net(torch.from_numpy(x).permute(0, 3, 1, 2))
+    assert tb.fused_convnext_block.launches == n  # CPU tensors: the plain version
+    for k in ('R', 't', 'fs', 'cs'):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=0, atol=1e-5,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize('net', ['depth', 'pose'])
+def test_weight_bridge_carries_nets_with_fused_blocks(net):
+    """`from_jax` with `fused_blocks=True` on either net: the same keys as the
+    unfused net, and JAX params -> port -> reference keys -> the same leaves."""
+    from slowtv_monodepth_tpu.models.import_reference import convert_reference_ckpt
+    from slowtv_monodepth_tpu_torch import models
+    cfg = ({'enc_name': 'convnext_atto', 'out_scales': [0, 1, 2, 3]} if net == 'depth'
+           else {'enc_name': 'convnext_atto', 'learn_K': True})
+    cls = models.DepthNet if net == 'depth' else models.PoseNet
+    to_port = (models.depth_state_dict_from_jax if net == 'depth'
+               else models.pose_state_dict_from_jax)
+    fused = cls(**cfg, fused_blocks=True)
+    assert list(fused.state_dict()) == list(cls(**cfg).state_dict())
+    sd = models.seeded_state_dict(fused, 3)
+
+    def to_jax(port_sd):
+        return convert_reference_ckpt({f'nets.{net}.{k}': v for k, v in port_sd.items()},
+                                      {'net': {net: cfg}})[0][net]
+    params = jax.tree.map(np.asarray, to_jax(sd))
+    fused.load_state_dict(to_port(params))  # strict: every key
+    back = to_jax({k: v.numpy() for k, v in fused.state_dict().items()})
+    flat = dict(jax.tree_util.tree_flatten_with_path(jax.tree.map(np.asarray, back))[0])
+    ref = jax.tree_util.tree_flatten_with_path(params)[0]
+    assert len(ref) == len(flat)
+    for path, leaf in ref:
+        np.testing.assert_array_equal(flat[path], leaf, err_msg=jax.tree_util.keystr(path))
 
 
 @pytest.mark.parametrize('approximate', [False, True], ids=['erf', 'tanh'])

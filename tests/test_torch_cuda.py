@@ -343,19 +343,73 @@ def test_convnext_block_kernel_matches_plain(card, b, h, w, c, approximate):
     assert _close(out, cb.fused_convnext_block_plain(*_f64(*args), approximate=approximate))
 
 
-def test_convnext_block_raises_under_grad_on_the_card(card):
-    """No backward kernel yet: a gradient asked for on the card raises, and
-    never comes back as a tensor without a grad_fn."""
-    from slowtv_monodepth_tpu_torch.ops import convnext_block as cb
+def test_convnext_block_under_grad_on_the_card_keeps_autograd(card):
+    """Under grad the card runs the autograd Function: kernel 9 forward, kernel
+    10 and kernels 1 and 2 backward; never a tensor without a grad_fn, and
+    None for an input that asks for no gradient."""
+    from slowtv_monodepth_tpu_torch.ops import convnext_block as cb, dwconv
     args = _block_args(np.random.RandomState(11), 1, 6, 8, 32)
-    args[5].requires_grad_()
-    n = cb.fused_convnext_block.launches
-    with pytest.raises(NotImplementedError, match='kernel 10'):
-        cb.fused_convnext_block(*args)
-    assert cb.fused_convnext_block.launches == n
+    for i in (0, 5, 9):
+        args[i].requires_grad_()
+    n = (cb.fused_convnext_block.launches, cb.fused_convnext_block_bwd.launches,
+         dwconv.depthwise_conv.launches, dwconv.dwconv_dw.launches)
+    out = cb.fused_convnext_block(*args)
+    assert out.grad_fn is not None
+    dy = torch.randn_like(out)
+    got = torch.autograd.grad(out, [args[i] for i in (0, 5, 9)], dy)
+    assert (cb.fused_convnext_block.launches, cb.fused_convnext_block_bwd.launches,
+            dwconv.depthwise_conv.launches, dwconv.dwconv_dw.launches) == (
+        n[0] + 1, n[1] + 1, n[2] + 1, n[3] + 1)
+    want = cb.fused_convnext_block_bwd_plain(*_f64(args[0].detach(), dy, *(
+        t.detach() for t in args[1:])))
+    for g, i in zip(got, (0, 5, 9)):
+        assert _close(g, want[i])
     with torch.no_grad():
-        out = cb.fused_convnext_block(*args)  # serving still runs
+        out = cb.fused_convnext_block(*args)  # serving
+    assert out.grad_fn is None
     assert _close(out, cb.fused_convnext_block_plain(*_f64(*(t.detach() for t in args))))
+
+
+BLOCK_BWD_CASES = [(2, 12, 16, 128), (1, 5, 7, 96), (2, 37, 53, 160), (1, 3, 4, 40),
+                   (3, 9, 9, 264), (1, 7, 11, 1024), (1, 1, 1, 8), (2, 24, 40, 512),
+                   (8, 12, 20, 192)]
+
+
+@pytest.mark.parametrize('approximate', [False, True], ids=['erf', 'tanh'])
+@pytest.mark.parametrize('b,h,w,c', BLOCK_BWD_CASES)
+def test_convnext_block_backward_kernel_matches_plain(card, b, h, w, c, approximate):
+    """Kernel 10 + kernels 1 and 2 against the plain backward in float64, each
+    of the ten gradients relative to its own largest magnitude; twice on the
+    same inputs, bitwise the same."""
+    from slowtv_monodepth_tpu_torch.ops import convnext_block as cb
+    rs = np.random.RandomState(13)
+    args = _block_args(rs, b, h, w, c)
+    dy = _rand(rs, b, h, w, c)
+    n = cb.fused_convnext_block_bwd.launches
+    got = cb.fused_convnext_block_bwd(args[0], dy, *args[1:], approximate=approximate)
+    again = cb.fused_convnext_block_bwd(args[0], dy, *args[1:], approximate=approximate)
+    torch.cuda.synchronize()
+    assert cb.fused_convnext_block_bwd.launches == n + 2
+    want = cb.fused_convnext_block_bwd_plain(*_f64(args[0], dy, *args[1:]),
+                                             approximate=approximate)
+    for g, a, t in zip(got, again, want):
+        assert g.shape == t.shape and torch.equal(g, a)
+        assert (g - t).abs().max().item() <= ATOL * t.abs().max().item()
+
+
+def test_convnext_block_backward_refuses_what_it_cannot_take(card):
+    """More channels than the smallest tile's shared memory holds, and a
+    cotangent that is not contiguous: errors, no launch."""
+    from slowtv_monodepth_tpu_torch.ops import convnext_block as cb
+    n = cb.fused_convnext_block_bwd.launches
+    args = _block_args(np.random.RandomState(14), 1, 2, 3, 1536)
+    with pytest.raises(ValueError, match='1456'):
+        cb.fused_convnext_block_bwd(args[0], torch.ones_like(args[0]), *args[1:])
+    args = _block_args(np.random.RandomState(14), 1, 4, 4, 8)
+    with pytest.raises(ValueError, match='contiguous'):
+        cb.fused_convnext_block_bwd(args[0], torch.ones(1, 8, 4, 4, device='cuda').permute(
+            0, 2, 3, 1), *args[1:])
+    assert cb.fused_convnext_block_bwd.launches == n
 
 
 def test_convnext_block_takes_a_view_that_starts_off_alignment(card):
@@ -393,5 +447,11 @@ def test_depthnet_fused_blocks_match_plain_path_in_float64(card):
             decoder_stage.fused_upconv_stage.launches) == (n[0] + 12, n[1], n[2] + 2)
     for s in range(4):
         assert _close(got[s], want[s])
-    with pytest.raises(NotImplementedError, match='kernel 10'):
-        fused_net(x)  # under grad: the parameters require it
+    # Under grad: every parameter's gradient against the plain path in float64.
+    n = (cb.fused_convnext_block.launches, cb.fused_convnext_block_bwd.launches)
+    sum(d.sum() for d in fused_net(x)['disp'].values()).backward()
+    sum(d.sum() for d in plain_net(x.double())['disp'].values()).backward()
+    assert (cb.fused_convnext_block.launches, cb.fused_convnext_block_bwd.launches) == (
+        n[0] + 12, n[1] + 12)
+    for (k, p), q in zip(fused_net.named_parameters(), plain_net.parameters()):
+        assert p.grad is not None and _close(p.grad, q.grad), k

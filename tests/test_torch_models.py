@@ -166,8 +166,6 @@ def test_unported_configurations_raise():
         DepthNet(enc_name='resnet18')
     with pytest.raises(NotImplementedError):
         DepthNet(enc_name=ENC, dec_name='hrdepth')
-    with pytest.raises(NotImplementedError):
-        DepthNet(enc_name=ENC, dec_phase_up=True)
 
 
 # ------------------------------------------------------------- fused ConvNeXt blocks

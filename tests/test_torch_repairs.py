@@ -1,0 +1,204 @@
+"""Faults of the port against the JAX package, each held by a test that the
+unrepaired port fails (ROADMAP queue C items 1, 2, 3, 5 and 7).
+
+1. Initial weights: flax's `lecun_normal` kernels and zero biases, LayerNorm
+   1 / 0, layer scale 1e-6, compared parameter by parameter with the JAX
+   package's `MonoDepthTrainer.init_state` at convnext_atto. The two sides
+   draw from different generators, so the test compares statistics: each
+   weight's mean and standard deviation within 6 standard errors of the
+   JAX draw's (a tensor of n values from a deviation-s law has a mean good to
+   s / sqrt(n) and a deviation good to under s / sqrt(n) each; the smallest
+   tensor has 144 values), every value inside flax's truncation at twice the
+   deviation, and biases, LayerNorm and layer scale exactly equal. PyTorch's
+   own defaults (kaiming-uniform, uniform biases) fail it.
+2. `pretrained: True`: a warning when `<model_root>/timm/` holds no file, an
+   error naming ROADMAP A7 when it holds one (loading is A7's work).
+3. A warm start (`trainer.load_ckpt`) restores the optimizer state when the
+   file has it and starts the step count from 0.
+5. `dec_phase_up` / `enc_remat` (exact transforms) are accepted and change
+   nothing.
+7. An unported dataset's message names ROADMAP A7.
+"""
+import logging
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from slowtv_monodepth_tpu.core.trainer import MonoDepthTrainer as JaxTrainer
+from slowtv_monodepth_tpu_torch import parsers, paths
+from slowtv_monodepth_tpu_torch.core import MonoDepthLoop, save_checkpoint
+from slowtv_monodepth_tpu_torch.core.trainer import MonoDepthTrainer
+from slowtv_monodepth_tpu_torch.models import (DepthNet, PoseNet, depth_state_dict_from_jax,
+                                               pose_state_dict_from_jax)
+from slowtv_monodepth_tpu_torch.models.init import TRUNC_STD
+
+NET = {'depth': {'enc_name': 'convnext_atto', 'pretrained': False, 'dec_name': 'monodepth',
+                 'out_scales': [0, 1, 2, 3]},
+       'pose': {'enc_name': 'convnext_atto', 'pretrained': False, 'learn_K': True}}
+LOSS = {'img_recon': {'weight': 1, 'use_min': True, 'use_automask': True},
+        'disp_smooth': {'weight': 0.001, 'use_edges': True}}
+SIGMAS = 6
+
+
+# ------------------------------------------------------------ 1. initial weights
+@pytest.fixture(scope='module')
+def jax_init() -> dict:
+    """The JAX package's initial weights in the port's keys and layouts."""
+    trainer = JaxTrainer({'net': NET, 'loss': LOSS})
+    state = trainer.init_state(jax.random.PRNGKey(0), {'imgs': jnp.zeros((1, 64, 96, 3))}, (-1, 1))
+    params = jax.tree.map(np.asarray, state.params)
+    return {'depth': {k: v.numpy() for k, v in depth_state_dict_from_jax(
+                params['depth'], NET['depth']['out_scales']).items()},
+            'pose': {k: v.numpy() for k, v in pose_state_dict_from_jax(params['pose']).items()}}
+
+
+def _port_nets(torch_defaults: bool = False) -> dict:
+    torch.manual_seed(0)
+    nets = {'depth': DepthNet(**NET['depth']), 'pose': PoseNet(**NET['pose'])}
+    if torch_defaults:  # the fault: PyTorch's own initializers
+        for net in nets.values():
+            for m in net.modules():
+                if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+                    m.reset_parameters()
+    return {k: {kk: v.numpy() for kk, v in net.state_dict().items()} for k, net in nets.items()}
+
+
+def _init_faults(port: dict, want: dict) -> list[str]:
+    bad = []
+    for name in want:
+        assert sorted(port[name]) == sorted(want[name])
+        for key, w in want[name].items():
+            p = port[name][key]
+            if w.ndim == 1 or key.endswith('gamma'):  # biases, LayerNorm, layer scale
+                if not np.array_equal(p, w):
+                    bad.append(f'{name}.{key}: {p[:3]} vs {w[:3]}')
+                continue
+            n, sd = w.size, float(w.std())
+            cut = 2 / np.sqrt(np.prod(w.shape[1:])) / TRUNC_STD  # flax's truncation at 2 sigma
+            if abs(float(p.mean()) - float(w.mean())) > SIGMAS * sd * np.sqrt(2 / n) \
+                    or abs(float(p.std()) - sd) > SIGMAS * sd / np.sqrt(n) \
+                    or float(np.abs(p).max()) > cut * (1 + 1e-6):
+                bad.append(f'{name}.{key}: mean {p.mean():.3g} vs {w.mean():.3g}, '
+                           f'std {p.std():.4g} vs {sd:.4g}, max {np.abs(p).max():.3g}')
+    return bad
+
+
+def test_initial_weights_are_drawn_as_the_jax_package_draws_them(jax_init):
+    assert _init_faults(_port_nets(), jax_init) == []
+
+
+def test_initial_weight_check_has_teeth(jax_init):
+    bad = _init_faults(_port_nets(torch_defaults=True), jax_init)
+    assert any('std' in b for b in bad) and any('bias' in b for b in bad)
+
+
+def test_initializer_works_on_the_meta_device():
+    with torch.device('meta'):
+        net = DepthNet(**NET['depth'])
+    assert all(p.is_meta for p in net.parameters())
+
+
+# ------------------------------------------------------------------ 2. pretrained
+@pytest.mark.parametrize('net', ['depth', 'pose'])
+def test_pretrained_without_a_file_warns_and_goes_on(net, tmp_path, monkeypatch, caplog):
+    monkeypatch.setattr(paths, 'MODEL_ROOTS', [tmp_path])
+    cfg = {'net': {**NET, net: {**NET[net], 'pretrained': True}}, 'loss': LOSS}
+    with caplog.at_level(logging.WARNING):
+        MonoDepthTrainer(cfg)
+    assert 'No pretrained weights for "convnext_atto" under <model_root>/timm/' in caplog.text
+
+
+@pytest.mark.parametrize('suffix', ['.npz', '.pth'])
+def test_pretrained_with_a_file_raises_naming_the_roadmap_item(suffix, tmp_path, monkeypatch):
+    monkeypatch.setattr(paths, 'MODEL_ROOTS', [tmp_path / 'empty', tmp_path])
+    (tmp_path / 'timm').mkdir()
+    (tmp_path / 'timm' / f'convnext_atto{suffix}').write_bytes(b'')
+    cfg = {'net': {**NET, 'depth': {**NET['depth'], 'pretrained': True}}, 'loss': LOSS}
+    with pytest.raises(NotImplementedError, match='queue A item 7'):
+        MonoDepthTrainer(cfg)
+    MonoDepthTrainer({'net': NET, 'loss': LOSS})  # pretrained: False never looks
+
+
+# ------------------------------------------------------------------ 3. warm start
+class _NoBatches:
+    def __len__(self):
+        return 0
+
+    def set_epoch(self, epoch):
+        pass
+
+    def __iter__(self):
+        return iter(())
+
+
+def _loop(tmp_path, name, **trainer):
+    cfg = {'net': NET, 'loss': LOSS, 'optimizer': {'type': 'adamw', 'lr': 1e-4, 'weight_decay': 1e-3},
+           'scheduler': {'linear': {'start_factor': 0.5, 'total_iters': 2}},
+           'trainer': {'max_epochs': 1, 'accumulate_grad_batches': 2, 'min_depth': 0.1,
+                       'max_depth': 100, **trainer}}
+    return MonoDepthLoop(cfg, tmp_path / name, device='cpu', train_dl=_NoBatches(), use_markers=False)
+
+
+def _opt_tensors(opt) -> list:
+    sd = opt.state_dict()
+    return [t for s in sd['opt']['state'].values() for t in s.values()] + sd['grads']
+
+
+@pytest.mark.parametrize('with_optimizer', [True, False], ids=['training_ckpt', 'released_ckpt'])
+def test_warm_start_restores_the_optimizer_state_and_starts_at_step_0(tmp_path, with_optimizer):
+    src = _loop(tmp_path, 'src')
+    rs = np.random.RandomState(0)
+    for _ in range(3):  # one update, then one micro-step accumulated
+        for p in src.opt.params():
+            p.grad = torch.from_numpy(rs.standard_normal(p.shape).astype(np.float32))
+        src.opt.step()
+    nets = {k: net.state_dict() for k, net in src.trainer.nets.items()}
+    path = tmp_path / 'warm.ckpt'
+    save_checkpoint(path, nets, src.cfg, opt=src.opt if with_optimizer else None, epoch=4, step=17)
+
+    dst = _loop(tmp_path, 'dst', load_ckpt=str(path), resume_training=False)
+    dst._init_state()
+    got = {k: net.state_dict() for k, net in dst.trainer.nets.items()}
+    assert all(torch.equal(got[n][k], v) for n in nets for k, v in nets[n].items())
+    assert dst.global_step == 0 and int(dst.trainer.step_count) == 0
+    assert int(dst.trainer.bad_step) == -1
+    if with_optimizer:
+        assert (dst.opt.updates, dst.opt.micro) == (src.opt.updates, src.opt.micro) == (1, 1)
+        want = _opt_tensors(src.opt)
+        assert len(want) > 3 * len(src.opt.params())
+        assert all(torch.equal(a, b) for a, b in zip(_opt_tensors(dst.opt), want))
+    else:
+        assert (dst.opt.updates, dst.opt.micro, dst.opt.opt.state_dict()['state']) == (0, 0, {})
+    path.unlink()
+
+
+def test_resume_refuses_a_last_checkpoint_without_optimizer_state(tmp_path):
+    """A warm start takes a released checkpoint; a resume needs a training one."""
+    src = _loop(tmp_path, 'src')
+    nets = {k: net.state_dict() for k, net in src.trainer.nets.items()}
+    save_checkpoint(tmp_path / 'run' / 'last.ckpt', nets, src.cfg, epoch=4, step=17)
+    with pytest.raises(ValueError, match='not a training checkpoint'):
+        _loop(tmp_path, 'run')._init_state()
+
+
+# ---------------------------------------------------------- 5. TPU recipe options
+def test_a_tpu_recipe_depth_cfg_builds_and_serves_the_same_maps():
+    """`cfg/kbr/tpu.yaml`'s net.depth with the two exact transforms it may carry."""
+    base = {**NET['depth'], 'gelu': 'tanh', 'dec_pad_mode': 'zeros'}
+    torch.manual_seed(0)
+    plain = DepthNet(**base).eval()
+    tpu = DepthNet(**base, dec_phase_up=True, enc_remat='dots').eval()
+    tpu.load_state_dict(plain.state_dict())
+    x = torch.from_numpy(np.random.RandomState(0).rand(1, 3, 64, 96).astype(np.float32))
+    with torch.no_grad():
+        a, b = plain(x)['disp'], tpu(x)['disp']
+    assert a.keys() == b.keys() and all(torch.equal(a[s], b[s]) for s in a)
+
+
+# --------------------------------------------------------------------- 7. message
+def test_an_unported_dataset_names_roadmap_item_a7():
+    with pytest.raises(NotImplementedError, match='queue A item 7'):
+        parsers.get_ds({'kitti_lmdb': {'split': 'eigen'}})

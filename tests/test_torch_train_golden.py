@@ -29,6 +29,14 @@ def test_port_reproduces_the_training_golden(golden):
     assert tg.compare(got, golden) == []
 
 
+def test_port_with_fused_blocks_reproduces_the_training_golden(golden):
+    """`fused_blocks: True` on both nets: every ConvNeXt block one fused call
+    (its plain version on the CPU), the same weights, the same golden."""
+    got = tg.port_step(golden, fused_blocks=True)
+    assert got['grad_finite_nonzero']
+    assert tg.compare(got, golden) == []
+
+
 def test_training_golden_is_informative(golden):
     """A loss that moves with one update, grads spread over the nets."""
     assert 0.01 < float(golden['loss']) < 1
