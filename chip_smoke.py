@@ -32,7 +32,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    from 720x1280 sources at the coords the augmentation gives it); times
    kernel, plain and, where one PyTorch call computes the function, that call
    (float32). Kernel 6 is also held to kernel 5 on the
-   widened source. The fused block's backward (kernel 10, with kernels 1 and 2
+   widened source. Kernel 1 at the step's eight block shapes (float64,
+   timed per micro-step); kernel 4 called twice on the same inputs must
+   give the same bits. The fused block's backward (kernel 10, with kernels 1 and 2
    finishing dx and the taps' gradient) at the eight block shapes of the
    step (ConvNeXt-B at B=4, ConvNeXt-T at B=8), ragged shapes, erf and tanh:
    each of its ten gradients within twice the plain float32 version's error
@@ -74,19 +76,23 @@ Phases, in order; any failure exits non-zero and prints no result:
    and one with `trainer.warp_bf16` (the packed warp once per micro-step,
    kernel 5 only from the augmentation), 24 batches each so that buckets repeat, after which the process-global
    matmul precision and `cudnn.benchmark` are put back and checked.
-The last two lines are a JSON object per kernel and the contract line
+Every time is a device time (`cuda_ms`: the calls captured into one CUDA
+graph, CUDA events around one replay) with the eager time beside it. The last
+two lines are a JSON object per kernel and the contract line
 `{"ok": true, "device": {...}}`.
 
 Usage: python3 chip_smoke.py   (from the repo root, one CUDA card)
 """
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import json
 import subprocess
 import tempfile
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -186,17 +192,85 @@ def fail(msg: str) -> None:
     raise SystemExit(f'chip_smoke FAILED: {msg}')
 
 
-def cuda_ms(fn, iters: int = 30, warmup: int = 3) -> float:
-    """Mean device time of `fn()` in ms, by CUDA events over `iters` calls."""
-    for _ in range(warmup):
-        fn()
+_TIMING_STREAM = None
+
+
+def timing_stream() -> torch.cuda.Stream:
+    """The one stream every timed call runs on, eager, captured and replayed.
+    A forward whose backward is timed is run on it too: autograd runs each
+    backward op on its forward op's stream, and a capture sees that stream only."""
+    global _TIMING_STREAM
+    if _TIMING_STREAM is None:
+        _TIMING_STREAM = torch.cuda.Stream()
+    return _TIMING_STREAM
+
+
+class Timing(NamedTuple):
+    ms: float        # device time per call: one CUDA-graph replay of `iters` calls / iters
+    eager_ms: float  # CUDA events around `iters` eager calls / iters: adds the host's dispatch
+    how: str         # 'graph', or 'profiler' where the calls could not be captured
+
+
+def _profiler_ms(fn, iters: int) -> float:
+    """Device time per call of `fn` from `torch.profiler`'s sum over its CUDA kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / iters
+
+
+def cuda_ms(fn, iters: int = 30, warmup: int = 3) -> Timing:
+    """Device and eager time of `fn()` in ms per call.
+
+    Device: `iters` calls captured into one CUDA graph, CUDA events around one
+    replay (after a first one), divided by `iters`: the host's dispatch
+    (argument checks, autograd, ctypes) is not in it. Eager: CUDA events
+    around `iters` calls made from Python, as a caller makes them.
+    """
+    s = timing_stream()
+    s.wait_stream(torch.cuda.current_stream())
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    with torch.cuda.stream(s):
+        for _ in range(warmup):
+            fn()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        eager = start.elapsed_time(end) / iters
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, stream=s):
+                for _ in range(iters):
+                    fn()
+        except RuntimeError as e:
+            del graph
+            torch.cuda.synchronize()
+            ms = _profiler_ms(fn, iters)
+            print(f'  (not capturable, timed by torch.profiler: {str(e).splitlines()[0][:120]})')
+            return Timing(ms, eager, 'profiler')
+        graph.replay()
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / iters
+    del graph
+    return Timing(ms, eager, 'graph')
+
+
+@contextlib.contextmanager
+def on_timing_stream():
+    """Run the body on `timing_stream()`, after the work queued so far."""
+    s = timing_stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        yield
 
 
 def bound_ms(n_bytes: float, flops: float) -> tuple[float, float]:
@@ -207,21 +281,29 @@ def bound_ms(n_bytes: float, flops: float) -> tuple[float, float]:
 
 def new_result() -> dict:
     return {'err': 0.0, 'ms': 0.0, 'plain_ms': 0.0, 'library_ms': None, 'bound_ms': 0.0,
-            'bound_bytes_ms': 0.0, 'bound_ops_ms': 0.0}
+            'bound_bytes_ms': 0.0, 'bound_ops_ms': 0.0, 'eager_ms': 0.0, 'plain_eager_ms': 0.0,
+            'library_eager_ms': None, 'timed_by': 'graph'}
 
 
-def add_times(r: dict, n: int, ms: float, plain_ms: float, bound: tuple, library_ms=None) -> str:
-    """Add `n` launches' times per main path to a kernel's result -> text for the log."""
-    r['ms'] += n * ms
-    r['plain_ms'] += n * plain_ms
+def add_times(r: dict, n: int, t: Timing, plain: Timing, bound: tuple, library=None) -> str:
+    """Add `n` launches' times per main path to a kernel's result -> text for the log:
+    device times, eager times in brackets."""
+    r['ms'] += n * t.ms
+    r['plain_ms'] += n * plain.ms
+    r['eager_ms'] += n * t.eager_ms
+    r['plain_eager_ms'] += n * plain.eager_ms
     r['bound_ms'] += n * max(bound)
     r['bound_bytes_ms'] += n * bound[0]
     r['bound_ops_ms'] += n * bound[1]
-    text = (f'; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {max(bound):.4f} ms '
+    if 'profiler' in (t.how, plain.how) + (() if library is None else (library.how,)):
+        r['timed_by'] = 'profiler for some calls'
+    text = (f'; device ms (eager): kernel {t.ms:.4f} ({t.eager_ms:.4f}), plain {plain.ms:.4f} '
+            f'({plain.eager_ms:.4f}), bound {max(bound):.4f} '
             f'({"bytes" if bound[0] >= bound[1] else "operations"})')
-    if library_ms is not None:
-        r['library_ms'] = (r['library_ms'] or 0.0) + n * library_ms
-        text += f', library {library_ms:.4f} ms'
+    if library is not None:
+        r['library_ms'] = (r['library_ms'] or 0.0) + n * library.ms
+        r['library_eager_ms'] = (r['library_eager_ms'] or 0.0) + n * library.eager_ms
+        text += f', library {library.ms:.4f} ({library.eager_ms:.4f})'
     return text + f', x{n} per main path'
 
 
@@ -241,8 +323,10 @@ def stage_cost(b, h, w, ci, cd, backward: bool) -> tuple[float, float]:
     if not backward:  # reads x and the parameters, writes feat and disp
         return 4 * (x + params + feat + disp), conv_flops
     # reads x, the weights, ha, feat, disp and both cotangents; writes seven gradients;
-    # each conv has an input and a weight gradient of the forward's cost each.
-    return 4 * (x + params + ha + 2 * feat + 2 * disp + x + params), 2 * conv_flops
+    # each conv has an input and a weight gradient of the forward's cost each, but the
+    # input gradient through the upsample: 16 pre-summed taps (cd x cd) per ha pixel.
+    up_grad = 2 * 16 * cd * cd * p - 2 * 9 * cd * cd * 4 * p
+    return 4 * (x + params + ha + 2 * feat + 2 * disp + x + params), 2 * conv_flops + up_grad
 
 
 # ---------------------------------------------------------------- phases
@@ -283,6 +367,12 @@ def phase_build() -> None:
         if 'convnext_block_fwd_kernel' in entry and 'spill' in line \
                 and '0 bytes spill stores, 0 bytes spill loads' not in line:
             fail(f'the fused ConvNeXt block kernel spills registers: {line.strip()}')
+        # Kernels 1 and 4 keep their register tiles (the row ring, the taps'
+        # window) in registers only when every index into them is a constant.
+        if any(k in entry for k in ('dwconv_fwd_kernel', 'weight_grad_kernel', 'input_grad_kernel')) \
+                and 'stack frame' in line \
+                and '0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads' not in line:
+            print(f'  NOTE: local memory in {entry.strip()}')
     if 'convnext_block_fwd_kernel' not in log or 'convnext_block_bwd_rows_kernel' not in log:
         fail('the build log does not show the fused ConvNeXt block kernels')
 
@@ -461,8 +551,9 @@ def _block_kernel_cases(rs) -> dict:
             m, s = tile_pixels(b * h * w, c)
             times = add_times(res if b == 1 else total, n, ms, pms, bound_ms(*cost))
             print(f'convnext_block {(b, h, w, c)}: tiles of {m} pixels, {s} block(s) each, '
-                  f'{cost[1] / ms / 1e9:.1f} TFLOP/s; unfused with kernel 1 {ums:.4f} ms{times}')
-            total['unfused'] = total.get('unfused', 0.0) + n * ums
+                  f'{cost[1] / ms.ms / 1e9:.1f} TFLOP/s; unfused with kernel 1 {ums.ms:.4f} '
+                  f'({ums.eager_ms:.4f}) ms{times}')
+            total['unfused'] = total.get('unfused', 0.0) + n * ums.ms
         t = res if b == 1 else total
         print(f'convnext_block, 36 blocks at B={b}: kernel {t["ms"]:.3f} ms, plain {t["plain_ms"]:.3f} '
               f'ms, unfused with kernel 1 {total["unfused"]:.3f} ms, bound {t["bound_ms"]:.3f} ms')
@@ -629,8 +720,8 @@ def phase_train_kernels(scenes) -> dict:
     from slowtv_monodepth_tpu_torch.core.aspect_ratio import crop_grid
     from slowtv_monodepth_tpu_torch.ops import decoder_stage, dwconv, photo, sample
     rs = np.random.RandomState(1)
-    res = {k: new_result() for k in ('dwconv_dw', 'decoder_stage_bwd', 'warp', 'warp_packed',
-                                     'photo_fwd', 'photo_bwd')}
+    res = {k: new_result() for k in ('dwconv_dw', 'dwconv_step', 'decoder_stage_bwd', 'warp',
+                                     'warp_packed', 'photo_fwd', 'photo_bwd')}
     res['convnext_block_bwd'] = _block_bwd_cases(rs)
 
     def record(name, err, tol, line, n=0, fn=None, plain=None, bound=None, library=None):
@@ -663,6 +754,25 @@ def phase_train_kernels(scenes) -> dict:
                lambda: dwconv.dwconv_dw(x, g, k), lambda: dwconv.dwconv_dw_plain(x, g, k),
                (4 * (2 * px + k * k * c), 2 * k * k * px), 'plain')
 
+    # Kernel 1 at the same eight block shapes, timed per micro-step: each block
+    # launches it twice, forward and input gradient (the same kernel on the
+    # cotangent, taps flipped, no bias), so each shape counts x2. Its own seed,
+    # so that the later cases draw what they drew before.
+    rs1 = np.random.RandomState(7)
+    for b, h, w, c, n in STEP_BLOCKS:
+        x, wt, bias = _rand(rs1, b, h, w, c), _rand(rs1, c, 1, 7, 7, scale=1 / 7), _rand(rs1, c, scale=0.1)
+        err = _max_err(dwconv.depthwise_conv(x, wt, bias),
+                       dwconv.depthwise_conv_plain(x.double(), wt.double(), bias.double()))
+        px = b * h * w * c  # the plain version IS the library call (cuDNN, groups=c)
+        record('dwconv_step', err, DWCONV_ATOL, f'dwconv {(b, h, w, c)} k=7, training step', 2 * n,
+               lambda: dwconv.depthwise_conv(x, wt, bias),
+               lambda: dwconv.depthwise_conv_plain(x, wt, bias),
+               (4 * (2 * px + 49 * c + c), 2 * 49 * px), 'plain')
+    print(f'dwconv, 108 launches per KBR micro-step (B={TRAIN_B}, 384x640): device ms (eager) '
+          f'kernel {res["dwconv_step"]["ms"]:.3f} ({res["dwconv_step"]["eager_ms"]:.3f}), cuDNN '
+          f'{res["dwconv_step"]["plain_ms"]:.3f} ({res["dwconv_step"]["plain_eager_ms"]:.3f}), '
+          f'bound {res["dwconv_step"]["bound_ms"]:.3f}')
+
     # The decoder stage's backward (kernel 4) through the autograd Function:
     # KBR stages 1 and 0 at B=4 (timed), ragged shapes, grids of 2 and 3
     # where a reflect fold lands on the row it left, both stages at the run's
@@ -684,6 +794,11 @@ def phase_train_kernels(scenes) -> dict:
         if feat.grad_fn is None or disp.grad_fn is None:
             fail('fused_upconv_stage under grad is cut off from autograd')
         saved = feat.grad_fn.saved_tensors  # x, six parameters, ha, feat, disp
+        once = decoder_stage.fused_upconv_stage_bwd(*saved, g_feat, g_disp)
+        again = decoder_stage.fused_upconv_stage_bwd(*saved, g_feat, g_disp)
+        torch.cuda.synchronize()
+        if not all(torch.equal(u, v) for u, v in zip(once, again)):
+            fail(f'decoder_stage_bwd {(b, h, w, ci)} -> cd={cd}: two calls on the same inputs differ')
         for mode, gf, gd in (('both', g_feat, g_disp), ('g_feat', g_feat, None),
                              ('g_disp', None, g_disp)):
             pairs = [(o, g) for o, g in ((feat, gf), (disp, gd)) if g is not None]
@@ -697,7 +812,8 @@ def phase_train_kernels(scenes) -> dict:
             worst = max(errs['dx'], max(v for k, v in errs.items() if k != 'dx') / wsum)
             timed = n and mode == 'both'
             plain_leaves = [t.clone().requires_grad_() for t in args]
-            plain_outs = decoder_stage.fused_upconv_stage_plain(*plain_leaves) if timed else None
+            with on_timing_stream():  # the library call below times this forward's backward
+                plain_outs = decoder_stage.fused_upconv_stage_plain(*plain_leaves) if timed else None
             record('decoder_stage_bwd', worst, STAGE_BWD_RTOL,
                    f'decoder_stage_bwd {(b, h, w, ci)} -> cd={cd}, {mode} (each relative to its own '
                    f'max|grad|; dx {errs["dx"]:.1e}, weight sums '
@@ -847,15 +963,17 @@ def _block_bwd_cases(rs) -> dict:
             k10 = cuda_ms(lambda: cb.block_bwd_kernel(args[0], dy, *args[1:]), iters=10)
             k10_bound = max(bound_ms(*block_bwd_cost(b, h, w, c, kernel10_only=True)))
             leaves = [t.clone().requires_grad_() for t in args]
-            y = _unfused_block(*leaves)
+            with on_timing_stream():  # its backward is what is timed
+                y = _unfused_block(*leaves)
             ums = cuda_ms(lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True), iters=10)
-            res['unfused_ms'] += n * ums
-            res['k10_ms'] += n * k10
+            res['unfused_ms'] += n * ums.ms
+            res['k10_ms'] += n * k10.ms
             res['k10_bound_ms'] += n * k10_bound
             cost = block_bwd_cost(b, h, w, c)
-            line += (f'; {cost[1] / ms / 1e9:.1f} TFLOP/s; kernel 10 alone {k10:.4f} ms (bound '
-                     f'{k10_bound:.4f} ms); unfused block backward (kernels 1, 2, LayerNorm, '
-                     f'cuBLAS) {ums:.4f} ms' + add_times(res, n, ms, pms, bound_ms(*cost)))
+            line += (f'; {cost[1] / ms.ms / 1e9:.1f} TFLOP/s; kernel 10 alone {k10.ms:.4f} '
+                     f'({k10.eager_ms:.4f}) ms (bound {k10_bound:.4f} ms); unfused block backward '
+                     f'(kernels 1, 2, LayerNorm, cuBLAS) {ums.ms:.4f} ({ums.eager_ms:.4f}) ms'
+                     + add_times(res, n, ms, pms, bound_ms(*cost)))
         print(line)
         if not all(e <= 2 * p + floor for e, p in zip(err, perr)):
             fail(line)
@@ -1272,7 +1390,8 @@ def profile_train(out: Path = ROOT / 'build' / 'train_profile.txt',
     rows.sort(key=lambda r: -r[1])
     device = sum(r[1] for r in rows)
     cats = {'hand-written kernels': ('dwconv_', 'warp_bilinear', 'photo_', 'conv3x3_reflect',
-                                     'sigmoid_grad', 'reduce_weight_grad'),
+                                     'sigmoid_grad', 'reduce_weight_grad', 'presum_kernel',
+                                     'weight_grad_kernel', 'input_grad_kernel'),
             'convolution (cuDNN)': ('conv', 'cudnn', 'fprop', 'dgrad', 'wgrad', 'fft',
                                     'winograd'),  # before GEMM: implicit-GEMM convs
             'GEMM (cuBLAS/CUTLASS)': ('gemm',),
@@ -1290,6 +1409,17 @@ def profile_train(out: Path = ROOT / 'build' / 'train_profile.txt',
              f'idle {100 * (1 - device / wall):.1f}%']
     lines += [f'{c:28s} {ms:9.3f} ms {100 * ms / device:5.1f}%' for c, ms in
               sorted(totals.items(), key=lambda kv: -kv[1])]
+    # The hand-written kernels' CUDA launches by the TPU kernel each replaces.
+    by_row = {'1 dwconv': ('dwconv_fwd_kernel',), '2 dwconv_dw': ('dwconv_dw_',),
+              '3 decoder_stage': ('conv3x3_reflect_kernel',),
+              '4 decoder_stage_bwd': ('sigmoid_grad', 'presum_kernel', 'weight_grad_kernel',
+                                      'input_grad_kernel', 'reduce_weight_grad'),
+              '5 warp': ('warp_bilinear_kernel',), '6 warp_packed': ('warp_bilinear_packed',),
+              '7 photo_fwd': ('photo_fwd',), '8 photo_bwd': ('photo_bwd',)}
+    lines += ['', 'TPU kernel (device time per micro-step, CUDA launches per micro-step):']
+    for row, keys in by_row.items():
+        hits = [(ms, n) for name, ms, n in rows if any(k in name for k in keys)]
+        lines.append(f'{row:28s} {sum(h[0] for h in hits):9.3f} ms {sum(h[1] for h in hits):6d}')
     lines += ['', 'kernel (self device time per micro-step, launches per micro-step):']
     lines += [f'{ms:9.3f} ms {n:6d}  {name[:150]}' for name, ms, n in rows[:60]]
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -1341,20 +1471,28 @@ def main() -> None:
          'plain_ms': kern[name]['plain_ms'], 'bound_ms': kern[name]['bound_ms'],
          'bound_by': ('bytes' if kern[name]['bound_bytes_ms'] >= kern[name]['bound_ops_ms']
                       else 'operations'),
-         'library_ms': kern[name]['library_ms']}
+         'library_ms': kern[name]['library_ms'], 'eager_ms': kern[name]['eager_ms'],
+         'plain_eager_ms': kern[name]['plain_eager_ms'],
+         'library_eager_ms': kern[name]['library_eager_ms'], 'timed_by': kern[name]['timed_by']}
         for name, (src, rep) in sources.items()]}
+    step = kern['dwconv_step']  # kernel 1's 108 launches per KBR micro-step
+    line['kernels'][0].update({f'step_{k}': step[k] for k in (
+        'ms', 'plain_ms', 'library_ms', 'bound_ms', 'eager_ms', 'plain_eager_ms')})
     print('(launches: dwconv and decoder_stage in the serving slice, convnext_block in its '
           "fused-blocks half, decoder_stage_bwd in the training run's first epoch, warp_packed in "
           'its bf16 epoch, the others in the training slice; ms / plain_ms / bound_ms / library_ms: '
           'device time per ConvNeXt-B + decoder forward at B=2, 384x640, for dwconv and '
-          'decoder_stage, per request (36 blocks at B=1, 384x640) for convnext_block, per KBR '
+          'decoder_stage (dwconv step_*: its 108 launches per KBR micro-step), per request (36 blocks at B=1, 384x640) for convnext_block, per KBR '
           'micro-step at B=4, 384x640 for the others; convnext_block max_abs_err is relative to '
           'max|y|; bound_ms from 67 TFLOP/s float32 and 3.35 TB/s; photo_bwd and '
           "decoder_stage_bwd max_abs_err are relative to the gradient's own largest magnitude; "
           'convnext_block_bwd: launches in the fused training slice; ms, plain_ms and bound_ms '
           'over the whole block backward (kernel 10, then kernels 1 and 2) for its 54 blocks per '
-          'micro-step; max_abs_err the worst of its ten gradients, each '
-          f'relative to its own largest magnitude; total run {time.perf_counter() - t0:.0f} s)')
+          'micro-step; max_abs_err the worst of its ten gradients, each relative to its own largest '
+          'magnitude; ms, plain_ms, library_ms: device time (CUDA graph of the calls, one replay; '
+          'timed_by says where torch.profiler stood in); eager_ms, plain_eager_ms, '
+          'library_eager_ms: CUDA events around the same calls made from Python; '
+          f'total run {time.perf_counter() - t0:.0f} s)')
     print(json.dumps(line))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -44,7 +44,10 @@ def _rand(rs, *shape, scale=1.0):
 
 
 @pytest.mark.parametrize('b,h,w,c,k', [(2, 16, 24, 96, 7), (1, 9, 13, 45, 3),
-                                       (2, 24, 40, 160, 5), (1, 17, 33, 70, 9)])
+                                       (2, 24, 40, 160, 5), (1, 17, 33, 70, 9),
+                                       # bands of several rows (the row ring), float4 and scalar
+                                       (4, 96, 160, 128, 7), (2, 96, 160, 70, 7),
+                                       (8, 97, 161, 96, 5)])
 def test_dwconv_kernel_matches_plain(card, b, h, w, c, k):
     from slowtv_monodepth_tpu_torch.ops import dwconv
     rs = np.random.RandomState(0)
