@@ -33,8 +33,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    kernel, plain and, where one PyTorch call computes the function, that call
    (float32). Kernel 6 is also held to kernel 5 on the
    widened source. Kernel 1 at the step's eight block shapes (float64,
-   timed per micro-step); kernel 4 called twice on the same inputs must
-   give the same bits. The fused block's backward (kernel 10, with kernels 1 and 2
+   timed per micro-step); kernels 2 (at the step's eight block shapes) and
+   4 called twice on the same inputs must give the same bits. The fused block's backward (kernel 10, with kernels 1 and 2
    finishing dx and the taps' gradient) at the eight block shapes of the
    step (ConvNeXt-B at B=4, ConvNeXt-T at B=8), ragged shapes, erf and tanh:
    each of its ten gradients within twice the plain float32 version's error
@@ -367,9 +367,12 @@ def phase_build() -> None:
         if 'convnext_block_fwd_kernel' in entry and 'spill' in line \
                 and '0 bytes spill stores, 0 bytes spill loads' not in line:
             fail(f'the fused ConvNeXt block kernel spills registers: {line.strip()}')
-        # Kernels 1 and 4 keep their register tiles (the row ring, the taps'
-        # window) in registers only when every index into them is a constant.
-        if any(k in entry for k in ('dwconv_fwd_kernel', 'weight_grad_kernel', 'input_grad_kernel')) \
+        # Kernels 1, 2 and 4 keep their register tiles (the row ring, the
+        # taps' window, the tap sums) in registers only when every index into
+        # them is a constant.
+        if any(k in entry for k in ('dwconv_fwd_kernel', 'dwconv_dw_tile_kernel',
+                                    'dwconv_dw_sum_kernel', 'weight_grad_kernel',
+                                    'input_grad_kernel')) \
                 and 'stack frame' in line \
                 and '0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads' not in line:
             print(f'  NOTE: local memory in {entry.strip()}')
@@ -745,12 +748,17 @@ def phase_train_kernels(scenes) -> dict:
     for _, (bh, bw) in run_buckets():  # the run's buckets: first and last stage of both nets
         dw_cases += [(4, bh // 4, bw // 4, 128, 7, 0), (4, bh // 32, bw // 32, 1024, 7, 0),
                      (8, bh // 4, bw // 4, 96, 7, 0), (8, bh // 32, bw // 32, 768, 7, 0)]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for b, h, w, c, k, n in dw_cases:
         x = _rand(rs, b, h, w, c)
         g = _rand(rs, b, h, w, c, scale=1 / np.sqrt(b * h * w))
-        err = _max_err(dwconv.dwconv_dw(x, g, k), dwconv.dwconv_dw_plain(x.double(), g.double(), k))
+        got = dwconv.dwconv_dw(x, g, k)
+        err = _max_err(got, dwconv.dwconv_dw_plain(x.double(), g.double(), k))
+        if n and not torch.equal(dwconv.dwconv_dw(x, g, k), got):
+            fail(f'dwconv_dw {(b, h, w, c)} k={k}: two calls differ (the sums must run in a fixed order)')
         px = b * h * w * c  # the plain version IS the library call (cuDNN's weight gradient)
-        record('dwconv_dw', err, DW_ATOL, f'dwconv_dw {(b, h, w, c)} k={k}', n,
+        record('dwconv_dw', err, DW_ATOL, f'dwconv_dw {(b, h, w, c)} k={k}, plan '
+               f'{dwconv.dw_plan(b, h, w, c, k, sms)}' + (', two calls bitwise equal' if n else ''), n,
                lambda: dwconv.dwconv_dw(x, g, k), lambda: dwconv.dwconv_dw_plain(x, g, k),
                (4 * (2 * px + k * k * c), 2 * k * k * px), 'plain')
 
@@ -768,10 +776,11 @@ def phase_train_kernels(scenes) -> dict:
                lambda: dwconv.depthwise_conv(x, wt, bias),
                lambda: dwconv.depthwise_conv_plain(x, wt, bias),
                (4 * (2 * px + 49 * c + c), 2 * 49 * px), 'plain')
-    print(f'dwconv, 108 launches per KBR micro-step (B={TRAIN_B}, 384x640): device ms (eager) '
-          f'kernel {res["dwconv_step"]["ms"]:.3f} ({res["dwconv_step"]["eager_ms"]:.3f}), cuDNN '
-          f'{res["dwconv_step"]["plain_ms"]:.3f} ({res["dwconv_step"]["plain_eager_ms"]:.3f}), '
-          f'bound {res["dwconv_step"]["bound_ms"]:.3f}')
+    for name, what in (('dwconv_step', 'dwconv, 108'), ('dwconv_dw', 'dwconv_dw, 54')):
+        r = res[name]
+        print(f'{what} launches per KBR micro-step (B={TRAIN_B}, 384x640): device ms (eager) '
+              f'kernel {r["ms"]:.3f} ({r["eager_ms"]:.3f}), cuDNN {r["plain_ms"]:.3f} '
+              f'({r["plain_eager_ms"]:.3f}), bound {r["bound_ms"]:.3f}')
 
     # The decoder stage's backward (kernel 4) through the autograd Function:
     # KBR stages 1 and 0 at B=4 (timed), ragged shapes, grids of 2 and 3

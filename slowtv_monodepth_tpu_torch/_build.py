@@ -37,7 +37,7 @@ _FLOAT = ctypes.c_float
 # C entry point -> argument types (see the signatures in csrc/*.cu).
 SIGNATURES = {
     'slowtv_dwconv_fwd_f32': [_PTR] * 4 + [_INT] * 6 + [_PTR],
-    'slowtv_dwconv_dw_f32': [_PTR] * 4 + [_INT] * 7 + [_PTR],
+    'slowtv_dwconv_dw_f32': [_PTR] * 4 + [_INT] * 9 + [_PTR],
     'slowtv_convnext_block_fwd_f32': [_PTR] * 11 + [_INT] * 8 + [_PTR],
     'slowtv_convnext_block_bwd_f32': [_PTR] * 21 + [_INT] * 7 + [_PTR],
     'slowtv_decoder_stage_fwd_f32': [_PTR] * 10 + [_INT] * 6 + [_PTR],

@@ -8,8 +8,9 @@
 // cotangent with the taps flipped (stride-1 'SAME' depthwise conv is its own
 // transpose up to the flip), as pallas_dwconv.py:_dwconv_core_bwd does.
 //
-// Tap gradient (second half of this file): replaces the TPU kernel
-// pallas_dwconv.py:_dw_kernel (launched by _dwconv_dw_jit).
+// Tap gradient (second half of this file, its own design notes there):
+// replaces the TPU kernel pallas_dwconv.py:_dw_kernel (launched by
+// _dwconv_dw_jit); entry point dwconv_dw.
 //
 // Forward, bound on Hopper: memory. One read of x and one write of the output
 // (8 bytes per output value) against K*K multiply-adds: 12 flop/byte at K=7,
@@ -45,6 +46,8 @@
 //
 // Launches go through cudaLaunchKernelEx and shared memory is dynamic
 // (SLOWTV_DYNAMIC_SMEM), so tests/cuda_emu builds this file for the CPU.
+#include <cooperative_groups.h>
+#include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 
 // The block's dynamic shared memory. (tests/cuda_emu builds the sources for the
@@ -55,6 +58,8 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kLanes = 32;      // channels per block (the taps' shared tile)
 constexpr int kFwdThreads = 64;
 // Blocks the band height is picked to leave: 8 per SM of an H100 (132 SMs).
@@ -64,7 +69,6 @@ constexpr int kFwdThreads = 64;
 #define SLOWTV_DWCONV_TARGET_BLOCKS 1056
 #endif
 constexpr int kTargetBlocks = SLOWTV_DWCONV_TARGET_BLOCKS;
-constexpr int kStrip = 4;       // outputs per thread along W (the tap gradient's too)
 
 // Outputs per thread along W in the forward: 4, or 2 at K = 9 to keep the
 // ring of K x S vectors in registers.
@@ -308,146 +312,303 @@ cudaError_t launch(const float* x, const float* w, const float* bias, float* out
 // xpad the zero-padded input: a reduction over B*H*W for each of the K*K*C
 // taps.
 //
-// Bound on Hopper: by its bytes, memory: it reads x and g once each (plus
-// the K-1 row halo from L1/L2) and does K*K multiply-adds per element pair.
-// As written it is issue-bound instead (PERF.md): each thread carries K*K
-// accumulators and issues K*(K+kStrip-1) loads per work item.
+// Bound on Hopper: bytes. It reads x and g once each (8 bytes per element
+// pair) for K*K multiply-adds: 12 flop/byte at K=7, under the card's 20
+// float32 flop/byte, so the FMA pipe is close behind. Inside the SM, shared
+// memory and instruction issue bound it before DRAM does: a thread that owned
+// one tap row would load an x and a g value for every K multiply-adds, so a
+// thread owns all K*K taps of its channel (below).
 //
-// Design: the TPU kernel carried the sum across its sequential grid in the
-// resident output block; Hopper's blocks run in parallel and in no order, so
-// the reduction is a deterministic two-pass one, with no atomics:
-// - pass 1: `nblk` blocks per 32-channel group each walk a fixed, strided
-//   share of the (b, y, x-strip) work items. A thread keeps all K*K partial
-//   sums of its channel in registers, and, as the forward does, computes
-//   kStrip outputs along W from one row window of K + kStrip - 1 inputs. The
-//   block's 8 rows are summed in shared memory in a fixed order and written
-//   to partial[blk][K*K][C] (a torch.empty scratch from the wrapper);
-// - pass 2: one thread per (tap, channel) sums its nblk partials in block
-//   order and writes the tap in PyTorch's (C, 1, K, K) layout.
-// The result is the same from run to run. Blocks and grids are 1-D (lane =
-// thread % 32, row = thread / 32; block = (group, blk)), launched through
-// cudaLaunchKernelEx with dynamic shared memory, like the forward's.
+// Design. The TPU kernel carried the sum across its sequential grid in the
+// resident output block; Hopper's blocks run in parallel and in no order.
+// - Tiles: `rows` output rows by kDwCols columns of one image, for a group of
+//   32 channels. A block stages a tile in shared memory, [pixel][32
+//   channels]: its g (rows x kDwCols pixels) and the x it reads (rows + K - 1
+//   by kDwCols + K - 1 pixels, the halo included), by cp.async copies of 16
+//   bytes (4 for ragged C or an unaligned view), zeros outside the image.
+//   Each x and g element crosses from global memory once per tile, plus the
+//   tile's halo. Two buffers: tile t + 1 is copied in while tile t is summed.
+// - kDwWarps warps split a tile's rows. Thread (warp, lane) owns channel c0 +
+//   lane and ALL K*K taps (49 float sums at K=7). For output row r it walks
+//   the tile along W with a K-wide register window over each of the x rows r
+//   .. r + K - 1, so per column K new x values and one g value feed K*K
+//   multiply-adds: acc[dy][dx] += x[r + dy][j + dx] * g[r][j]. The walk is
+//   unrolled over the tile's kDwCols columns, so every window slot and sum
+//   index is a constant (no stack frame). A warp reads 32 consecutive floats:
+//   no bank conflicts.
+// - A block takes a contiguous run of its channel group's tiles (`splits`
+//   blocks per group, picked on the host: ops/dwconv.py:dw_plan), so its
+//   float chains hold a few hundred products at most. At the end the
+//   block's warps' sums and those of the `cluster` blocks of its thread-block
+//   cluster (consecutive splits of one group, read through distributed
+//   shared memory) are added in warp and rank order, in double, each block
+//   one share, and written: one partial per cluster, [part][C][K*K] (dw's own
+//   layout), or dw itself when a group has one cluster. Otherwise a second
+//   launch adds the partials in part order, in double. No atomics: two calls
+//   give bitwise-equal taps.
+// Grids and blocks are 1-D, launched through cudaLaunchKernelEx with dynamic
+// shared memory only, like the forward's.
 
-constexpr int kDwRows = 8;  // work-item rows per block (warps per block)
-constexpr int kDwThreads = kLanes * kDwRows;
+constexpr int kDwCols = 20;       // tile width: divides every W of the main path (160 .. 20)
+constexpr int kDwMaxCluster = 8;  // the portable cluster size
+// Warps of a tap-gradient block (they split a tile's rows). A thread takes
+// 127 registers and a block at 12 rows 181 KB of shared memory: one block per
+// SM, as the host's plan assumes.
+constexpr int kDwWarps = 8;
+constexpr int kDwThreads = kDwWarps * kLanes;
 constexpr int kSumThreads = 256;
+constexpr int kMaxDevices = 64;  // devices the tap gradient keeps launch state for
 
-template <int K>
-__global__ void __launch_bounds__(kDwThreads)
-dwconv_dw_partial_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                         float* __restrict__ partial, int B, int H, int W, int C,
-                         int nblk) {
-  constexpr int P = K / 2;
-  SLOWTV_DYNAMIC_SMEM(smem4);
-  float* s_sum = reinterpret_cast<float*>(smem4);  // [kDwRows][K][kLanes]
-  const int lane = threadIdx.x % kLanes, row = threadIdx.x / kLanes;
-  const int blk = blockIdx.x % nblk;
-  const int c0 = (blockIdx.x / nblk) * kLanes;
-  const int c = c0 + lane;
-  const int strips = (W + kStrip - 1) / kStrip;
-  const long long items = (long long)B * H * strips;
+// Shared memory of a tap-gradient block: two tile buffers, or its warps' float
+// sums at the end, whichever is larger.
+size_t dw_smem_bytes(int K, int rows) {
+  const size_t tile = sizeof(float) * kLanes *
+                      ((size_t)(rows + K - 1) * (kDwCols + K - 1) + (size_t)rows * kDwCols);
+  const size_t sums = sizeof(float) * kDwWarps * kLanes * K * K;
+  return 2 * tile > sums ? 2 * tile : sums;
+}
 
-  float acc[K * K];
-#pragma unroll
-  for (int t = 0; t < K * K; ++t) acc[t] = 0.f;
-
-  if (c < C) {
-    for (long long item = (long long)blk * kDwRows + row; item < items;
-         item += (long long)nblk * kDwRows) {
-      const int x0 = (int)(item % strips) * kStrip;
-      const long long by = item / strips;  // b * H + y
-      const int y = (int)(by % H);
-      const long long row0 = by - y;       // b * H
-      float gv[kStrip];
-      const float* grow = g + (by * W + x0) * (long long)C + c;
-#pragma unroll
-      for (int r = 0; r < kStrip; ++r) {
-        gv[r] = (x0 + r < W) ? __ldg(grow + (long long)r * C) : 0.f;
-      }
-#pragma unroll
-      for (int dy = 0; dy < K; ++dy) {
-        const int iy = y + dy - P;
-        if (iy < 0 || iy >= H) continue;
-        const float* xrow = x + (row0 + iy) * W * (long long)C + c;
-        float v[kStrip + K - 1];
-#pragma unroll
-        for (int j = 0; j < kStrip + K - 1; ++j) {
-          const int ix = x0 + j - P;
-          v[j] = (ix >= 0 && ix < W) ? __ldg(xrow + (long long)ix * C) : 0.f;
-        }
-#pragma unroll
-        for (int dx = 0; dx < K; ++dx) {
-#pragma unroll
-          for (int r = 0; r < kStrip; ++r) {
-            acc[dy * K + dx] = fmaf(v[r + dx], gv[r], acc[dy * K + dx]);
-          }
-        }
-      }
+// Starts copying rows iy0 .. iy0 + nrows - 1, columns ix0 .. ix0 + NC - 1 of
+// one image (`img`, already offset to its channel group) into s[nrows][NC][32];
+// zeros outside the image and past the group's `cn` channels in range.
+// Asynchronous copies (cp.async): no registers hold them, so all of a
+// thread's copies are in flight together; the caller commits and waits.
+// Thread i copies channels V * (i % Q) .. of pixels i / Q, i / Q + PS, ...
+// (row-major over the tile), stepping row and column without dividing.
+template <int V, int NC>
+__device__ __forceinline__ void stage_rows(float* s, const float* img, int iy0, int nrows,
+                                           int ix0, int H, int W, int C, int cn) {
+  constexpr int Q = kLanes / V, PS = kDwThreads / Q;  // copies per pixel, pixels per pass
+  constexpr size_t kBytes = sizeof(float) * V;
+  static_assert(kDwThreads % Q == 0, "a pass covers whole pixels");
+  const int q = threadIdx.x % Q, n = nrows * NC;
+  const bool chan = q * V < cn;
+  int p = threadIdx.x / Q, r = p / NC, col = p - r * NC;
+  for (float* d = s + p * kLanes + q * V; p < n; p += PS, d += PS * kLanes) {
+    const int iy = iy0 + r, ix = ix0 + col;
+    const bool in = chan && (unsigned)iy < (unsigned)H && (unsigned)ix < (unsigned)W;
+    // Outside: nothing is read, kBytes of zeros are written.
+    __pipeline_memcpy_async(d, in ? img + (iy * W + ix) * C + q * V : img, kBytes,
+                            in ? 0 : kBytes);
+    r += PS / NC;
+    col += PS % NC;
+    if (col >= NC) {
+      col -= NC;
+      ++r;
     }
   }
+}
 
-  // Sum the block's kDwRows partials per tap in a fixed order, one tap row
-  // (K taps) at a time to keep shared memory small.
-  const int tid = threadIdx.x;
+// x, g (B, H, W, C) -> out: this cluster's partial [C][K*K] of part
+// split / cluster (dw itself when there is one part). Block = (channel group,
+// split); kDwWarps warps.
+template <int K, int V>
+__global__ void __launch_bounds__(kDwThreads)
+dwconv_dw_tile_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                      float* __restrict__ out, int B, int H, int W, int C, int rows,
+                      int splits) {
+  constexpr int P = K / 2, KK = K * K, XC = kDwCols + K - 1, XR = XC * kLanes;
+  SLOWTV_DYNAMIC_SMEM(smem4);
+  // Two buffers, each a tile's x rows [rows + K - 1][XC][kLanes] and g rows
+  // [rows][kDwCols][kLanes]: tile t + 1 is copied in while tile t is summed.
+  const int tile_floats = ((rows + K - 1) * XC + rows * kDwCols) * kLanes;
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int S = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int split = blockIdx.x % splits;
+  const int c0 = (blockIdx.x / splits) * kLanes;
+  const int lane = threadIdx.x % kLanes, warp = threadIdx.x / kLanes;
+  const int bands = (H + rows - 1) / rows, cols = (W + kDwCols - 1) / kDwCols;
+  // Tile t: band t % bands of strip t / bands (kDwCols columns of one image).
+  const int tiles = B * cols * bands;
+  const int t0 = (int)((long long)tiles * split / splits);
+  const int t1 = (int)((long long)tiles * (split + 1) / splits);
+  auto stage = [&](int t) {
+    float* xs = reinterpret_cast<float*>(smem4) + (t - t0) % 2 * tile_floats;
+    const int y0 = t % bands * rows, nr = rows < H - y0 ? rows : H - y0;
+    const int strip = t / bands, x0 = strip % cols * kDwCols;
+    const long long img = (long long)(strip / cols) * H * W * C + c0;
+    stage_rows<V, XC>(xs, x + img, y0 - P, nr + K - 1, x0 - P, H, W, C, C - c0);
+    stage_rows<V, kDwCols>(xs + (rows + K - 1) * XR, g + img, y0, nr, x0, H, W, C, C - c0);
+    __pipeline_commit();
+  };
+
+  // Thread (warp, lane) sums every tap of channel c0 + lane over the rows
+  // warp, warp + kDwWarps, ... of the block's tiles.
+  float acc[K][K];
 #pragma unroll
   for (int dy = 0; dy < K; ++dy) {
 #pragma unroll
-    for (int dx = 0; dx < K; ++dx) s_sum[(row * K + dx) * kLanes + lane] = acc[dy * K + dx];
+    for (int dx = 0; dx < K; ++dx) acc[dy][dx] = 0.f;
+  }
+  if (t0 < t1) stage(t0);
+  for (int t = t0; t < t1; ++t) {
+    // Buffer (t - t0 + 1) % 2 was last read for tile t - 1, before the
+    // barrier that ended its turn.
+    if (t + 1 < t1) {
+      stage(t + 1);
+    } else {
+      __pipeline_commit();  // an empty batch, so that the wait below is the same
+    }
+    __pipeline_wait_prior(1);  // tile t's copies have landed
     __syncthreads();
-    for (int i = tid; i < K * kLanes; i += kDwThreads) {
-      const int dx = i / kLanes, l = i - dx * kLanes;
-      float s = 0.f;
+    const float* xs = reinterpret_cast<const float*>(smem4) + (t - t0) % 2 * tile_floats;
+    const float* gs = xs + (rows + K - 1) * XR;
+    const int y0 = t % bands * rows, nr = rows < H - y0 ? rows : H - y0;
+    for (int r = warp; r < nr; r += kDwWarps) {
+      // Output row r reads x rows r .. r + K - 1 of the tile: a K-wide window
+      // of each walks along W.
+      const float* xr = xs + r * XR + lane;
+      const float* gr = gs + r * kDwCols * kLanes + lane;
+      float win[K][K];  // win[dy]: x columns j .. j + K - 1 of row r + dy
 #pragma unroll
-      for (int r = 0; r < kDwRows; ++r) s += s_sum[(r * K + dx) * kLanes + l];
-      if (c0 + l < C) {
-        partial[((long long)blk * K * K + dy * K + dx) * C + c0 + l] = s;
+      for (int dy = 0; dy < K; ++dy) {
+#pragma unroll
+        for (int i = 1; i < K; ++i) win[dy][i] = xr[dy * XR + (i - 1) * kLanes];
+      }
+#pragma unroll
+      for (int j = 0; j < kDwCols; ++j) {
+        const float gv = gr[j * kLanes];
+#pragma unroll
+        for (int dy = 0; dy < K; ++dy) {
+#pragma unroll
+          for (int i = 0; i + 1 < K; ++i) win[dy][i] = win[dy][i + 1];
+          win[dy][K - 1] = xr[dy * XR + (j + K - 1) * kLanes];
+#pragma unroll
+          for (int dx = 0; dx < K; ++dx) acc[dy][dx] = fmaf(win[dy][dx], gv, acc[dy][dx]);
+        }
       }
     }
+    __syncthreads();  // this buffer is no longer read
+  }
+
+  // The block's warps' and the cluster's sums, in warp and rank order, in
+  // double: block `rank` adds and writes entries rank * kDwThreads + i of the
+  // group's 32 * K * K, stepping S * kDwThreads.
+  __pipeline_wait_prior(0);
+  float* sums = reinterpret_cast<float*>(smem4);  // [kDwWarps][kLanes][K][K]: dw's layout
+#pragma unroll
+  for (int dy = 0; dy < K; ++dy) {
+#pragma unroll
+    for (int dx = 0; dx < K; ++dx) sums[(warp * kLanes + lane) * KK + dy * K + dx] = acc[dy][dx];
+  }
+  if (S > 1) {
+    cluster.sync();
+  } else {
     __syncthreads();
   }
+  float* dst = out + ((long long)(split / S) * C + c0) * KK;
+  const int n = (C - c0 < kLanes ? C - c0 : kLanes) * KK;
+  for (int i = rank * kDwThreads + (int)threadIdx.x; i < n; i += S * kDwThreads) {
+    double v = 0.0;
+    for (int q = 0; q < S; ++q) {
+      const float* theirs = S > 1 ? cluster.map_shared_rank(sums, q) : sums;
+#pragma unroll
+      for (int w = 0; w < kDwWarps; ++w) v += theirs[w * kLanes * KK + i];
+    }
+    dst[i] = (float)v;
+  }
+  if (S > 1) cluster.sync();  // no block leaves while its shared memory is being read
 }
 
+// dw[i] = sum of partial[p][i] over p = 0 .. parts - 1 in order, in double.
 __global__ void __launch_bounds__(kSumThreads)
-dwconv_dw_sum_kernel(const float* __restrict__ partial, float* __restrict__ dw, int nblk,
-                     int KK, int C) {
-  const long long i = (long long)blockIdx.x * kSumThreads + threadIdx.x;  // t * C + c
-  if (i >= (long long)KK * C) return;
-  float s = 0.f;
-  for (int b = 0; b < nblk; ++b) s += partial[(long long)b * KK * C + i];
-  const int t = (int)(i / C), c = (int)(i - (long long)t * C);
-  dw[(long long)c * KK + t] = s;
+dwconv_dw_sum_kernel(const float* __restrict__ partial, float* __restrict__ dw, int parts,
+                     long long n) {
+  const long long i = (long long)blockIdx.x * kSumThreads + threadIdx.x;
+  if (i >= n) return;
+  double s = 0.0;
+  for (int p = 0; p < parts; ++p) s += partial[p * n + i];
+  dw[i] = (float)s;
+}
+
+template <int K, int V>
+cudaError_t launch_dw(const float* x, const float* g, float* partial, float* dw, int B, int H,
+                      int W, int C, int rows, int splits, int cluster, int device,
+                      cudaStream_t s) {
+  const size_t smem = dw_smem_bytes(K, rows);
+  const int parts = splits / cluster;
+  cudaError_t err = cudaSuccess;
+  // Above 48 KB shared memory is dynamic and has to be asked for, or the
+  // launch is refused; asking refuses more than the device allows. The most
+  // asked so far is kept per device, so that a launch asks only when its
+  // plan needs more (a host call per launch costs more than the smallest
+  // launches run).
+  static size_t asked[kMaxDevices] = {};
+  if (smem > asked[device]) {
+    err = cudaFuncSetAttribute(dwconv_dw_tile_kernel<K, V>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    asked[device] = smem;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(cdiv(C, kLanes) * splits));
+  cfg.blockDim = dim3(kDwThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, dwconv_dw_tile_kernel<K, V>, x, g, parts == 1 ? dw : partial,
+                           B, H, W, C, rows, splits);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err != cudaSuccess || parts == 1) return err;
+  const long long n = (long long)C * K * K;
+  return launch_1d(dwconv_dw_sum_kernel, (unsigned)cdiv(n, kSumThreads), kSumThreads, 0, s,
+                   (const float*)partial, dw, parts, n);
 }
 
 template <int K>
-cudaError_t launch_dw(const float* x, const float* g, float* partial, float* dw,
-                      int B, int H, int W, int C, int nblk, cudaStream_t s) {
-  const long long blocks = (long long)nblk * cdiv(C, kLanes);
-  cudaError_t err = launch_1d(dwconv_dw_partial_kernel<K>, (unsigned)blocks, kDwThreads,
-                              sizeof(float) * kDwRows * K * kLanes, s, x, g, partial, B, H, W,
-                              C, nblk);
-  if (err != cudaSuccess) return err;
-  const long long n = (long long)K * K * C;
-  return launch_1d(dwconv_dw_sum_kernel, (unsigned)cdiv(n, kSumThreads), kSumThreads, 0, s,
-                   (const float*)partial, dw, nblk, K * K, C);
+cudaError_t launch_dw(const float* x, const float* g, float* partial, float* dw, int B, int H,
+                      int W, int C, int rows, int splits, int cluster, int device,
+                      cudaStream_t s) {
+  if (device < 0 || device >= kMaxDevices || rows < 1 || splits < 1 || cluster < 1 ||
+      cluster > kDwMaxCluster || splits % cluster ||
+      dw_smem_bytes(K, rows) >= (1ULL << 31) || (long long)H * W * C >= (1LL << 31) ||
+      cdiv(C, kLanes) * splits >= (1LL << 31) || (splits > cluster && partial == nullptr) ||
+      (long long)B * cdiv(H, rows) * cdiv(W, kDwCols) >= (1LL << 31)) {
+    return cudaErrorInvalidValue;
+  }
+  const bool vec = C % 4 == 0 && (reinterpret_cast<unsigned long long>(x) & 15) == 0 &&
+                   (reinterpret_cast<unsigned long long>(g) & 15) == 0;
+  return vec ? launch_dw<K, 4>(x, g, partial, dw, B, H, W, C, rows, splits, cluster, device, s)
+             : launch_dw<K, 1>(x, g, partial, dw, B, H, W, C, rows, splits, cluster, device, s);
 }
 
 }  // namespace
 
-// x, g (B, H, W, C) -> dw (C, 1, K, K), through partial (nblk, K*K, C)
-// scratch; all float32, contiguous, on `device`. Two launches on `stream`;
-// returns the first failing launch's cudaError_t (0 on success).
+// x, g (B, H, W, C) -> dw (C, 1, K, K); all float32, contiguous, on `device`.
+// The plan (ops/dwconv.py:dw_plan): tiles of `rows` output rows, `splits`
+// blocks per 32-channel group, clusters of `cluster` blocks; partial is
+// (splits / cluster, C, K*K) scratch, unused (may be NULL) when splits ==
+// cluster. One launch, or two with partials, on `stream`; returns the first
+// failing launch's cudaError_t (0 on success).
 extern "C" int slowtv_dwconv_dw_f32(const float* x, const float* g, float* partial,
                                     float* dw, int B, int H, int W, int C, int K,
-                                    int nblk, int device, void* stream) {
+                                    int rows, int splits, int cluster, int device,
+                                    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (K) {
-    case 1: return (int)launch_dw<1>(x, g, partial, dw, B, H, W, C, nblk, s);
-    case 3: return (int)launch_dw<3>(x, g, partial, dw, B, H, W, C, nblk, s);
-    case 5: return (int)launch_dw<5>(x, g, partial, dw, B, H, W, C, nblk, s);
-    case 7: return (int)launch_dw<7>(x, g, partial, dw, B, H, W, C, nblk, s);
-    case 9: return (int)launch_dw<9>(x, g, partial, dw, B, H, W, C, nblk, s);
+    case 1:
+      return (int)launch_dw<1>(x, g, partial, dw, B, H, W, C, rows, splits, cluster, device,
+                                 s);
+    case 3:
+      return (int)launch_dw<3>(x, g, partial, dw, B, H, W, C, rows, splits, cluster, device,
+                                 s);
+    case 5:
+      return (int)launch_dw<5>(x, g, partial, dw, B, H, W, C, rows, splits, cluster, device,
+                                 s);
+    case 7:
+      return (int)launch_dw<7>(x, g, partial, dw, B, H, W, C, rows, splits, cluster, device,
+                                 s);
+    case 9:
+      return (int)launch_dw<9>(x, g, partial, dw, B, H, W, C, rows, splits, cluster, device,
+                                 s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

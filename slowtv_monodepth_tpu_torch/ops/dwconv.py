@@ -19,6 +19,7 @@ PyTorch's `nn.Conv2d(groups=C)` layout (C, 1, K, K).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -29,9 +30,10 @@ from .. import _build
 __all__ = ['depthwise_conv', 'depthwise_conv_plain', 'dwconv_dw', 'dwconv_dw_plain']
 
 _LANES = 32      # channels per block (csrc/dwconv.cu kLanes)
-_DW_ROWS = 8     # work-item rows per block (kDwRows)
-_STRIP = 4       # outputs per work item along W (kStrip)
-_DW_BLOCKS = 1056  # ~8 blocks per SM of an H100 (132 SMs) in the tap-gradient pass 1
+_DW_COLS = 20    # tap-gradient tile width (kDwCols)
+_DW_ROWS = 12    # tallest tap-gradient tile, in output rows
+_DW_MAX_CLUSTER = 8  # blocks per cluster at most (kDwMaxCluster)
+_DW_PARTIALS = 0.1   # partial bytes at most ~this share of x's and g's
 
 
 def _check(x: torch.Tensor, weight: torch.Tensor,
@@ -135,11 +137,40 @@ def dwconv_dw_plain(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
                                        g.permute(0, 3, 1, 2), padding=k // 2, groups=c)
 
 
-def dw_blocks(b: int, h: int, w: int, c: int) -> int:
-    """Blocks per 32-channel group of the tap gradient's first pass."""
-    items = b * h * -(-w // _STRIP)
-    groups = -(-c // _LANES)
-    return max(1, min(-(-items // _DW_ROWS), -(-_DW_BLOCKS // groups)))
+def dw_split(b: int, h: int, w: int, c: int, k: int, rows: int,
+             sms: int) -> tuple[int, int]:
+    """Blocks per 32-channel group and blocks per cluster for tiles of `rows`
+    rows: see `dw_plan`."""
+    tiles = b * -(-h // rows) * -(-w // _DW_COLS)
+    per_block = -(-tiles * -(-c // _LANES) // sms)
+    splits = -(-tiles // per_block)
+    parts = max(1, int(2 * _DW_PARTIALS * b * h * w / (k * k)))
+    sizes = [d for d in range(1, _DW_MAX_CLUSTER + 1) if splits % d == 0]
+    return splits, next((d for d in sizes if splits // d <= parts), sizes[-1])
+
+
+@functools.lru_cache(maxsize=256)
+def dw_plan(b: int, h: int, w: int, c: int, k: int, sms: int) -> tuple[int, int, int]:
+    """The tap gradient's plan on a card of `sms` SMs: (rows per tile, blocks
+    per 32-channel group, blocks per cluster).
+
+    Tiles are bands of equal height (at most `_DW_ROWS`) by `_DW_COLS`
+    columns of one image; a block walks a run of them down its strips. The
+    blocks fill one wave of one block per SM (a block of 8 warps at 12 rows
+    takes 181 KB of shared memory), each taking the same whole number of
+    tiles, or one fewer. A cluster's blocks add their sums into one partial;
+    the cluster is the smallest (up to 8 blocks) that keeps the partials at
+    or under `_DW_PARTIALS` of the bytes of x and g (one partial of C*k*k
+    floats per cluster, against 2*b*h*w*C), or the largest that divides the
+    blocks when none does.
+    """
+    rows = -(-h // -(-h // _DW_ROWS))
+    return (rows, *dw_split(b, h, w, c, k, rows, sms))
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def dwconv_dw(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
@@ -150,9 +181,10 @@ def dwconv_dw(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
     :param k: odd kernel size <= 9.
     :return: (c, 1, k, k), PyTorch's depthwise `weight` layout.
 
-    On a CUDA tensor: the two-pass tap-gradient kernel of `csrc/dwconv.cu`,
-    counted by `dwconv_dw.launches` (one per call); on a CPU tensor:
-    `dwconv_dw_plain`.
+    On a CUDA tensor: the tap-gradient kernel of `csrc/dwconv.cu` on the
+    plan of `dw_plan` for its card (one CUDA launch, or two where clusters leave several
+    partials per channel group), counted by `dwconv_dw.launches` (one per
+    call); on a CPU tensor: `dwconv_dw_plain`.
     """
     if x.device.type not in ('cpu', 'cuda') or x.dim() != 4:
         raise ValueError(f'dwconv_dw takes (b, h, w, c) on cpu or cuda, got '
@@ -173,11 +205,12 @@ def dwconv_dw(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
     dw = torch.empty((c, 1, k, k), dtype=x.dtype, device=x.device)
     if x.numel() == 0:
         return dw.zero_()
-    nblk = dw_blocks(b, h, w, c)
-    partial = torch.empty((nblk, k * k, c), dtype=x.dtype, device=x.device)
+    rows, splits, cluster = dw_plan(b, h, w, c, k, _sm_count(x.device.index))
+    partial = (torch.empty((splits // cluster, c, k * k), dtype=x.dtype, device=x.device)
+               if splits > cluster else None)
     err = _build.load().slowtv_dwconv_dw_f32(
-        x.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(),
-        b, h, w, c, k, nblk, x.device.index,
+        x.data_ptr(), g.data_ptr(), None if partial is None else partial.data_ptr(),
+        dw.data_ptr(), b, h, w, c, k, rows, splits, cluster, x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, 'dwconv tap-gradient kernel')
     dwconv_dw.launches += 1

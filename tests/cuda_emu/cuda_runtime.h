@@ -48,4 +48,10 @@ struct cudaLaunchConfig_t {
 };
 inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
-template <class F> inline cudaError_t cudaFuncSetAttribute(F, int, int) { return cudaSuccess; }
+// As on an H100: asking for more dynamic shared memory than a block may have
+// (227 KB) is refused.
+template <class F> inline cudaError_t cudaFuncSetAttribute(F, int attr, int value) {
+  return attr == cudaFuncAttributeMaxDynamicSharedMemorySize && value > 232448
+             ? cudaErrorInvalidValue
+             : cudaSuccess;
+}

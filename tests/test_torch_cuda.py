@@ -155,6 +155,27 @@ def _stage_args(rs, b, h, w, ci, cd):
             _rand(rs, 1, cd, 3, 3, scale=1 / np.sqrt(9 * cd)), _rand(rs, 1, scale=0.1)]
 
 
+@pytest.mark.parametrize('b,h,w,c,k,offset', [(4, 24, 40, 512, 7, 0), (8, 12, 20, 768, 7, 0),
+                                              (4, 96, 160, 128, 7, 0), (2, 37, 53, 70, 7, 0),
+                                              (2, 25, 41, 64, 5, 1), (1, 9, 13, 45, 9, 0)])
+def test_tap_gradient_kernel_matches_plain_and_repeats(card, b, h, w, c, k, offset):
+    """Kernel 2 on its own plan (tiles, blocks, clusters, partials) against
+    float64, two calls bitwise equal; `offset` 1: views of x and g one float
+    into their storage (the 4-byte copies)."""
+    from slowtv_monodepth_tpu_torch.ops import dwconv
+    rs = np.random.RandomState(6)
+    x, g = _rand(rs, b, h, w, c), _rand(rs, b, h, w, c, scale=1 / np.sqrt(b * h * w))
+    if offset:
+        x, g = [torch.empty(t.numel() + 1, device='cuda')[1:].view(t.shape).copy_(t) for t in (x, g)]
+    n = dwconv.dwconv_dw.launches
+    got = dwconv.dwconv_dw(x, g, k)
+    again = dwconv.dwconv_dw(x, g, k)
+    torch.cuda.synchronize()
+    assert dwconv.dwconv_dw.launches == n + 2
+    assert torch.equal(got, again)
+    assert (got.double() - dwconv.dwconv_dw_plain(x.double(), g.double(), k)).abs().max().item() <= ATOL
+
+
 STAGE_BWD_CASES = [(2, 16, 24, 64, 32), (1, 8, 12, 32, 16), (2, 23, 37, 6, 5), (1, 21, 19, 20, 20),
                    (1, 2, 3, 4, 3), (2, 3, 2, 2, 2), (1, 2, 2, 40, 33)]
 

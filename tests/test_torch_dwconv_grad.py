@@ -89,11 +89,35 @@ def test_tap_gradient_plain_matches_autograd():
     np.testing.assert_allclose(got.numpy(), w.grad.numpy(), atol=1e-4)
 
 
+# (b, h, w, c): the block shapes of the KBR micro-step (ConvNeXt-B at B=4,
+# ConvNeXt-T on the 2 x 4 pose pairs), 384x640.
+STEP_SHAPES = [(4, 96, 160, 128), (4, 48, 80, 256), (4, 24, 40, 512), (4, 12, 20, 1024),
+               (8, 96, 160, 96), (8, 48, 80, 192), (8, 24, 40, 384), (8, 12, 20, 768)]
+
+
 def test_blocks_of_the_tap_gradient():
-    """The first pass has at least one block and at most ~8 per SM in all."""
-    assert td.dw_blocks(1, 1, 1, 1) == 1
-    assert td.dw_blocks(4, 96, 160, 128) * 4 <= 1056 + 4
-    assert td.dw_blocks(4, 12, 20, 1024) == 30  # 4*12*5 items / 8 rows
+    """The tap gradient's plan: a valid plan everywhere (one block for one
+    pixel; tiles of at most 12 rows, which fit in shared memory; clusters
+    that divide the blocks, at most 8; about one block per SM, on an H100
+    (132 SMs) and on a card of 78: rounding the tiles per block up may add
+    one block per channel group); at every step shape one wave of one block
+    per SM of an H100, every block the same number of tiles or one fewer, at
+    least 96 blocks (the 12x20 ConvNeXt-T stage has 24 groups of 8 tiles),
+    and partials at most 10% of the bytes of x and g."""
+    assert td.dw_plan(1, 1, 1, 1, 7, 132) == (1, 1, 1)
+    for b, h, w, c in STEP_SHAPES + [(2, 37, 53, 70), (8, 7, 26, 768), (1, 9, 13, 45)]:
+        for k in (1, 3, 5, 7, 9):
+            for sms in (132, 78):
+                rows, splits, cluster = td.dw_plan(b, h, w, c, k, sms)
+                assert 1 <= rows <= 12 and splits >= 1 and 1 <= cluster <= 8
+                assert splits % cluster == 0 and -(-c // 32) * (splits - 1) <= sms
+    for b, h, w, c in STEP_SHAPES:
+        rows, splits, cluster = td.dw_plan(b, h, w, c, 7, 132)
+        tiles = b * -(-h // rows) * -(-w // 20)
+        assert 96 <= -(-c // 32) * splits <= 132
+        counts = {tiles * (i + 1) // splits - tiles * i // splits for i in range(splits)}
+        assert max(counts) - min(counts) <= 1  # tiles per block, as the kernel splits them
+        assert (splits // cluster) * c * 49 <= 0.1 * 2 * b * h * w * c
 
 
 @pytest.mark.parametrize('case', ['dtype', 'shape', 'even_k', 'noncontiguous'])
