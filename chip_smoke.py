@@ -367,16 +367,16 @@ def phase_build() -> None:
         if 'convnext_block_fwd_kernel' in entry and 'spill' in line \
                 and '0 bytes spill stores, 0 bytes spill loads' not in line:
             fail(f'the fused ConvNeXt block kernel spills registers: {line.strip()}')
-        # Kernels 1, 2 and 4 keep their register tiles (the row ring, the
-        # taps' window, the tap sums) in registers only when every index into
-        # them is a constant.
+        # Kernels 1, 2, 4 and 10 keep their register tiles (the row ring, the
+        # taps' window, the tap sums, the 8 x 8 product tiles) in registers
+        # only when every index into them is a constant.
         if any(k in entry for k in ('dwconv_fwd_kernel', 'dwconv_dw_tile_kernel',
                                     'dwconv_dw_sum_kernel', 'weight_grad_kernel',
-                                    'input_grad_kernel')) \
+                                    'input_grad_kernel', 'convnext_block_bwd_')) \
                 and 'stack frame' in line \
                 and '0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads' not in line:
             print(f'  NOTE: local memory in {entry.strip()}')
-    if 'convnext_block_fwd_kernel' not in log or 'convnext_block_bwd_rows_kernel' not in log:
+    if 'convnext_block_fwd_kernel' not in log or 'convnext_block_bwd_mlp_kernel' not in log:
         fail('the build log does not show the fused ConvNeXt block kernels')
 
 
@@ -934,8 +934,10 @@ def _block_bwd_cases(rs) -> dict:
     """Kernel 10 (+ kernels 1 and 2) against the plain backward in float64 at
     the step's block shapes and ragged ones; times per KBR micro-step."""
     from slowtv_monodepth_tpu_torch.ops import convnext_block as cb
+    from slowtv_monodepth_tpu_torch.tools.block_bwd_bench import launch_split
     res = new_result()
     res.update(unfused_ms=0.0, k10_ms=0.0, k10_bound_ms=0.0)
+    split: dict[str, float] = {}  # kernel 10's CUDA launches, device ms per micro-step
     # (b, h, w, c, blocks per micro-step, tanh, floor): the step's eight shapes
     # (erf, the KBR recipe's GELU; tanh at one of them), then ragged ones: pixel
     # counts off every tile, heights under the 7x7 halo, channels off 32 and over
@@ -977,6 +979,9 @@ def _block_bwd_cases(rs) -> dict:
             ums = cuda_ms(lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True), iters=10)
             res['unfused_ms'] += n * ums.ms
             res['k10_ms'] += n * k10.ms
+            by_launch = launch_split(lambda: cb.block_bwd_kernel(args[0], dy, *args[1:]))
+            for name, t in by_launch.items():
+                split[name] = split.get(name, 0.0) + n * t
             res['k10_bound_ms'] += n * k10_bound
             cost = block_bwd_cost(b, h, w, c)
             line += (f'; {cost[1] / ms.ms / 1e9:.1f} TFLOP/s; kernel 10 alone {k10.ms:.4f} '
@@ -990,6 +995,9 @@ def _block_bwd_cases(rs) -> dict:
           f'backward (kernels 10, 1, 2) {res["ms"]:.3f} ms, bound {res["bound_ms"]:.3f} ms; plain '
           f'backward {res["plain_ms"]:.3f} ms; kernel 10 alone {res["k10_ms"]:.3f} ms, bound '
           f'{res["k10_bound_ms"]:.3f} ms; unfused block backward {res["unfused_ms"]:.3f} ms')
+    print('convnext_block_bwd, kernel 10 by CUDA launch per KBR micro-step (torch.profiler device '
+          'ms): ' + ', '.join(f'{k} {v:.3f}' for k, v in split.items())
+          + f'; sum {sum(split.values()):.3f}')
     return res
 
 
@@ -1362,7 +1370,7 @@ def phase_run(scenes) -> dict:
 
 
 def profile_train(out: Path = ROOT / 'build' / 'train_profile.txt',
-                  matmul: str = 'highest') -> None:
+                  matmul: str = 'highest', fused_blocks: bool = False) -> None:
     """Where the KBR micro-step's device time goes (not part of `main`).
 
     `python3 -c 'import chip_smoke; chip_smoke.profile_train()'` times 5 warm
@@ -1371,7 +1379,8 @@ def profile_train(out: Path = ROOT / 'build' / 'train_profile.txt',
     relative to the working directory, or under `build/` by default).
     `matmul` is `torch.set_float32_matmul_precision`'s argument: 'highest'
     (exact float32, the numerics of `main`) or 'high' (TF32 matmuls, the KBR
-    recipe's `trainer.matmul`).
+    recipe's `trainer.matmul`). `fused_blocks` runs both nets' ConvNeXt
+    blocks as kernels 9 and 10.
     """
     out = Path(out)
     from torch.autograd import DeviceType
@@ -1386,10 +1395,12 @@ def profile_train(out: Path = ROOT / 'build' / 'train_profile.txt',
                for k, net in meta.items()}
     x, y = _train_batch(_make_scenes())
     gen = torch.Generator(device='cuda').manual_seed(0)
-    step = _build_trainer(True, weights)[2]
+    step = _build_trainer(True, weights, fused_blocks=fused_blocks)[2]
     for _ in range(3):
         step(x, y, gen)['loss'].item()
+    torch.cuda.reset_peak_memory_stats()
     wall = float(np.median(_time_steps(step, x, y, gen)))  # without the profiler
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(2):
             step(x, y, gen)['loss'].item()
@@ -1400,7 +1411,8 @@ def profile_train(out: Path = ROOT / 'build' / 'train_profile.txt',
     device = sum(r[1] for r in rows)
     cats = {'hand-written kernels': ('dwconv_', 'warp_bilinear', 'photo_', 'conv3x3_reflect',
                                      'sigmoid_grad', 'reduce_weight_grad', 'presum_kernel',
-                                     'weight_grad_kernel', 'input_grad_kernel'),
+                                     'weight_grad_kernel', 'input_grad_kernel',
+                                     'convnext_block_'),
             'convolution (cuDNN)': ('conv', 'cudnn', 'fprop', 'dgrad', 'wgrad', 'fft',
                                     'winograd'),  # before GEMM: implicit-GEMM convs
             'GEMM (cuBLAS/CUTLASS)': ('gemm',),
@@ -1412,8 +1424,9 @@ def profile_train(out: Path = ROOT / 'build' / 'train_profile.txt',
         cat = next((c for c, keys in cats.items() if any(k in name for k in keys)),
                    'elementwise and other')
         totals[cat] += ms
-    lines = [f"KBR micro-step, kernel path, B={TRAIN_B}, 384x640, float32 matmul '{matmul}': wall "
-             f'{wall:.2f} ms (median of 5, no profiler), device {device:.2f} ms in '
+    lines = [f"KBR micro-step, kernel path, B={TRAIN_B}, 384x640, float32 matmul '{matmul}', "
+             f'fused_blocks {fused_blocks}: wall {wall:.2f} ms (median of 5, no profiler), peak '
+             f'memory {peak:.2f} GiB, device {device:.2f} ms in '
              f'{sum(r[2] for r in rows)} kernel launches (under the profiler) per micro-step: '
              f'idle {100 * (1 - device / wall):.1f}%']
     lines += [f'{c:28s} {ms:9.3f} ms {100 * ms / device:5.1f}%' for c, ms in
@@ -1424,7 +1437,9 @@ def profile_train(out: Path = ROOT / 'build' / 'train_profile.txt',
               '4 decoder_stage_bwd': ('sigmoid_grad', 'presum_kernel', 'weight_grad_kernel',
                                       'input_grad_kernel', 'reduce_weight_grad'),
               '5 warp': ('warp_bilinear_kernel',), '6 warp_packed': ('warp_bilinear_packed',),
-              '7 photo_fwd': ('photo_fwd',), '8 photo_bwd': ('photo_bwd',)}
+              '7 photo_fwd': ('photo_fwd',), '8 photo_bwd': ('photo_bwd',),
+              '9 convnext_block': ('convnext_block_fwd',),
+              '10 convnext_block_bwd': ('convnext_block_bwd_',)}
     lines += ['', 'TPU kernel (device time per micro-step, CUDA launches per micro-step):']
     for row, keys in by_row.items():
         hits = [(ms, n) for name, ms, n in rows if any(k in name for k in keys)]

@@ -10,51 +10,73 @@
 //
 // Replaces the TPU kernel slowtv_monodepth_tpu/ops/pallas_convnext.py:
 // _bwd_kernel (launched by _block_bwd_jit); entry point _block_core_bwd.
-// 54 launches per KBR micro-step with the fused blocks on both nets.
+// 54 calls per KBR micro-step with the fused blocks on both nets.
 //
 // Bound on Hopper: operations. The TPU kernel's six matrix products are
 // 48 * pixels * C^2 float32 operations against ~12 * pixels * C bytes of
 // x, dy, du and the gradients. This kernel computes five of them (the sixth,
 // o = hg @ fc2^T, is needed only for dgamma, which the identity
 // dgamma[c] = sum_j fc2[c, j] * (dy^T hg)[c, j] + b2[c] * sum_p dy[p, c]
-// takes from the dW2 product instead): 40 * pixels * C^2. All five are
-// hand-written float32 FMA loops (no tensor cores: TF32 would change the
-// exact-float32 recipe's numerics).
+// takes from the dW2 product instead): 40 * pixels * C^2, all as float32 FMA
+// on the CUDA cores (no tensor cores: TF32 would change the exact-float32
+// recipe's numerics).
 //
-// Design. The TPU kernel walks a sequential grid and adds the eight parameter
-// gradients into resident output blocks. Hopper's thread blocks run in no
-// order, and dW1 / dW2 are products with K = pixels whose per-tile partials
-// would be 8 C^2 floats each, so the work is split by what each part sums
-// over, and every sum runs in a fixed order (no atomics: the gradients are
-// bitwise the same from run to run):
-// 1. rows: one thread block per tile of M consecutive flattened pixels (M in
-//    {8, 16, 32}; the ragged last tile masked). Recomputes the taps and the
-//    LayerNorm (xhat, rstd, xln; xln also to scratch), then for each chunk of
-//    256 hidden columns: h1 = xln fc1[chunk]^T + b1 and gelu'(h1) in
-//    registers, hg to scratch; dhg = (dy * gamma) fc2[:, chunk] (a transposed
-//    read of fc2); dh1 = dhg * gelu'(h1) to shared memory and scratch;
-//    dxln += dh1 fc1[chunk, :] (a transposed read of fc1). Then the
-//    LayerNorm backward writes du. The vector gradients leave as per-tile
-//    column sums (8C floats a tile: sum dxln * xhat, sum dxln, sum du,
-//    sum dy, sum dh1).
-// 2. atb: G = dy^T hg (C, 4C) and dW1 = dh1^T xln (4C, C), tiled over their
-//    OUTPUTS (64 x 64 per block), K running over the pixels in order; where
-//    the output tiles are too few to fill the card, the pixels are cut into a
-//    fixed number of groups, each a partial.
-// 3. finish: the per-tile vector partials summed over the tiles, and the
-//    weight partials over the groups, in order and in double; dW2 = gamma * G,
-//    dgamma from the identity above, db2 = gamma * sum dy.
-// Scratch (from the caller's allocator): xln (P, C), hg and dh1 (P, 4C), the
-// per-tile partials and the group partials; see scratch_layout.
+// Design. The five products are large-tile SIMT matrix products on ONE core,
+// `gemm_run`: a block of 256 threads owns a 128 x 128 output tile, each
+// thread an 8 x 8 register tile (a warp 32 x 64: its 128-bit shared reads of
+// one operand row are one wavefront, so 64 FMAs cost 4 shared loads); both
+// operands are staged as [k][128] slabs of 32 k by 16-byte cp.async copies in
+// a ring of two (mlp) or three (products), one barrier a slab. Every operand is read K-major (row k
+// holds the tile's columns): the products' natural NT and NN forms (h1 =
+// xln fc1^T, dhg = (dy gamma) fc2, dxln = dh1 fc1) are turned into that form
+// by writing xln, dy * gamma and dh1 also transposed, (C or 4C, pixels), and
+// fc1 as fc1^T, in the launches that produce them. The per-pixel work sits in
+// the passes around the products and in their epilogues:
+// 1. prep (per tile of M pixels): the taps and the LayerNorm (xln, xhat,
+//    rstd; xln^T), (dy * gamma)^T, this tile's sum of dy; extra blocks
+//    transpose fc1.
+// 2. mlp (tile: 128 pixels x 128 hidden): h1 = xln fc1^T + b1, whose
+//    epilogue writes hg = gelu(h1) and keeps gelu'(h1) in registers; then
+//    dhg = (dy * gamma) fc2 in the same ring, whose epilogue writes dh1 =
+//    dhg * gelu'(h1), dh1^T and this tile's column sums of dh1 (db1).
+// 3. products, two kinds of block in one launch: the weight gradients G =
+//    dy^T hg (C x 4C) and dW1 = dh1^T xln (4C x C), K = the pixels, a block
+//    taking `splits_w`'th of them; and dxln = dh1 fc1 (128 pixels x 128
+//    channels, K = 4C, cut into `splits_x` ranges where the tiles are too
+//    few for the card). Either sums its K in float32 chains of `group` (<=
+//    256), each chain added into a double accumulator in shared memory; one
+//    partial per split.
+// 4. ln (per tile of M pixels): dxln = the sum of its partials in order,
+//    the LayerNorm backward -> du, the tile's column sums of dxln * xhat,
+//    dxln and du.
+// 5. finish: the weight partials summed over the splits in order in double:
+//    dW1, dW2 = gamma * G, dgamma from the identity above, db2 = gamma *
+//    sum dy; the vector partials over the tiles in double: the LayerNorm's
+//    two gradients, d b_dw, db1.
+// No atomics: every sum runs in a fixed order, so the gradients are bitwise
+// the same from run to run. The plan (M, group, splits) is made by the
+// caller (ops/convnext_block.py bwd_plan) for the card's SM count. Scratch
+// (from the caller's allocator): see scratch_layout.
+#include <cuda_pipeline_primitives.h>
+
 #include "convnext_common.cuh"
 
 namespace {
 
-constexpr int kVec = 8;      // per-tile partials: 8C floats (see rows kernel)
-constexpr int kAT = 64;      // atb: output tile (kAT x kAT) per block
-constexpr int kAK = 16;      // atb: pixels per K step
-constexpr int kFillBlocks = 264;  // atb: two blocks per SM of an H100 (132 SMs)
-constexpr int kMaxGroup = 256;    // atb: at most this many pixels summed in one float chain
+constexpr int kBM = 128;                 // product tile rows
+constexpr int kBN = 128;                 // product tile columns
+constexpr int kBK = 32;                  // K per staged slab
+constexpr int kMlpStages = 2;            // slabs in the ring: mlp (measured best at 2)
+constexpr int kProductsStages = 3;       // products (3 x 2 slabs and the double sums: 227 KB)
+constexpr int kLd = kBM + 4;             // padded slab row (128-bit aligned)
+constexpr int kSlab = kBK * kLd;         // floats of one operand's slab
+__host__ __device__ constexpr int ring_floats(int stages) { return stages * 2 * kSlab; }
+constexpr int kTile = 8;                 // a thread's register tile is kTile x kTile
+constexpr int kMaxGroup = 256;           // the longest float32 chain of a product's K
+constexpr int kVec = 4;                  // per-pixel-tile partials: 4C floats
+constexpr int kWarps = kThreads / 32;
+static_assert(kBM == kBN && kBM * kBN == kThreads * kTile * kTile, "8 x 8 per thread");
+static_assert(kBK * kBM % (4 * kThreads) == 0, "whole copies a thread");
 
 __device__ __forceinline__ double warp_sum_d(double v) {
 #pragma unroll
@@ -76,240 +98,506 @@ __device__ __forceinline__ void gelu_grad(float h, bool approximate, float& hg, 
   }
 }
 
-// Launch 1. Shared memory: xln, xhat, dh2 (dy * gamma, later du) and dxln,
-// [M][C + 4] each; one hidden chunk [M][kHS]; the weight tile [256][kWS]; rstd [M].
-template <int RM>
-__global__ void __launch_bounds__(kThreads, 1)
-convnext_block_bwd_rows_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+// This thread's rows and columns of the 128 x 128 tile. Warp w covers rows
+// 32 (w % 4) .. + 31 and columns 64 (w / 4) .. + 63; lane l owns rows
+// 4 (l / 8) + {0..3} and + 16, columns 4 (l % 8) + {0..3} and + 32.
+__device__ __forceinline__ int tile_row(int i) {
+  const int t = threadIdx.x;
+  return ((t >> 5) & 3) * 32 + (i >> 2) * 16 + ((t & 31) >> 3) * 4 + (i & 3);
+}
+__device__ __forceinline__ int tile_col(int j) {
+  const int t = threadIdx.x;
+  return (t >> 7) * 64 + (j >> 2) * 32 + (t & 7) * 4 + (j & 3);
+}
+
+// A K-major operand of a product: element (k, mn) at g[k * ld + mn], the
+// tile's columns from mn0, live below mn_end. Every operand is laid out so:
+// the launch that writes it writes it so.
+struct Operand {
+  const float* g;
+  long long ld;
+  int mn0, mn_end;
+};
+
+// One operand's [kBK][kBM] slab, rows k0 .., into s (row stride kLd) by
+// 16-byte cp.async; a warp copies one 512-byte slab row. Rows at or past
+// k_end and quads starting at or past mn_end read zeros; a quad that
+// straddles mn_end (the last pixel, in a row padded to a multiple of 4) reads
+// the row's padding, which only reaches outputs that are not stored.
+__device__ __forceinline__ void stage_slab(float* s, const Operand& o, int k0, int k_end) {
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int r = 0; r < kBK * kBM / 4 / kThreads; ++r) {
+    const int q = t + kThreads * r, k = q / (kBM / 4), m = (q % (kBM / 4)) * 4;
+    const bool in = k0 + k < k_end && o.mn0 + m < o.mn_end;
+    __pipeline_memcpy_async(s + k * kLd + m,
+                            in ? o.g + (long long)(k0 + k) * o.ld + o.mn0 + m : o.g, 16,
+                            in ? 0 : 16);
+  }
+}
+
+__device__ __forceinline__ void stage_pair(float* As, float* Bs, const Operand& a,
+                                           const Operand& b, int k0, int k_end) {
+  stage_slab(As, a, k0, k_end);
+  stage_slab(Bs, b, k0, k_end);
+}
+
+// acc += the slab pair's kBK k for this thread's 8 x 8: per k four 128-bit
+// shared reads (A's two row quads, B's two column quads) and 64 FMAs.
+__device__ __forceinline__ void mma_slab(const float* As, const float* Bs,
+                                         float (&acc)[kTile][kTile]) {
+  const int t = threadIdx.x;
+  const int am = ((t >> 5) & 3) * 32 + ((t & 31) >> 3) * 4, bn = (t >> 7) * 64 + (t & 7) * 4;
+#pragma unroll
+  for (int k = 0; k < kBK; ++k) {
+    const float4 a0 = *reinterpret_cast<const float4*>(As + k * kLd + am);
+    const float4 a1 = *reinterpret_cast<const float4*>(As + k * kLd + am + 16);
+    const float4 b0 = *reinterpret_cast<const float4*>(Bs + k * kLd + bn);
+    const float4 b1 = *reinterpret_cast<const float4*>(Bs + k * kLd + bn + 32);
+    const float a[kTile] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float b[kTile] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int i = 0; i < kTile; ++i) {
+#pragma unroll
+      for (int j = 0; j < kTile; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+}
+
+__device__ __forceinline__ void zero(float (&acc)[kTile][kTile]) {
+#pragma unroll
+  for (int i = 0; i < kTile; ++i) {
+#pragma unroll
+    for (int j = 0; j < kTile; ++j) acc[i][j] = 0.f;
+  }
+}
+
+// The product core. From acc = 0, nk slabs: stage(i, As, Bs) issues slab i's
+// copies (STAGES - 1 slabs ahead of the FMAs), acc += slab i for this
+// thread's 8 x 8 of the 128 x 128 tile (tile_row, tile_col), one float32
+// chain per output in k order; after slab i, when i + 1 is a multiple of
+// per_chain or i + 1 == nk, chain(i) takes acc (and may reset it). The ring
+// (ring_floats(STAGES) of shared memory) keeps flowing across chains. Every
+// thread of the block calls it.
+template <int STAGES, class Stage, class Chain>
+__device__ __forceinline__ void gemm_run(int nk, int per_chain, float* ring,
+                                         float (&acc)[kTile][kTile], Stage&& stage,
+                                         Chain&& chain) {
+  zero(acc);
+  __syncthreads();  // the ring's last readers are done
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) stage(s, ring + 2 * s * kSlab, ring + (2 * s + 1) * kSlab);
+    __pipeline_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    __pipeline_wait_prior(STAGES - 2);  // slab kt has landed (this thread's copies)
+    __syncthreads();                     // ... and everyone's; slab kt - 1 is read
+    const int next = kt + STAGES - 1, s = next % STAGES;
+    if (next < nk) stage(next, ring + 2 * s * kSlab, ring + (2 * s + 1) * kSlab);
+    __pipeline_commit();
+    const float* slab = ring + 2 * (kt % STAGES) * kSlab;
+    mma_slab(slab, slab + kSlab, acc);
+    if ((kt + 1) % per_chain == 0 || kt + 1 == nk) chain(kt);
+  }
+}
+
+// out[(m0 + row) * ld + n0 + col] = v for this thread's rows < m_end, as
+// float4 column quads (quads at or past n_end, a multiple of 4, skipped).
+__device__ __forceinline__ void store_quads(float* __restrict__ out, long long ld, int m0,
+                                            long long m_end, int n0, int n_end,
+                                            const float (&v)[kTile][kTile]) {
+#pragma unroll
+  for (int i = 0; i < kTile; ++i) {
+    const long long r = (long long)m0 + tile_row(i);
+    if (r >= m_end) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = n0 + tile_col(4 * h);
+      if (c < n_end) {
+        *reinterpret_cast<float4*>(out + r * ld + c) =
+            make_float4(v[i][4 * h], v[i][4 * h + 1], v[i][4 * h + 2], v[i][4 * h + 3]);
+      }
+    }
+  }
+}
+
+// Launch 1. Blocks [0, tiles): one per tile of M pixels, shared memory u
+// [M][C + 4]; then one per 32 x 32 tile of fc1 -> fc1^T.
+__global__ void __launch_bounds__(kThreads)
+convnext_block_bwd_prep_kernel(const float* __restrict__ x, const float* __restrict__ dy,
                                const float* __restrict__ dww, const float* __restrict__ dwb,
                                const float* __restrict__ lnw, const float* __restrict__ lnb,
-                               const float* __restrict__ w1, const float* __restrict__ b1,
-                               const float* __restrict__ w2, const float* __restrict__ gamma,
-                               float* __restrict__ du, float* __restrict__ xln_g,
-                               float* __restrict__ hg_g, float* __restrict__ dh1_g,
-                               float* __restrict__ part, int B, int H, int W, int C,
-                               int approximate) {
-  constexpr int M = kTM * RM;
+                               const float* __restrict__ gamma, const float* __restrict__ w1,
+                               float* __restrict__ xln, float* __restrict__ xhat,
+                               float* __restrict__ xlnT, float* __restrict__ dygT,
+                               float* __restrict__ w1T, float* __restrict__ rstd,
+                               float* __restrict__ part, int B, int H, int W, int C, int M,
+                               int tiles) {
   SLOWTV_DYNAMIC_SMEM(smem4);
-  const int ldx = C + 4;
-  float* xln = reinterpret_cast<float*>(smem4);  // [M][ldx]: taps, then LN output
-  float* xhat = xln + M * ldx;                   // [M][ldx]
-  float* dh2 = xhat + M * ldx;                   // [M][ldx]: dy * gamma, then du
-  float* dxln = dh2 + M * ldx;                   // [M][ldx]: running sum over chunks
-  float* hs = dxln + M * ldx;                    // [M][kHS]: one chunk of dh1
-  float* Ws = hs + M * kHS;                      // [256][kWS]: weight tile
-  float* rstd = Ws + kNP * kWS;                  // [M]
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const long long pixels = (long long)B * H * W;
-  const long long p0 = (long long)blockIdx.x * M;
-  const int hidden = 4 * C;
-  float* tile_part = part + (long long)blockIdx.x * kVec * C;
-
-  taps_tile(x, dww, dwb, xln, ldx, p0, pixels, M, H, W, C, 0, 1);
-  for (int idx = t; idx < M * C; idx += kThreads) {
-    const int m = idx / C, c = idx - m * C;
-    const long long p = p0 + m;
-    dh2[m * ldx + c] = p < pixels ? __ldg(dy + p * C + c) * __ldg(gamma + c) : 0.f;
-    dxln[m * ldx + c] = 0.f;
+  float* u = reinterpret_cast<float*>(smem4);
+  const int ldu = C + 4, t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const long long pixels = (long long)B * H * W, ldp = (pixels + 3) / 4 * 4;
+  if ((int)blockIdx.x >= tiles) {  // fc1 (4C, C) -> w1T (C, 4C), through a [32][33] tile
+    const int hidden = 4 * C, tc = (C + 31) / 32, b = blockIdx.x - tiles;
+    const int j0 = (b / tc) * 32, c0 = (b % tc) * 32;
+    for (int e = t; e < 32 * 32; e += kThreads) {
+      const int r = e >> 5, q = e & 31;
+      if (j0 + r < hidden && c0 + q < C) u[r * 33 + q] = __ldg(w1 + (long long)(j0 + r) * C + c0 + q);
+    }
+    __syncthreads();
+    for (int e = t; e < 32 * 32; e += kThreads) {
+      const int r = e >> 5, q = e & 31;
+      if (c0 + r < C && j0 + q < hidden) w1T[(long long)(c0 + r) * hidden + j0 + q] = u[q * 33 + r];
+    }
+    return;
   }
-  __syncthreads();
+  const long long p0 = (long long)blockIdx.x * M;
+  const int live = pixels - p0 < M ? (int)(pixels - p0) : M;
 
-  // LayerNorm, one warp per pixel, two passes; xhat and rstd kept for its backward.
-  for (int q = warp; q < M; q += kThreads / 32) {
-    float* u = xln + q * ldx;
+  taps_tile(x, dww, dwb, u, ldu, p0, pixels, M, H, W, C, 0, 1);
+  __syncthreads();
+  // LayerNorm, one warp per pixel, two passes; xln back into u.
+  for (int q = warp; q < live; q += kWarps) {
+    float* uq = u + q * ldu;
     const long long p = p0 + q;
     float s = 0.f;
-    for (int c = lane; c < C; c += 32) s += u[c];
+    for (int c = lane; c < C; c += 32) s += uq[c];
     const float mean = warp_sum(s) / (float)C;
     float v = 0.f;
     for (int c = lane; c < C; c += 32) {
-      const float d = u[c] - mean;
+      const float d = uq[c] - mean;
       v = fmaf(d, d, v);
     }
     const float r = 1.f / sqrtf(warp_sum(v) / (float)C + kEps);
     for (int c = lane; c < C; c += 32) {
-      const float xh = (u[c] - mean) * r;
+      const float xh = (uq[c] - mean) * r;
       const float val = xh * __ldg(lnw + c) + __ldg(lnb + c);
-      xhat[q * ldx + c] = xh;
-      u[c] = val;
-      if (p < pixels) xln_g[p * C + c] = val;
+      xhat[p * C + c] = xh;
+      xln[p * C + c] = val;
+      uq[c] = val;
     }
-    if (lane == 0) rstd[q] = r;
-  }
-
-  // The hidden chunks: h1 and gelu' (registers), dhg, dh1, dxln.
-  const int tn = thread_col(t), tm = thread_row(t);
-  float acc[RM][kRN], dg[RM][kRN];
-  for (int j0 = 0; j0 < hidden; j0 += kNP) {
-    const int nh = hidden - j0 < kNP ? hidden - j0 : kNP;
-    gemm_panel<RM, false>(xln, ldx, w1 + (long long)j0 * C, C, nh, C, Ws, acc);
-#pragma unroll
-    for (int i = 0; i < kRN; ++i) {
-      const int n = tn + kTN * i;
-      if (n < nh) {
-        const float bias = __ldg(b1 + j0 + n);
-#pragma unroll
-        for (int r = 0; r < RM; ++r) {
-          float hg;
-          gelu_grad(acc[r][i] + bias, approximate, hg, dg[r][i]);
-          const long long p = p0 + tm + kTM * r;
-          if (p < pixels) hg_g[p * hidden + j0 + n] = hg;
-        }
-      }
-    }
-    // dhg[m, n] = sum_c dh2[m, c] * fc2[c, j0 + n]
-    gemm_panel<RM, true>(dh2, ldx, w2 + j0, hidden, nh, C, Ws, acc);
-#pragma unroll
-    for (int i = 0; i < kRN; ++i) {
-      const int n = tn + kTN * i;
-      if (n < nh) {
-#pragma unroll
-        for (int r = 0; r < RM; ++r) {
-          const int m = tm + kTM * r;
-          const float v = acc[r][i] * dg[r][i];
-          hs[m * kHS + n] = v;
-          if (p0 + m < pixels) dh1_g[(p0 + m) * hidden + j0 + n] = v;
-        }
-      }
-    }
-    __syncthreads();
-    for (int n = t; n < nh; n += kThreads) {  // this tile's sum of dh1 (db1)
-      float s = 0.f;
-      for (int m = 0; m < M; ++m) s += hs[m * kHS + n];
-      tile_part[4 * C + j0 + n] = s;
-    }
-    // dxln[m, c] += sum_n dh1[m, n] * fc1[j0 + n, c]
-    for (int c0 = 0; c0 < C; c0 += kNP) {
-      const int nc = C - c0 < kNP ? C - c0 : kNP;
-      gemm_panel<RM, true>(hs, kHS, w1 + (long long)j0 * C + c0, C, nc, nh, Ws, acc);
-#pragma unroll
-      for (int i = 0; i < kRN; ++i) {
-        const int n = tn + kTN * i;
-        if (n < nc) {
-#pragma unroll
-          for (int r = 0; r < RM; ++r) dxln[(tm + kTM * r) * ldx + c0 + n] += acc[r][i];
-        }
-      }
-    }
+    if (lane == 0) rstd[p] = r;
   }
   __syncthreads();
+  // xln^T (C, ldp): threads along the pixels.
+  for (int e = t; e < C * M; e += kThreads) {
+    const int c = e / M, m = e - c * M;
+    if (m < live) xlnT[c * ldp + p0 + m] = u[m * ldu + c];
+  }
+  __syncthreads();
+  for (int e = t; e < M * C; e += kThreads) {  // dy, threads along the channels
+    const int m = e / C, c = e - m * C;
+    u[m * ldu + c] = m < live ? __ldg(dy + (p0 + m) * C + c) : 0.f;
+  }
+  __syncthreads();
+  for (int c = t; c < C; c += kThreads) {  // this tile's sum of dy, in pixel order
+    float e = 0.f;
+    for (int m = 0; m < live; ++m) e += u[m * ldu + c];
+    part[(long long)blockIdx.x * kVec * C + 3 * C + c] = e;
+  }
+  for (int e = t; e < C * M; e += kThreads) {  // (dy * gamma)^T (C, ldp)
+    const int c = e / M, m = e - c * M;
+    if (m < live) dygT[c * ldp + p0 + m] = u[m * ldu + c] * __ldg(gamma + c);
+  }
+}
 
-  // LayerNorm backward, one warp per pixel: du = (dxhat - mean(dxhat) -
-  // xhat * mean(dxhat * xhat)) * rstd, dxhat = dxln * lnw; du replaces dh2.
-  for (int q = warp; q < M; q += kThreads / 32) {
+// Launch 2, one block per (128 pixels, 128 hidden) tile, hidden tiles
+// fastest: h1 = xln fc1^T + b1, then dhg = (dy * gamma) fc2 in the same ring
+// of slabs (K = C each).
+__global__ void __launch_bounds__(kThreads, 1)
+convnext_block_bwd_mlp_kernel(const float* __restrict__ xlnT, const float* __restrict__ dygT,
+                              const float* __restrict__ w1T, const float* __restrict__ b1,
+                              const float* __restrict__ w2, float* __restrict__ hg,
+                              float* __restrict__ dh1, float* __restrict__ dh1T,
+                              float* __restrict__ db1_part, long long pixels, int C,
+                              int approximate) {
+  SLOWTV_DYNAMIC_SMEM(smem4);
+  float* ring = reinterpret_cast<float*>(smem4);
+  const int hidden = 4 * C, tiles_n = (hidden + kBN - 1) / kBN, nk = (C + kBK - 1) / kBK;
+  const int mt = blockIdx.x / tiles_n, m0 = mt * kBM, n0 = (blockIdx.x % tiles_n) * kBN;
+  const int m_end = (int)(pixels < m0 + kBM ? pixels : m0 + kBM);
+  const long long ldp = (pixels + 3) / 4 * 4;
+  const Operand xa{xlnT, ldp, m0, m_end}, wa{w1T, hidden, n0, hidden};
+  const Operand ya{dygT, ldp, m0, m_end}, wb{w2, hidden, n0, hidden};
+  float acc[kTile][kTile], dg[kTile][kTile];
+  gemm_run<kMlpStages>(
+      2 * nk, nk, ring, acc,
+      [&](int i, float* As, float* Bs) {
+        if (i < nk) {
+          stage_pair(As, Bs, xa, wa, i * kBK, C);
+        } else {
+          stage_pair(As, Bs, ya, wb, (i - nk) * kBK, C);
+        }
+      },
+      [&](int i) {
+        if (i + 1 != nk) return;
+        // h1 -> hg stored, gelu'(h1) kept; acc restarts for dhg.
+#pragma unroll
+        for (int j = 0; j < kTile; ++j) {
+          const int n = n0 + tile_col(j);
+          const float bias = n < hidden ? __ldg(b1 + n) : 0.f;
+#pragma unroll
+          for (int r = 0; r < kTile; ++r) gelu_grad(acc[r][j] + bias, approximate, acc[r][j], dg[r][j]);
+        }
+        store_quads(hg, hidden, m0, m_end, n0, hidden, acc);
+        zero(acc);
+      });
+
+  // dh1 = dhg * gelu'(h1), stored as (pixels, 4C) and as its transpose.
+  const int t = threadIdx.x;
+  float cs[kTile];
+#pragma unroll
+  for (int j = 0; j < kTile; ++j) {
+    cs[j] = 0.f;
+#pragma unroll
+    for (int r = 0; r < kTile; ++r) {
+      acc[r][j] *= dg[r][j];
+      if (m0 + tile_row(r) < m_end) cs[j] += acc[r][j];
+    }
+    cs[j] += __shfl_xor_sync(0xffffffffu, cs[j], 8);  // the warp's four row groups
+    cs[j] += __shfl_xor_sync(0xffffffffu, cs[j], 16);
+  }
+  store_quads(dh1, hidden, m0, m_end, n0, hidden, acc);
+#pragma unroll
+  for (int j = 0; j < kTile; ++j) {
+    const int n = n0 + tile_col(j);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = m0 + tile_row(4 * h);  // four pixels from here, in a row padded to 4
+      if (n < hidden && r < m_end) {
+        *reinterpret_cast<float4*>(dh1T + (long long)n * ldp + r) = make_float4(
+            acc[4 * h][j], acc[4 * h + 1][j], acc[4 * h + 2][j], acc[4 * h + 3][j]);
+      }
+    }
+  }
+
+  // This tile's column sums of dh1: the four warps of a column half in order.
+  __syncthreads();  // the ring's last readers are done
+  float* red = ring;  // [4][kBN]
+  if ((t & 31) < 8) {
+#pragma unroll
+    for (int j = 0; j < kTile; ++j) red[((t >> 5) & 3) * kBN + tile_col(j)] = cs[j];
+  }
+  __syncthreads();
+  if (t < kBN && n0 + t < hidden) {
+    db1_part[(long long)mt * hidden + n0 + t] =
+        ((red[t] + red[kBN + t]) + red[2 * kBN + t]) + red[3 * kBN + t];
+  }
+}
+
+// Pixels per split of the weight gradients, and hidden units per split of dxln
+// (multiples of kBK; the host's plan uses the same).
+__host__ __device__ __forceinline__ long long split_len(long long n, int splits) {
+  return ((n + splits - 1) / splits + kBK - 1) / kBK * kBK;
+}
+
+// Launch 3. Blocks [0, 2 * tiles_w * splits_w): weight-gradient tiles (G's,
+// then dW1's; splits fastest): G = dy^T hg (C x 4C) or dW1 = dh1^T xln (4C x
+// C) over one split's pixels. Then dxln tiles (splits fastest): dxln = dh1 fc1
+// (pixels x C) over one split of the hidden units. Either sums its K in float32
+// chains of `group`, each chain added into a double accumulator (shared
+// memory, after the ring: 64 per thread); one partial per split.
+__global__ void __launch_bounds__(kThreads, 1)
+convnext_block_bwd_products_kernel(const float* __restrict__ dy, const float* __restrict__ hg,
+                                   const float* __restrict__ dh1, const float* __restrict__ dh1T,
+                                   const float* __restrict__ xln, const float* __restrict__ w1,
+                                   float* __restrict__ dx_part, float* __restrict__ w_part,
+                                   long long pixels, int C, int group, int splits_w,
+                                   int splits_x) {
+  SLOWTV_DYNAMIC_SMEM(smem4);
+  float* ring = reinterpret_cast<float*>(smem4);
+  double* dacc = reinterpret_cast<double*>(ring + ring_floats(kProductsStages));  // [64][kThreads]
+  const int t = threadIdx.x, hidden = 4 * C;
+  const int tiles_c = (C + kBM - 1) / kBM, tiles_h = (hidden + kBM - 1) / kBM;
+  const int tiles_w = tiles_c * tiles_h;
+  int b = blockIdx.x, m0, n0, m_end, n_end, k0, k1;
+  Operand a, bo;
+  float* out;
+  long long ldo;
+  if (b < 2 * tiles_w * splits_w) {
+    const int split = b % splits_w, tile = b / splits_w;
+    const bool g = tile < tiles_w;
+    const int tt = g ? tile : tile - tiles_w, tn = g ? tiles_h : tiles_c;
+    m_end = g ? C : hidden;
+    n_end = ldo = g ? hidden : C;
+    m0 = (tt / tn) * kBM;
+    n0 = (tt % tn) * kBN;
+    const long long len = split_len(pixels, splits_w), p0 = split * len;
+    k0 = (int)(p0 < pixels ? p0 : pixels);
+    k1 = (int)(p0 + len < pixels ? p0 + len : pixels);
+    a = Operand{g ? dy : dh1, m_end, m0, m_end};
+    bo = Operand{g ? hg : xln, n_end, n0, n_end};
+    out = w_part + ((long long)(g ? 0 : splits_w) + split) * C * hidden;
+  } else {
+    b -= 2 * tiles_w * splits_w;
+    const int split = b % splits_x, tile = b / splits_x;
+    m0 = (tile / tiles_c) * kBM;
+    n0 = (tile % tiles_c) * kBN;
+    m_end = (int)(pixels < m0 + kBM ? pixels : m0 + kBM);
+    n_end = ldo = C;
+    const int len = (int)split_len(hidden, splits_x);
+    k0 = split * len < hidden ? split * len : hidden;
+    k1 = k0 + len < hidden ? k0 + len : hidden;
+    a = Operand{dh1T, (pixels + 3) / 4 * 4, m0, m_end};
+    bo = Operand{w1, C, n0, C};
+    out = dx_part + split * pixels * C;
+  }
+  const int nk = (k1 - k0 + kBK - 1) / kBK, per = group / kBK;
+  float acc[kTile][kTile];
+  gemm_run<kProductsStages>(
+      nk, per, ring, acc,
+      [&](int i, float* As, float* Bs) { stage_pair(As, Bs, a, bo, k0 + i * kBK, k1); },
+      [&](int i) {
+#pragma unroll
+        for (int r = 0; r < kTile; ++r) {
+#pragma unroll
+          for (int j = 0; j < kTile; ++j) {
+            double& d = dacc[(r * kTile + j) * kThreads + t];
+            d = (i < per ? 0.0 : d) + (double)acc[r][j];
+          }
+        }
+        zero(acc);
+      });
+#pragma unroll
+  for (int r = 0; r < kTile; ++r) {
+#pragma unroll
+    for (int j = 0; j < kTile; ++j) {
+      acc[r][j] = nk > 0 ? (float)dacc[(r * kTile + j) * kThreads + t] : 0.f;
+    }
+  }
+  store_quads(out, ldo, m0, m_end, n0, n_end, acc);
+}
+
+// Launch 4, one block per tile of M pixels. Shared memory: dxln [M][C + 4],
+// then the two row means of each pixel.
+__global__ void __launch_bounds__(kThreads)
+convnext_block_bwd_ln_kernel(const float* __restrict__ dx_part, int splits_x,
+                             const float* __restrict__ xhat, const float* __restrict__ rstd,
+                             const float* __restrict__ lnw, float* __restrict__ du,
+                             float* __restrict__ part, long long pixels, int C, int M) {
+  SLOWTV_DYNAMIC_SMEM(smem4);
+  const int ldx = C + 4, t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  float* dx = reinterpret_cast<float*>(smem4);
+  float* m1 = dx + M * ldx;
+  float* m2 = m1 + M;
+  const long long p0 = (long long)blockIdx.x * M, plane = pixels * C;
+  const int live = pixels - p0 < M ? (int)(pixels - p0) : M;
+  // dxln (its partials in order) and the row means of dxhat = dxln * lnw and
+  // of dxhat * xhat, one warp per pixel.
+  for (int q = warp; q < live; q += kWarps) {
     const long long p = p0 + q;
     float s1 = 0.f, s2 = 0.f;
     for (int c = lane; c < C; c += 32) {
-      const float d = dxln[q * ldx + c] * __ldg(lnw + c);
+      float v = dx_part[p * C + c];
+      for (int s = 1; s < splits_x; ++s) v += dx_part[s * plane + p * C + c];
+      dx[q * ldx + c] = v;
+      const float d = v * __ldg(lnw + c);
       s1 += d;
-      s2 = fmaf(d, xhat[q * ldx + c], s2);
+      s2 = fmaf(d, xhat[p * C + c], s2);
     }
-    const float m1 = warp_sum(s1) / (float)C, m2 = warp_sum(s2) / (float)C;
-    for (int c = lane; c < C; c += 32) {
-      const float d = dxln[q * ldx + c] * __ldg(lnw + c);
-      const float v = (d - m1 - xhat[q * ldx + c] * m2) * rstd[q];
-      dh2[q * ldx + c] = v;
-      if (p < pixels) du[p * C + c] = v;
+    s1 = warp_sum(s1);
+    s2 = warp_sum(s2);
+    if (lane == 0) {
+      m1[q] = s1 / (float)C;
+      m2[q] = s2 / (float)C;
     }
   }
   __syncthreads();
-
-  // This tile's column sums, in pixel order.
-  const int live = pixels - p0 < M ? (int)(pixels - p0) : M;
+  // du = (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat)) * rstd, and this
+  // tile's column sums in pixel order.
   for (int c = t; c < C; c += kThreads) {
-    float a = 0.f, b = 0.f, d = 0.f, e = 0.f;
+    const float w = __ldg(lnw + c);
+    float a = 0.f, b = 0.f, d = 0.f;
+#pragma unroll 8
     for (int m = 0; m < live; ++m) {
-      a = fmaf(dxln[m * ldx + c], xhat[m * ldx + c], a);
-      b += dxln[m * ldx + c];
-      d += dh2[m * ldx + c];
-      e += __ldg(dy + (p0 + m) * C + c);
+      const long long p = p0 + m;
+      const float g = dx[m * ldx + c], xh = xhat[p * C + c];
+      const float v = (g * w - m1[m] - xh * m2[m]) * rstd[p];
+      du[p * C + c] = v;
+      a = fmaf(g, xh, a);
+      b += g;
+      d += v;
     }
-    tile_part[c] = a;          // -> d ln weight
-    tile_part[C + c] = b;      // -> d ln bias
-    tile_part[2 * C + c] = d;  // -> d b_dw
-    tile_part[3 * C + c] = e;  // -> sum dy (db2, dgamma)
+    float* tp = part + (long long)blockIdx.x * kVec * C;
+    tp[c] = a;          // -> d ln weight
+    tp[C + c] = b;      // -> d ln bias
+    tp[2 * C + c] = d;  // -> d b_dw
   }
 }
 
-// Launch 2: part[g][a][b] = sum over group g's pixels p of A[p][a] * B[p][b]
-// (A: (P, Na), B: (P, Nb), row-major, Na and Nb multiples of 4). One block per
-// (64 x 64 output tile, group); a thread owns rows a0 + ty + 16 i and columns
-// b0 + tx + 16 j, i, j < 4; K steps of 16 pixels through shared memory.
+// Launch 5. Blocks [0, ceil(C / 8)): rows of G, one warp each -> dW2, dgamma,
+// db2; then rows of dW1 (one warp each); then columns of the vector
+// gradients, 32 a block (the LayerNorm's two, d b_dw from the pixel tiles'
+// partials; db1 from the mlp tiles'). Sums in double, in a fixed order.
 __global__ void __launch_bounds__(kThreads)
-convnext_block_bwd_atb_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
-                              long long P, int Na, int Nb, int G, float* __restrict__ part) {
+convnext_block_bwd_finish_kernel(const float* __restrict__ w_part, int splits_w,
+                                 const float* __restrict__ part, int tiles,
+                                 const float* __restrict__ db1_part, int mtiles, int C,
+                                 const float* __restrict__ w2, const float* __restrict__ b2,
+                                 const float* __restrict__ gamma, float* __restrict__ dw1,
+                                 float* __restrict__ dw2, float* __restrict__ dgamma,
+                                 float* __restrict__ db2, float* __restrict__ dlnw,
+                                 float* __restrict__ dlnb, float* __restrict__ ddwb,
+                                 float* __restrict__ db1) {
   SLOWTV_DYNAMIC_SMEM(smem4);
-  float(*As)[kAT] = reinterpret_cast<float(*)[kAT]>(smem4);  // [kAK][kAT] each
-  float(*Bs)[kAT] = As + kAK;
-  const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
-  const int tilesB = (Nb + kAT - 1) / kAT;
-  const int g = (int)(blockIdx.x % G), tile = (int)(blockIdx.x / G);
-  const int a0 = (tile / tilesB) * kAT, b0 = (tile % tilesB) * kAT;
-  const long long chunk = (P + G - 1) / G;
-  const long long pbeg = g * chunk, pend = pbeg + chunk < P ? pbeg + chunk : P;
-  const int lk = t >> 4, l4 = (t & 15) * 4;  // this thread's load: pixel row, 4 columns
-  float acc[4][4] = {};
-  for (long long pk = pbeg; pk < pend; pk += kAK) {
-    const long long p = pk + lk;
-    const bool row = p < pend;
-    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-    const float4 va =
-        row && a0 + l4 < Na ? __ldg(reinterpret_cast<const float4*>(A + p * Na + a0 + l4)) : z;
-    const float4 vb =
-        row && b0 + l4 < Nb ? __ldg(reinterpret_cast<const float4*>(Bm + p * Nb + b0 + l4)) : z;
-    __syncthreads();  // the last step's reads are done
-    *reinterpret_cast<float4*>(&As[lk][l4]) = va;
-    *reinterpret_cast<float4*>(&Bs[lk][l4]) = vb;
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kAK; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = As[k][ty + 16 * i];
-        b[i] = Bs[k][tx + 16 * i];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5, hidden = 4 * C;
+  const int g_blocks = (C + kWarps - 1) / kWarps, w_blocks = (hidden + kWarps - 1) / kWarps;
+  const int b = blockIdx.x;
+  if (b < g_blocks + w_blocks) {
+    const bool g = b < g_blocks;
+    const int r = (g ? b : b - g_blocks) * kWarps + warp, rows = g ? C : hidden;
+    const int cols = g ? hidden : C;
+    if (r >= rows) return;
+    const float* src = w_part + (g ? 0 : (long long)splits_w * C * hidden) + (long long)r * cols;
+    const float sc = g ? __ldg(gamma + r) : 1.f;
+    float* out = (g ? dw2 : dw1) + (long long)r * cols;
+    const long long step = (long long)rows * cols;  // from one split's partial to the next
+    double d = 0.0;
+#pragma unroll 4
+    for (int c = 4 * lane; c < cols; c += 128) {  // a float4 of columns a lane
+      double v[4] = {0.0, 0.0, 0.0, 0.0};
+      for (int s = 0; s < splits_w; ++s) {
+        const float4 q = *reinterpret_cast<const float4*>(src + s * step + c);
+        v[0] += (double)q.x;
+        v[1] += (double)q.y;
+        v[2] += (double)q.z;
+        v[3] += (double)q.w;
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      *reinterpret_cast<float4*>(out + c) =
+          make_float4(sc * (float)v[0], sc * (float)v[1], sc * (float)v[2], sc * (float)v[3]);
+      if (g) {
+        const float4 f = __ldg(reinterpret_cast<const float4*>(w2 + (long long)r * cols + c));
+        d += (double)f.x * v[0] + (double)f.y * v[1] + (double)f.z * v[2] + (double)f.w * v[3];
       }
     }
-  }
-  float* out = part + (long long)g * Na * Nb;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int a = a0 + ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int b = b0 + tx + 16 * j;
-      if (a < Na && b < Nb) out[(long long)a * Nb + b] = acc[i][j];
+    if (!g) return;
+    d = warp_sum_d(d);
+    double s = 0.0;  // sum of dy: every 32nd pixel tile a lane, then the lanes
+#pragma unroll 8
+    for (int i = lane; i < tiles; i += 32) s += (double)part[(long long)i * kVec * C + 3 * C + r];
+    const float sum_dy = (float)warp_sum_d(s);
+    if (lane == 0) {
+      dgamma[r] = (float)(d + (double)__ldg(b2 + r) * (double)sum_dy);
+      db2[r] = __ldg(gamma + r) * sum_dy;
     }
+    return;
   }
-}
-
-// Launch 3a: the per-tile partials summed over the tiles (8 lanes each take
-// every 8th tile, then the 8 lane sums in order; double). Outputs: the
-// LayerNorm's two gradients, d b_dw, db1, db2 = gamma * sum dy, and sum dy
-// itself for dgamma.
-__global__ void __launch_bounds__(kThreads)
-convnext_block_bwd_vec_kernel(const float* __restrict__ part, int tiles, int C,
-                              const float* __restrict__ gamma, float* __restrict__ dlnw,
-                              float* __restrict__ dlnb, float* __restrict__ ddwb,
-                              float* __restrict__ db1, float* __restrict__ db2,
-                              float* __restrict__ sum_dy) {
-  SLOWTV_DYNAMIC_SMEM(smem4);
-  double(*red)[32] = reinterpret_cast<double(*)[32]>(smem4);  // [kThreads / 32][32]
-  const int t = threadIdx.x, lane = t & 31, row = t >> 5;
-  const int col = blockIdx.x * 32 + lane, cols = kVec * C;
+  // Vector columns: [0, 3C) from the pixel tiles' partials, [3C, 3C + 4C) db1.
+  double(*red)[32] = reinterpret_cast<double(*)[32]>(smem4);  // [kWarps][32]
+  const int col = (b - g_blocks - w_blocks) * 32 + lane, cols = 3 * C + hidden;
+  const bool vec = col < 3 * C;
+  const float* src = vec ? part + col : db1_part + (col - 3 * C);
+  const long long stride = vec ? (long long)kVec * C : hidden;
+  const int n = vec ? tiles : mtiles;
   double s = 0.0;
   if (col < cols) {
-    for (int i = row; i < tiles; i += kThreads / 32) s += (double)part[(long long)i * cols + col];
+    for (int i = warp; i < n; i += kWarps) s += (double)src[i * stride];
   }
-  red[row][lane] = s;
+  red[warp][lane] = s;
   __syncthreads();
-  if (row != 0 || col >= cols) return;
-  for (int r = 1; r < kThreads / 32; ++r) s += red[r][lane];
+  if (warp != 0 || col >= cols) return;
+  for (int w = 1; w < kWarps; ++w) s += red[w][lane];
   const float v = (float)s;
   if (col < C) {
     dlnw[col] = v;
@@ -317,171 +605,138 @@ convnext_block_bwd_vec_kernel(const float* __restrict__ part, int tiles, int C,
     dlnb[col - C] = v;
   } else if (col < 3 * C) {
     ddwb[col - 2 * C] = v;
-  } else if (col < 4 * C) {
-    sum_dy[col - 3 * C] = v;
-    db2[col - 3 * C] = __ldg(gamma + col - 3 * C) * v;
   } else {
-    db1[col - 4 * C] = v;
+    db1[col - 3 * C] = v;
   }
 }
 
-// Launch 3b: out[r][c] = scale[r] * sum_g part[g][r][c] (scale null: 1), one
-// warp per row, groups in order, in double. With dotw: dot[r] = sum_c dotw[r][c]
-// * (that sum) + dotb[r] * dots[r] (dgamma).
-__global__ void __launch_bounds__(kThreads)
-convnext_block_bwd_finish_kernel(const float* __restrict__ part, int G, int R, int N,
-                                 const float* __restrict__ scale, float* __restrict__ out,
-                                 const float* __restrict__ dotw, const float* __restrict__ dotb,
-                                 const float* __restrict__ dots, float* __restrict__ dot) {
-  const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
-  if (r >= R) return;
-  const float sc = scale ? __ldg(scale + r) : 1.f;
-  double d = 0.0;
-  for (int c = lane; c < N; c += 32) {
-    double v = 0.0;
-    for (int g = 0; g < G; ++g) v += (double)part[((long long)g * R + r) * N + c];
-    out[(long long)r * N + c] = sc * (float)v;
-    if (dotw) d += (double)__ldg(dotw + (long long)r * N + c) * v;
-  }
-  if (!dotw) return;
-  d = warp_sum_d(d);
-  if (lane == 0) dot[r] = (float)(d + (double)__ldg(dotb + r) * (double)__ldg(dots + r));
-}
-
-// atb's pixel groups: enough (output tile, group) blocks to fill the card, no
-// chain longer than kMaxGroup pixels, no group under 64 pixels.
-int groups(long long pixels, int na, int nb) {
-  const long long tiles = (long long)((na + kAT - 1) / kAT) * ((nb + kAT - 1) / kAT);
-  long long g = (kFillBlocks + tiles - 1) / tiles;
-  const long long chain = (pixels + kMaxGroup - 1) / kMaxGroup;
-  if (chain > g) g = chain;
-  const long long most = (pixels + 63) / 64;
-  if (g > most) g = most;
-  return g < 1 ? 1 : (int)g;
-}
-
-// Offsets (in floats) of the scratch buffers; the last is the total.
+// Offsets (in floats) of the scratch buffers; the last is the total. ldp:
+// the pixels rounded up to 4, the row of the transposed activations. (dy *
+// gamma)^T shares its buffer with dxln's partials (mlp reads the one before
+// products writes the others).
 struct Layout {
-  long long xln, hg, dh1, part, gpart, wpart, sum_dy, total;
-  int tiles, g2, g1;
+  long long ldp, xln, xhat, xlnT, dx_part, rstd, hg, dh1, dh1T, w1T, part, db1_part, w_part,
+      total;
+  int tiles, mtiles;
 };
 
-Layout scratch_layout(long long pixels, int C, int M) {
+Layout scratch_layout(long long pixels, int C, int M, int splits_w, int splits_x) {
   Layout l;
+  const long long plane = pixels * C, hidden = 4LL * C;
+  const long long dx = splits_x * plane, dyg = C * ((pixels + 3) / 4 * 4);
   l.tiles = (int)((pixels + M - 1) / M);
-  l.g2 = groups(pixels, C, 4 * C);
-  l.g1 = groups(pixels, 4 * C, C);
+  l.mtiles = (int)((pixels + kBM - 1) / kBM);
+  l.ldp = (pixels + 3) / 4 * 4;
   l.xln = 0;
-  l.hg = l.xln + pixels * C;
-  l.dh1 = l.hg + pixels * 4 * C;
-  l.part = l.dh1 + pixels * 4 * C;
-  l.gpart = l.part + (long long)l.tiles * kVec * C;
-  l.wpart = l.gpart + (long long)l.g2 * 4 * C * C;
-  l.sum_dy = l.wpart + (long long)l.g1 * 4 * C * C;
-  l.total = l.sum_dy + C;
+  l.xhat = l.xln + plane;
+  l.xlnT = l.xhat + plane;
+  l.dx_part = l.xlnT + C * l.ldp;
+  l.rstd = l.dx_part + (dx > dyg ? dx : dyg);
+  l.hg = l.rstd + l.ldp;
+  l.dh1 = l.hg + pixels * hidden;
+  l.dh1T = l.dh1 + pixels * hidden;
+  l.w1T = l.dh1T + hidden * l.ldp;
+  l.part = l.w1T + hidden * C;
+  l.db1_part = l.part + (long long)l.tiles * kVec * C;
+  l.w_part = l.db1_part + l.mtiles * hidden;
+  l.total = l.w_part + 2LL * splits_w * C * hidden;
   return l;
 }
 
 template <class K, class... Args>
-cudaError_t launch_plain(K kernel, unsigned grid, size_t smem, cudaStream_t s, Args... args) {
+cudaError_t launch(K kernel, unsigned grid, size_t smem, cudaStream_t s, Args... args) {
+  // Above 48 KB shared memory is dynamic and has to be asked for, or the
+  // launch is refused (as it is above what the card allows).
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
   return err != cudaSuccess ? err : cudaGetLastError();
-}
-
-template <int RM>
-cudaError_t launch_rows(const float* x, const float* dy, const float* dww, const float* dwb,
-                        const float* lnw, const float* lnb, const float* w1, const float* b1,
-                        const float* w2, const float* gamma, float* du, float* scratch,
-                        const Layout& l, int B, int H, int W, int C, int approximate,
-                        cudaStream_t s) {
-  constexpr int M = kTM * RM;
-  const size_t bytes = sizeof(float) * ((size_t)4 * M * (C + 4) + M * kHS + kNP * kWS + M);
-  // Above 48 KB shared memory is dynamic and has to be asked for, or the
-  // launch is refused.
-  cudaError_t err = cudaFuncSetAttribute(convnext_block_bwd_rows_kernel<RM>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
-  if (err != cudaSuccess) return err;
-  return launch_plain(convnext_block_bwd_rows_kernel<RM>, (unsigned)l.tiles, bytes, s, x, dy,
-                      dww, dwb, lnw, lnb, w1, b1, w2, gamma, du, scratch + l.xln,
-                      scratch + l.hg, scratch + l.dh1, scratch + l.part, B, H, W, C,
-                      approximate);
 }
 
 }  // namespace
 
 // Floats of scratch that slowtv_convnext_block_bwd_f32 needs for these shapes
-// and pixel tile M.
-extern "C" long long slowtv_convnext_block_bwd_scratch_floats(int B, int H, int W, int C,
-                                                              int M) {
-  return scratch_layout((long long)B * H * W, C, M).total;
+// and plan.
+extern "C" long long slowtv_convnext_block_bwd_scratch_floats(int B, int H, int W, int C, int M,
+                                                              int splits_w, int splits_x) {
+  return scratch_layout((long long)B * H * W, C, M, splits_w, splits_x).total;
 }
 
 // x, dy, du (B, H, W, C); dww (C, 1, 7, 7); dwb, lnw, lnb, b2, gamma and their
 // gradients ddwb, dlnw, dlnb, db2, dgamma (C,); w1, dw1 (4C, C); b1, db1 (4C,);
 // w2, dw2 (C, 4C); scratch of slowtv_convnext_block_bwd_scratch_floats floats;
-// all float32, contiguous, on `device`, 16-byte aligned; C a multiple of 4. M
-// (8, 16 or 32) is the pixel tile of launch 1:
-// 4 * (4 * M * (C + 4) + 260 * M + 256 * 36 + M) bytes of shared memory must
-// fit the block's 227 KB. Launches on `stream` and returns the first failing
-// launch's cudaError_t (0 on success).
+// all float32, contiguous, on `device`, 16-byte aligned; C a multiple of 4.
+// The plan: M (8, 16 or 32) pixels per tile of the per-pixel launches, whose
+// 4 * (M * (C + 4) + 2 * M) bytes of shared memory must fit the block's
+// 227 KB; `group` (a multiple of 32, at most 256) pixels per float32 chain of
+// the weight gradients; splits_w >= 1 pixel splits of the weight gradients;
+// splits_x >= 1 splits of dxln's K. Launches on `stream` and returns the
+// first failing launch's cudaError_t (0 on success).
 extern "C" int slowtv_convnext_block_bwd_f32(
     const float* x, const float* dy, const float* dww, const float* dwb, const float* lnw,
     const float* lnb, const float* w1, const float* b1, const float* w2, const float* b2,
     const float* gamma, float* du, float* ddwb, float* dlnw, float* dlnb, float* dw1,
     float* db1, float* dw2, float* db2, float* dgamma, float* scratch, int B, int H, int W,
-    int C, int M, int approximate, int device, void* stream) {
+    int C, int M, int group, int splits_w, int splits_x, int approximate, int device,
+    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (C % 4 != 0 || C <= 0 || (M != 8 && M != 16 && M != 32)) {
+  if (C % 4 != 0 || C <= 0 || (M != 8 && M != 16 && M != 32) || group % kBK != 0 ||
+      group <= 0 || group > kMaxGroup || splits_w < 1 || splits_x < 1) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long pixels = (long long)B * H * W;
-  const Layout l = scratch_layout(pixels, C, M);
-  switch (M) {
-    case 8:
-      err = launch_rows<2>(x, dy, dww, dwb, lnw, lnb, w1, b1, w2, gamma, du, scratch, l, B, H,
-                           W, C, approximate, s);
-      break;
-    case 16:
-      err = launch_rows<4>(x, dy, dww, dwb, lnw, lnb, w1, b1, w2, gamma, du, scratch, l, B, H,
-                           W, C, approximate, s);
-      break;
-    default:
-      err = launch_rows<8>(x, dy, dww, dwb, lnw, lnb, w1, b1, w2, gamma, du, scratch, l, B, H,
-                           W, C, approximate, s);
-  }
+  const int hidden = 4 * C;
+  const Layout l = scratch_layout(pixels, C, M, splits_w, splits_x);
+  float* xln = scratch + l.xln;
+  float* xhat = scratch + l.xhat;
+  float* xlnT = scratch + l.xlnT;
+  float* dx_part = scratch + l.dx_part;  // (dy * gamma)^T first
+  float* rstd = scratch + l.rstd;
+  float* hg = scratch + l.hg;
+  float* dh1 = scratch + l.dh1;
+  float* dh1T = scratch + l.dh1T;
+  float* w1T = scratch + l.w1T;
+  float* part = scratch + l.part;
+  float* db1_part = scratch + l.db1_part;
+  float* w_part = scratch + l.w_part;
+  const size_t row_smem = sizeof(float) * ((size_t)M * (C + 4) + 2 * M);
+  const size_t prep_smem = row_smem > sizeof(float) * 32 * 33 ? row_smem : sizeof(float) * 32 * 33;
+  const size_t mlp_smem = sizeof(float) * ring_floats(kMlpStages);
+  const size_t products_smem =
+      sizeof(float) * ring_floats(kProductsStages) + sizeof(double) * kTile * kTile * kThreads;
+  const int tiles_h = (hidden + kBN - 1) / kBN, tiles_c = (C + kBN - 1) / kBN;
+
+  err = launch(convnext_block_bwd_prep_kernel,
+               (unsigned)(l.tiles + (hidden + 31) / 32 * ((C + 31) / 32)), prep_smem, s, x, dy,
+               dww, dwb, lnw, lnb, gamma, w1, xln, xhat, xlnT, dx_part, w1T, rstd, part, B, H,
+               W, C, M, l.tiles);
   if (err != cudaSuccess) return (int)err;
-  const int tiles_g = ((C + kAT - 1) / kAT) * ((4 * C + kAT - 1) / kAT);
-  // G = dy^T hg and dW1 = dh1^T xln, per pixel group.
-  const size_t atb_smem = sizeof(float) * 2 * kAK * kAT, vec_smem = sizeof(double) * kThreads;
-  err = launch_plain(convnext_block_bwd_atb_kernel, (unsigned)(tiles_g * l.g2), atb_smem, s, dy,
-                     (const float*)(scratch + l.hg), pixels, C, 4 * C, l.g2, scratch + l.gpart);
+  err = launch(convnext_block_bwd_mlp_kernel, (unsigned)(l.mtiles * tiles_h), mlp_smem, s,
+               (const float*)xlnT, (const float*)dx_part, (const float*)w1T, b1, w2, hg, dh1,
+               dh1T, db1_part, pixels, C, approximate);
   if (err != cudaSuccess) return (int)err;
-  err = launch_plain(convnext_block_bwd_atb_kernel, (unsigned)(tiles_g * l.g1), atb_smem, s,
-                     (const float*)(scratch + l.dh1), (const float*)(scratch + l.xln), pixels,
-                     4 * C, C, l.g1, scratch + l.wpart);
+  const unsigned products = (unsigned)(2 * tiles_c * tiles_h * splits_w +
+                                       l.mtiles * tiles_c * splits_x);
+  err = launch(convnext_block_bwd_products_kernel, products, products_smem, s, dy,
+               (const float*)hg, (const float*)dh1, (const float*)dh1T, (const float*)xln, w1,
+               dx_part, w_part, pixels, C, group, splits_w, splits_x);
   if (err != cudaSuccess) return (int)err;
-  err = launch_plain(convnext_block_bwd_vec_kernel, (unsigned)((kVec * C + 31) / 32), vec_smem, s,
-                     (const float*)(scratch + l.part), l.tiles, C, gamma, dlnw, dlnb, ddwb, db1,
-                     db2, scratch + l.sum_dy);
+  err = launch(convnext_block_bwd_ln_kernel, (unsigned)l.tiles, row_smem, s,
+               (const float*)dx_part, splits_x, (const float*)xhat, (const float*)rstd, lnw, du,
+               part, pixels, C, M);
   if (err != cudaSuccess) return (int)err;
-  const int rows_per_block = kThreads / 32;
-  err = launch_plain(convnext_block_bwd_finish_kernel,
-                     (unsigned)((C + rows_per_block - 1) / rows_per_block), 0, s,
-                     (const float*)(scratch + l.gpart), l.g2, C, 4 * C, gamma, dw2, w2, b2,
-                     (const float*)(scratch + l.sum_dy), dgamma);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_plain(convnext_block_bwd_finish_kernel,
-                           (unsigned)((4 * C + rows_per_block - 1) / rows_per_block), 0, s,
-                           (const float*)(scratch + l.wpart), l.g1, 4 * C, C,
-                           (const float*)nullptr, dw1, (const float*)nullptr,
-                           (const float*)nullptr, (const float*)nullptr, (float*)nullptr);
+  const unsigned finish = (unsigned)((C + kWarps - 1) / kWarps + (hidden + kWarps - 1) / kWarps +
+                                     (3 * C + hidden + 31) / 32);
+  return (int)launch(convnext_block_bwd_finish_kernel, finish, sizeof(double) * kThreads, s,
+                     (const float*)w_part, splits_w, (const float*)part, l.tiles,
+                     (const float*)db1_part, l.mtiles, C, w2, b2, gamma, dw1, dw2, dgamma, db2,
+                     dlnw, dlnb, ddwb, db1);
 }

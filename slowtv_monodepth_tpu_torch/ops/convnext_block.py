@@ -34,15 +34,18 @@ not exist here.
 """
 from __future__ import annotations
 
+import functools
+import heapq
+
 import torch
 import torch.nn.functional as F
 
 from .. import _build
 from .dwconv import _forward as _dwconv_forward
-from .dwconv import depthwise_conv_plain, dwconv_dw
+from .dwconv import _sm_count, depthwise_conv_plain, dwconv_dw
 
 __all__ = ['fused_convnext_block', 'fused_convnext_block_plain', 'fused_convnext_block_bwd',
-           'fused_convnext_block_bwd_plain', 'tile_pixels', 'bwd_tile_pixels', 'MAX_CHANNELS',
+           'fused_convnext_block_bwd_plain', 'tile_pixels', 'bwd_plan', 'MAX_CHANNELS',
            'LN_EPS']
 
 LN_EPS = 1e-6         # the block's LayerNorm epsilon (csrc/convnext_block.cu kEps)
@@ -52,6 +55,13 @@ _TILES = (32, 16, 8)  # pixels per tile the kernel is built for
 _SMEM = 232448        # bytes of shared memory one block can use on Hopper
 _MIN_BLOCKS = 99      # 3/4 of an H100's 132 SMs: with fewer tiles, clusters share them
 _MAX_CLUSTER = 8      # thread blocks per cluster (the portable limit)
+# Kernel 10 (csrc/convnext_block_bwd.cu) and its plan, `bwd_plan`:
+_BWD_TILE = 128       # product tile, rows and columns (kBM, kBN)
+_BWD_K = 32           # K per staged slab (kBK)
+BWD_GROUP = 256       # K per float32 chain of the products, at most (kMaxGroup)
+_BWD_SPLITS_W = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128)
+_BWD_SPLITS_X = (1, 2, 4)
+_SLAB_BYTES = 8e6     # bytes the card moves while an SM takes one slab of a tile (~2.4 us)
 
 
 def _smem_bytes(m: int, c: int) -> int:
@@ -60,21 +70,64 @@ def _smem_bytes(m: int, c: int) -> int:
     return 4 * (m * (2 * c + 4) + 260 * m + 256 * 36)
 
 
-def _bwd_smem_bytes(m: int, c: int) -> int:
-    """Shared memory of one block of the backward's first launch: LN output,
-    xhat, dy * gamma and dxln (m, c + 4) each, one hidden chunk (m, 260), one
-    weight tile (256, 36), rstd (m); float32 (`launch_rows` in
+def _bwd_row_smem(m: int, c: int) -> int:
+    """Shared memory of one block of the backward's per-pixel launches: one
+    (m, c + 4) row block and two floats a pixel; float32 (`row_smem` in
     csrc/convnext_block_bwd.cu computes the same)."""
-    return 4 * (4 * m * (c + 4) + 260 * m + 256 * 36 + m)
+    return 4 * (m * (c + 4) + 2 * m)
 
 
-def bwd_tile_pixels(c: int) -> int:
-    """Pixels per tile of the backward: the largest tile that fits shared memory."""
-    m = next((m for m in _TILES if _bwd_smem_bytes(m, c) <= _SMEM), None)
-    if m is None:
-        most = max(k for k in range(4, c, 4) if _bwd_smem_bytes(_TILES[-1], k) <= _SMEM)
-        raise ValueError(f'the backward kernel takes at most {most} channels, got {c}')
-    return m
+def _split_len(n: int, splits: int) -> int:
+    """Rows of K per split: ceil(n / splits) rounded up to the 32-deep slab
+    (`split_len` in csrc/convnext_block_bwd.cu)."""
+    return -(-(-(-n // splits)) // _BWD_K) * _BWD_K
+
+
+def _makespan(blocks: list, sms: int) -> float:
+    """`blocks` (their lengths, in launch order), each to the first SM that is
+    free, one at a time per SM -> when the last ends."""
+    free = [0.0] * sms
+    for length in blocks:
+        heapq.heapreplace(free, free[0] + length)
+    return max(free)
+
+
+@functools.lru_cache(maxsize=64)
+def bwd_plan(b: int, h: int, w: int, c: int, sms: int) -> tuple[int, int, int, int]:
+    """Kernel 10's plan on a card of `sms` SMs -> (pixels per tile of its
+    per-pixel launches, K per float32 chain of the products launch, pixel
+    splits of the weight gradients, K splits of dxln).
+
+    The per-pixel tile is the largest of 32, 16 and 8 whose shared memory
+    fits and that leaves a tile for every SM (else the smallest that fits).
+    The chains are `BWD_GROUP` long. The splits minimise a model of the
+    products launch (one block per SM): its blocks in launch order (the
+    weight-gradient tiles' splits, then dxln's tiles' splits), each to the
+    first SM that is free, each as long as its 32-deep slabs plus two and a
+    quarter more per chain it adds in double, plus the partials' bytes,
+    written and read, at `_SLAB_BYTES` a slab.
+    """
+    p, hidden = b * h * w, 4 * c
+    fits = [m for m in _TILES if _bwd_row_smem(m, c) <= _SMEM]  # 16 and 8 up to MAX_CHANNELS
+    m = next((m for m in fits if -(-p // m) >= sms), fits[-1])
+    tiles_c, tiles_h, mtiles = -(-c // _BWD_TILE), -(-hidden // _BWD_TILE), -(-p // _BWD_TILE)
+    best = None
+    for sw in _BWD_SPLITS_W:
+        lw = _split_len(p, sw)
+        if sw > 1 and (sw - 1) * lw >= p:  # a split without pixels
+            continue
+        w_block = -(-lw // _BWD_K) + 2 + -(-lw // BWD_GROUP) / 4
+        for sx in _BWD_SPLITS_X:
+            lx = _split_len(hidden, sx)
+            if sx > 1 and (sx - 1) * lx >= hidden:
+                continue
+            x_block = -(-lx // _BWD_K) + 2 + -(-lx // BWD_GROUP) / 4
+            blocks = [w_block] * (2 * tiles_c * tiles_h * sw) + [x_block] * (mtiles * tiles_c * sx)
+            partials = 8 * (2 * sw * c * hidden + (sx - 1) * p * c)  # bytes, written and read
+            cost = _makespan(blocks, sms) + partials / _SLAB_BYTES
+            if best is None or cost < best[0]:
+                best = (cost, sw, sx)
+    return m, BWD_GROUP, best[1], best[2]
 
 
 def tile_pixels(pixels: int, c: int) -> tuple[int, int]:
@@ -177,8 +230,7 @@ def fused_convnext_block(x, dw_weight, dw_bias, ln_weight, ln_bias, fc1_weight, 
                          fc2_weight, fc2_bias, gamma, approximate: bool = False) -> torch.Tensor:
     """One ConvNeXt block, differentiable in all ten inputs.
 
-    :param x: (b, h, w, c) float32 NHWC, contiguous; c a multiple of 4, <= 2048
-        (<= 1456 for a gradient on the card).
+    :param x: (b, h, w, c) float32 NHWC, contiguous; c a multiple of 4, <= 2048.
     :param dw_weight: (c, 1, 7, 7) depthwise taps; dw_bias (c,).
     :param ln_weight, ln_bias: (c,) LayerNorm scale and bias.
     :param fc1_weight: (4c, c); fc1_bias (4c,). fc2_weight: (c, 4c); fc2_bias (c,).
@@ -256,17 +308,19 @@ def block_bwd_kernel(x, dy, dw_weight, dw_bias, ln_weight, ln_bias, fc1_weight, 
     if any(t.data_ptr() % 16 for t in (dy, fc1_weight, fc2_weight)):
         raise ValueError('dy, fc1_weight and fc2_weight must start on a 16-byte boundary')
     b, h, w, c = x.shape
-    m = bwd_tile_pixels(c)
     du = torch.empty_like(x)
     grads = [torch.empty_like(t) for t in params[1:]]  # b_dw, LN, fc1, fc2, gamma
     if x.numel() == 0:
         return (du, *(g.zero_() for g in grads))
+    m, group, splits_w, splits_x = bwd_plan(b, h, w, c, _sm_count(x.device.index))
     lib = _build.load()
-    scratch = torch.empty(lib.slowtv_convnext_block_bwd_scratch_floats(b, h, w, c, m),
-                          dtype=torch.float32, device=x.device)
+    scratch = torch.empty(
+        lib.slowtv_convnext_block_bwd_scratch_floats(b, h, w, c, m, splits_w, splits_x),
+        dtype=torch.float32, device=x.device)
     err = lib.slowtv_convnext_block_bwd_f32(
-        *(t.data_ptr() for t in (x, dy, *params, du, *grads, scratch)), b, h, w, c, m,
-        int(bool(approximate)), x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+        *(t.data_ptr() for t in (x, dy, *params, du, *grads, scratch)), b, h, w, c, m, group,
+        splits_w, splits_x, int(bool(approximate)), x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, 'convnext-block backward kernel')
     fused_convnext_block_bwd.launches += 1
     return (du, *grads)

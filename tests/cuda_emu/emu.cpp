@@ -3,6 +3,7 @@
 //       -DKERNEL_SOURCE='"path/to/kernel.cu"' tests/cuda_emu/emu.cpp -o libemu.so
 // and call the kernel source's extern "C" entry points on host pointers.
 #include <cooperative_groups.h>
+#include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 
 #include <barrier>
@@ -61,23 +62,33 @@ cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, K kernel, Args... 
     for (unsigned w = 0; w < warps; ++w) g_warp_barrier.emplace_back(new std::barrier<>(32));
   }
   g_cluster_barrier.reset(new std::barrier<>(g_cluster * threads));
-  for (unsigned first = 0; first < cfg->gridDim.x; first += g_cluster) {
+  // One std::thread per CUDA thread of a cluster, made once per launch: the
+  // clusters run one after another, shared memory refilled with NaN between
+  // them, and a copy a thread never waited for does not carry over.
+  auto fill = []() noexcept {
     for (auto& block : g_smem) {
       for (auto& v : block) v = float4{NAN, NAN, NAN, NAN};
     }
-    std::vector<std::thread> pool;
-    for (unsigned rank = 0; rank < g_cluster; ++rank) {
-      for (unsigned t = 0; t < threads; ++t) {
-        pool.emplace_back([=] {
-          threadIdx = dim3(t);
+  };
+  std::barrier<decltype(fill)> between(g_cluster * threads, fill);
+  fill();
+  std::vector<std::thread> pool;
+  for (unsigned rank = 0; rank < g_cluster; ++rank) {
+    for (unsigned t = 0; t < threads; ++t) {
+      pool.emplace_back([=, &between] {
+        threadIdx = dim3(t);
+        tl_rank = rank;
+        for (unsigned first = 0; first < cfg->gridDim.x; first += g_cluster) {
           blockIdx = dim3(first + rank);
-          tl_rank = rank;
+          emu_copy_batches.clear();
+          emu_copy_open.clear();
           kernel(args...);
-        });
-      }
+          between.arrive_and_wait();
+        }
+      });
     }
-    for (auto& th : pool) th.join();
   }
+  for (auto& th : pool) th.join();
   return cudaSuccess;
 }
 

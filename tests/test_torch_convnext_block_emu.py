@@ -2,15 +2,17 @@
 
 There is no nvcc and no card here, but `csrc/convnext_block.cu` (kernel 9,
 forward) and `csrc/convnext_block_bwd.cu` (kernel 10, backward) use only
-barriers, warp shuffles, read-only loads, thread-block clusters and plain C++,
-so `tests/cuda_emu` (a stand-in `cuda_runtime.h` and `cooperative_groups.h`
-and a small runtime: one `std::thread` per CUDA thread, `std::barrier`s, a
-cluster's blocks run together, shared memory filled with NaN first) lets g++
-build the very same files. Their C entry points are then called through ctypes
-on CPU tensors and held against the plain PyTorch versions in float64: the
-indexing, the masks of ragged tiles, the cluster's split of pixels and hidden
-chunks and its sum, the backward's transposed weight reads, its pixel groups
-and its fixed-order partial sums all run as written. What the card alone can
+barriers, warp shuffles, read-only loads, thread-block clusters, `cp.async`
+copies and plain C++, so `tests/cuda_emu` (a stand-in `cuda_runtime.h`,
+`cooperative_groups.h` and `cuda_pipeline_primitives.h`, whose copies land
+only when their thread waits for them, and a small runtime: one `std::thread`
+per CUDA thread, `std::barrier`s, a cluster's blocks run together, shared
+memory filled with NaN first) lets g++ build the very same files. Their C
+entry points are then called through ctypes on CPU tensors and held against
+the plain PyTorch versions in float64: the indexing, the masks of ragged
+tiles, the cluster's split of pixels and hidden chunks and its sum, the
+backward's staged slabs (transposed and not), its epilogues, its float chains
+of pixels, its splits and its fixed-order partial sums all run as written. What the card alone can
 show (that nvcc takes the files, timing, a race the CPU's schedule hides) stays
 with `tests/test_torch_cuda.py` and `chip_smoke.py`.
 
@@ -40,14 +42,23 @@ NAMES = ('dx', 'dw_weight', 'dw_bias', 'ln_weight', 'ln_bias', 'fc1_weight', 'fc
          'fc2_weight', 'fc2_bias', 'gamma')
 RTOL = 1e-5
 BWD_RTOL = 1e-5
-# Faults injected into a copy of the backward's sources, each of which the
-# comparison must catch: the vector partials of one tile in eight dropped, and
-# a transposed weight tile stored with two of its values swapped.
+# Faults injected into a copy of the backward's source, each of which the
+# comparison must catch: one pixel tile's vector partials in eight dropped
+# from the finishing sums; the transposed copy of dh1 stored with two of its
+# pixels swapped; a bias read one column off in the mlp tiles' epilogue; the
+# column sums of dh1 taking in the rows past the last pixel (the padding of
+# the transposed activations' rows); the second float chain of each
+# weight-gradient split dropped.
 MUTANTS = {
-    'dropped_partial': ('convnext_block_bwd.cu', 'for (int i = row; i < tiles;',
-                        'for (int i = row + (row == 1); i < tiles;'),
-    'wrong_transposed_index': ('convnext_common.cuh', 'Ws[(n + 1) * kWS + k] = pre[i].y;',
-                               'Ws[(n + 1) * kWS + k] = pre[i].z;'),
+    'dropped_partial': ('for (int i = warp; i < n; i += kWarps)',
+                        'for (int i = warp + (warp == 1); i < n; i += kWarps)'),
+    'wrong_transposed_index': ('acc[4 * h][j], acc[4 * h + 1][j]',
+                               'acc[4 * h + 1][j], acc[4 * h][j]'),
+    'epilogue_column_off_by_one': ('__ldg(b1 + n)', '__ldg(b1 + (n + 1) % hidden)'),
+    'unmasked_ragged_tile': ('if (m0 + tile_row(r) < m_end) cs[j] += acc[r][j];',
+                             'cs[j] += acc[r][j];'),
+    'dropped_group': ('d = (i < per ? 0.0 : d) + (double)acc[r][j];',
+                      'd = (i < per ? 0.0 : d) + (i / per == 1 ? 0.0 : (double)acc[r][j]);'),
 }
 
 
@@ -68,12 +79,12 @@ def libs(tmp_path_factory) -> dict:
     builds = {name: (tmp / f'lib{name}.so', _start_build(gxx, _build.CSRC / f'{name}.cu',
                                                          tmp / f'lib{name}.so'))
               for name in ('convnext_block', 'convnext_block_bwd')}
-    for name, (file, old, new) in MUTANTS.items():
+    for name, (old, new) in MUTANTS.items():
         src = tmp / name
         shutil.copytree(_build.CSRC, src)
-        text = (src / file).read_text()
+        text = (src / 'convnext_block_bwd.cu').read_text()
         assert text.count(old) == 1, (name, old)
-        (src / file).write_text(text.replace(old, new))
+        (src / 'convnext_block_bwd.cu').write_text(text.replace(old, new))
         builds[name] = (tmp / f'lib{name}.so',
                         _start_build(gxx, src / 'convnext_block_bwd.cu', tmp / f'lib{name}.so'))
     out = {}
@@ -96,7 +107,7 @@ def _bwd_entry(lib):
     fn = getattr(lib, BWD_ENTRY)
     fn.argtypes, fn.restype = _build.SIGNATURES[BWD_ENTRY], ctypes.c_int
     size = lib.slowtv_convnext_block_bwd_scratch_floats
-    size.argtypes, size.restype = [ctypes.c_int] * 5, ctypes.c_longlong
+    size.argtypes, size.restype = [ctypes.c_int] * 7, ctypes.c_longlong
     return fn, size
 
 
@@ -163,17 +174,19 @@ def test_cuda_entry_refuses_what_it_was_not_built_for(kernel, m, s, c):
 
 
 # ------------------------------------------------------------ kernel 10 (backward)
-def _run_bwd(lib, args, dy, m, approximate=False):
-    """The C entry -> (err, the ten gradients), dx and the taps' gradient
-    finished from du by the plain depthwise transposes in float64."""
+def _run_bwd(lib, args, dy, plan, approximate=False):
+    """The C entry on `plan` (pixels per tile, pixels per chain, weight
+    splits, dxln splits) -> (err, the ten gradients, du), dx and the taps'
+    gradient finished from du by the plain depthwise transposes in float64."""
     fn, size = _bwd_entry(lib)
     x = args[0]
     b, h, w, c = x.shape
+    m, group, splits_w, splits_x = plan
     du = torch.full_like(x, float('nan'))
     grads = [torch.full_like(t, float('nan')) for t in args[2:]]
-    scratch = torch.full((size(b, h, w, c, m),), float('nan'))
+    scratch = torch.full((size(b, h, w, c, m, max(splits_w, 1), max(splits_x, 1)),), float('nan'))
     err = fn(*(t.data_ptr() for t in (x, dy, *args[1:], du, *grads, scratch)), b, h, w, c, m,
-             int(approximate), 0, None)
+             group, splits_w, splits_x, int(approximate), 0, None)
     dud = du.double()
     dx = dy.double() + depthwise_conv_plain(dud, args[1].double().flip((-2, -1)))
     return err, (dx, dwconv_dw_plain(x.double(), dud, 7), *grads), du
@@ -183,20 +196,29 @@ def _bwd_err(got, want) -> list[float]:
     return [float((g.double() - w).abs().max()) / float(w.abs().max()) for g, w in zip(got, want)]
 
 
-# (b, h, w, c, pixels per tile, tanh): a ragged tile under one pixel group;
-# channels off 32 with a hidden size under 256; two hidden chunks (the second
-# ragged); pixel groups of the weight gradients; every tile size; one image
-# row; more than 256 channels (two panels of dxln).
-BWD_CASES = [(1, 5, 6, 8, 8, False), (2, 4, 7, 40, 16, True), (1, 9, 12, 64, 32, False),
-             (1, 3, 20, 72, 8, True), (3, 6, 11, 32, 16, True), (1, 1, 9, 16, 32, False),
-             (1, 2, 5, 264, 8, False)]
+def _dy(b, h, w, c, seed):
+    return torch.from_numpy(np.random.RandomState(seed).standard_normal((b, h, w, c)).astype(
+        np.float32))
 
 
-@pytest.mark.parametrize('b,h,w,c,m,approximate', BWD_CASES)
-def test_backward_cuda_source_on_the_cpu_matches_plain(libs, b, h, w, c, m, approximate):
+# (b, h, w, c, plan, tanh), plan = (pixels per tile, pixels per float chain,
+# weight-gradient splits, dxln splits): every per-pixel tile size with a
+# ragged last tile; a hidden size under one 128-column tile and one whose
+# second tile is ragged; two pixel tiles of the products, the second of 70
+# rows; channels off 32 and over 256 (three column tiles, the last of 8);
+# chains of 32 to 256 pixels, two chains of 256; weight splits with a short
+# last one and empty ones; dxln splits of K, empty ones too; one image row.
+BWD_CASES = [(1, 5, 6, 8, (8, 32, 3, 4), False), (2, 4, 7, 40, (16, 32, 2, 2), True),
+             (1, 9, 12, 64, (32, 32, 3, 1), False), (1, 3, 20, 72, (8, 256, 1, 4), True),
+             (3, 6, 11, 32, (16, 64, 2, 1), True), (1, 1, 9, 16, (32, 256, 1, 1), False),
+             (1, 2, 5, 264, (8, 32, 1, 3), False), (1, 17, 19, 8, (32, 256, 1, 2), False)]
+
+
+@pytest.mark.parametrize('b,h,w,c,plan,approximate', BWD_CASES)
+def test_backward_cuda_source_on_the_cpu_matches_plain(libs, b, h, w, c, plan, approximate):
     args = _args(b, h, w, c, seed=2)
-    dy = torch.from_numpy(np.random.RandomState(3).standard_normal((b, h, w, c)).astype(np.float32))
-    err, got, du = _run_bwd(libs['convnext_block_bwd'], args, dy, m, approximate)
+    dy = _dy(b, h, w, c, 3)
+    err, got, du = _run_bwd(libs['convnext_block_bwd'], args, dy, plan, approximate)
     assert err == 0
     assert torch.isfinite(du).all() and all(torch.isfinite(g).all() for g in got)
     want = cb.fused_convnext_block_bwd_plain(*(t.double() for t in (args[0], dy, *args[1:])),
@@ -205,25 +227,74 @@ def test_backward_cuda_source_on_the_cpu_matches_plain(libs, b, h, w, c, m, appr
     assert max(errs) <= BWD_RTOL, dict(zip(NAMES, errs))
 
 
-@pytest.mark.parametrize('mutant', sorted(MUTANTS))
-def test_backward_comparison_catches_an_injected_fault(libs, mutant):
-    args = _args(2, 6, 11, 48, seed=4)
-    dy = torch.from_numpy(np.random.RandomState(5).standard_normal((2, 6, 11, 48)).astype(np.float32))
+# The faults' case: two pixel tiles of the products (the second of 5 rows, in
+# rows padded to 136), nine per-pixel tiles, two hidden tiles, two weight
+# splits of three and two chains, two dxln splits.
+FAULT_CASE = (1, 7, 19, 48)
+FAULT_PLAN = (16, 32, 2, 2)
+
+
+@pytest.fixture(scope='module')
+def fault_case(libs):
+    """The faults' inputs and the plain backward in float64, which the
+    unchanged source matches."""
+    args, dy = _args(*FAULT_CASE, seed=4), _dy(*FAULT_CASE, 5)
     want = cb.fused_convnext_block_bwd_plain(*(t.double() for t in (args[0], dy, *args[1:])))
-    assert max(_bwd_err(_run_bwd(libs['convnext_block_bwd'], args, dy, 16)[1], want)) <= BWD_RTOL
-    err, got, _ = _run_bwd(libs[mutant], args, dy, 16)
-    assert err == 0 and max(_bwd_err(got, want)) > 100 * BWD_RTOL
+    got = _run_bwd(libs['convnext_block_bwd'], args, dy, FAULT_PLAN)[1]
+    assert max(_bwd_err(got, want)) <= BWD_RTOL
+    return args, dy, want
+
+
+@pytest.mark.parametrize('mutant', sorted(MUTANTS))
+def test_backward_comparison_catches_an_injected_fault(libs, fault_case, mutant):
+    args, dy, want = fault_case
+    err, got, _ = _run_bwd(libs[mutant], args, dy, FAULT_PLAN)
+    errs = [e if e == e else float('inf') for e in _bwd_err(got, want)]  # NaN: caught
+    assert err == 0 and max(errs) > 100 * BWD_RTOL
 
 
 def test_backward_takes_the_tile_the_wrapper_picks_and_refuses_others(libs):
-    """`bwd_tile_pixels` at the pose net's first stage width, and a tile size
-    with no instance (an error code, nothing written)."""
-    m = cb.bwd_tile_pixels(96)
-    assert m == 32
+    """`bwd_plan` for a few-pixel shape at the pose net's first stage width on
+    an H100's 132 SMs (the smallest pixel tile, one chain, one weight split),
+    run as the wrapper would; and a tile size with no instance (an error
+    code, nothing written)."""
+    plan = cb.bwd_plan(1, 3, 4, 96, 132)
+    assert plan[:2] == (8, cb.BWD_GROUP) and plan[2] == 1
     args = _args(1, 3, 4, 96, seed=6)
     dy = torch.ones(1, 3, 4, 96)
-    err, got, _ = _run_bwd(libs['convnext_block_bwd'], args, dy, m)
+    err, got, _ = _run_bwd(libs['convnext_block_bwd'], args, dy, plan)
     want = cb.fused_convnext_block_bwd_plain(*(t.double() for t in (args[0], dy, *args[1:])))
     assert err == 0 and max(_bwd_err(got, want)) <= BWD_RTOL
-    err, _, du = _run_bwd(libs['convnext_block_bwd'], args, dy, 12)
+    err, _, du = _run_bwd(libs['convnext_block_bwd'], args, dy, (12, *plan[1:]))
     assert err != 0 and torch.isnan(du).all()
+
+
+@pytest.mark.parametrize('plan', [(16, 0, 1, 1), (16, 48, 1, 1), (16, 288, 1, 1),
+                                  (16, 256, 0, 1), (16, 256, 1, 0)])
+def test_backward_entry_refuses_a_plan_it_cannot_run(libs, plan):
+    """Chains of no pixels, off the 32-deep slab or over 256; no split of
+    either kind: an error code, nothing written."""
+    args = _args(1, 2, 3, 8, seed=7)
+    err, _, du = _run_bwd(libs['convnext_block_bwd'], args, torch.ones(1, 2, 3, 8), plan)
+    assert err != 0 and torch.isnan(du).all()
+
+
+# (b, h, w, c) of every block of the KBR micro-step.
+STEP_SHAPES = [(4, 96, 160, 128), (4, 48, 80, 256), (4, 24, 40, 512), (4, 12, 20, 1024),
+               (8, 96, 160, 96), (8, 48, 80, 192), (8, 24, 40, 384), (8, 12, 20, 768)]
+
+
+@pytest.mark.parametrize('sms', [132, 114])
+@pytest.mark.parametrize('b,h,w,c', STEP_SHAPES)
+def test_bwd_plan_fits_the_card_and_leaves_no_split_empty(b, h, w, c, sms):
+    """At the micro-step's block shapes on an H100 SXM (132 SMs) and PCIe
+    (114): the per-pixel tile's shared memory fits, chains of 256 pixels,
+    every split of either kind holds work, and the products launch keeps
+    each SM busy (at least as many blocks as SMs)."""
+    m, group, splits_w, splits_x = cb.bwd_plan(b, h, w, c, sms)
+    p, hidden = b * h * w, 4 * c
+    assert m in (8, 16, 32) and cb._bwd_row_smem(m, c) <= cb._SMEM and group == 256
+    assert (splits_w - 1) * cb._split_len(p, splits_w) < p
+    assert (splits_x - 1) * cb._split_len(hidden, splits_x) < hidden
+    tiles_c, tiles_h, mtiles = -(-c // 128), -(-hidden // 128), -(-p // 128)
+    assert 2 * tiles_c * tiles_h * splits_w + mtiles * tiles_c * splits_x >= sms

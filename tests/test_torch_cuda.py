@@ -394,9 +394,13 @@ def test_convnext_block_under_grad_on_the_card_keeps_autograd(card):
     assert _close(out, cb.fused_convnext_block_plain(*_f64(*(t.detach() for t in args))))
 
 
+# Ragged and step shapes, then the plan's tile edges: pixel counts one short
+# of and one past the products' 128-pixel tile and the 256-pixel chain,
+# channels one quad short of and past a 128-column tile.
 BLOCK_BWD_CASES = [(2, 12, 16, 128), (1, 5, 7, 96), (2, 37, 53, 160), (1, 3, 4, 40),
                    (3, 9, 9, 264), (1, 7, 11, 1024), (1, 1, 1, 8), (2, 24, 40, 512),
-                   (8, 12, 20, 192)]
+                   (8, 12, 20, 192), (1, 1, 127, 132), (1, 3, 43, 124), (1, 1, 255, 64),
+                   (1, 257, 1, 40)]
 
 
 @pytest.mark.parametrize('approximate', [False, True], ids=['erf', 'tanh'])
@@ -422,12 +426,12 @@ def test_convnext_block_backward_kernel_matches_plain(card, b, h, w, c, approxim
 
 
 def test_convnext_block_backward_refuses_what_it_cannot_take(card):
-    """More channels than the smallest tile's shared memory holds, and a
-    cotangent that is not contiguous: errors, no launch."""
+    """More channels than the block takes, and a cotangent that is not
+    contiguous: errors, no launch."""
     from slowtv_monodepth_tpu_torch.ops import convnext_block as cb
     n = cb.fused_convnext_block_bwd.launches
-    args = _block_args(np.random.RandomState(14), 1, 2, 3, 1536)
-    with pytest.raises(ValueError, match='1456'):
+    args = _block_args(np.random.RandomState(14), 1, 2, 3, cb.MAX_CHANNELS + 4)
+    with pytest.raises(ValueError, match=str(cb.MAX_CHANNELS)):
         cb.fused_convnext_block_bwd(args[0], torch.ones_like(args[0]), *args[1:])
     args = _block_args(np.random.RandomState(14), 1, 4, 4, 8)
     with pytest.raises(ValueError, match='contiguous'):
