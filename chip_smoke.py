@@ -10,8 +10,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    the card, at the serving path's shapes (B=2), ragged shapes and the shapes
    two of the training run's augmentation buckets give it; times both. The
    fused ConvNeXt block (kernel 9) is held to its plain version in float64,
-   erf and tanh, at the four ConvNeXt-B stage shapes (timed at B=1 and B=4)
-   and the four ConvNeXt-T ones of the pose net (B=8).
+   erf and tanh, two calls bitwise equal, at the four ConvNeXt-B stage shapes
+   and the four ConvNeXt-T ones of the pose net (B=8); timed at B=1 and B=4
+   and at the KBR micro-step's 54 block shapes, there also split by CUDA
+   launch (prep, fc1, fc2).
 4. golden: ConvNeXt-B + monodepth at full width with seeded weights
    (`models.seeded_state_dict`) against the JAX package's outputs stored in
    `tests/fixtures/torch_port_golden.npz`, with the ConvNeXt blocks unfused
@@ -364,19 +366,21 @@ def phase_build() -> None:
             print(f'  {line.strip()}')
         if 'Compiling entry' in line:
             entry = line
-        if 'convnext_block_fwd_kernel' in entry and 'spill' in line \
+        if 'convnext_block_fwd_' in entry and 'spill' in line \
                 and '0 bytes spill stores, 0 bytes spill loads' not in line:
-            fail(f'the fused ConvNeXt block kernel spills registers: {line.strip()}')
-        # Kernels 1, 2, 4 and 10 keep their register tiles (the row ring, the
-        # taps' window, the tap sums, the 8 x 8 product tiles) in registers
-        # only when every index into them is a constant.
+            fail(f'a launch of the fused ConvNeXt block kernel spills registers: {line.strip()}')
+        # Kernels 1, 2, 4, 9 and 10 keep their register tiles (the row ring,
+        # the taps' window, the tap sums, the 8 x 8 product tiles) in
+        # registers only when every index into them is a constant.
         if any(k in entry for k in ('dwconv_fwd_kernel', 'dwconv_dw_tile_kernel',
                                     'dwconv_dw_sum_kernel', 'weight_grad_kernel',
-                                    'input_grad_kernel', 'convnext_block_bwd_')) \
+                                    'input_grad_kernel', 'convnext_block_fwd_',
+                                    'convnext_block_bwd_')) \
                 and 'stack frame' in line \
                 and '0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads' not in line:
             print(f'  NOTE: local memory in {entry.strip()}')
-    if 'convnext_block_fwd_kernel' not in log or 'convnext_block_bwd_mlp_kernel' not in log:
+    if not all(f'convnext_block_{k}_kernel' in log
+               for k in ('fwd_prep', 'fwd_fc1', 'fwd_fc2', 'bwd_mlp')):
         fail('the build log does not show the fused ConvNeXt block kernels')
 
 
@@ -510,16 +514,27 @@ def _unfused_block(x, dww, dwb, lnw, lnb, w1, b1, w2, b2, gamma):
 
 
 def _block_kernel_cases(rs) -> dict:
-    """Kernel 9 against the unfused block in float64; times at the ConvNeXt-B shapes."""
+    """Kernel 9 against the unfused block in float64, two calls bitwise equal;
+    times at the ConvNeXt-B shapes of a request and at the KBR micro-step's
+    block shapes."""
     from slowtv_monodepth_tpu_torch.ops import fused_convnext_block, fused_convnext_block_plain
-    from slowtv_monodepth_tpu_torch.ops.convnext_block import tile_pixels
+    from slowtv_monodepth_tpu_torch.ops import convnext_block as cb
+    from slowtv_monodepth_tpu_torch.ops.dwconv import _sm_count
+    from slowtv_monodepth_tpu_torch.tools.block_bwd_bench import launch_split
     res = new_result()
+    sms, slots = _sm_count(0), cb._cluster_blocks(0)
+    print(f'convnext_block: {sms} SMs; product blocks at once in clusters of '
+          f'{cb._FWD_SPLITS}: {slots}')
+
+    def fwd_plan(b, h, w, c):
+        return cb.fwd_plan(b, h, w, c, sms, slots)
     stages = list(zip((96, 48, 24, 12), (160, 80, 40, 20), (128, 256, 512, 1024),
                       CONVNEXT_B_BLOCKS))
-    # (b, h, w, c): the four stage shapes at B=2 and at B=1 (where clusters of 4
-    # and 8 blocks share a tile), ragged shapes (pixel counts off every tile,
-    # heights under the 7x7 halo, channels off 32 and 256), then what a request
-    # at two of the run's bucket shapes gives the first and last stage.
+    # (b, h, w, c): the four stage shapes at B=2 and at B=1 (where the blocks of
+    # a cluster split the products' K), ragged shapes (pixel counts off the
+    # 128-pixel tile and off 4, heights under the 7x7 halo, channels off 128),
+    # then what a request at two of the run's bucket shapes gives the first and
+    # last stage.
     cases = [(b, h, w, c) for b in (2, 1) for h, w, c, _ in stages]
     cases += [(2, 37, 53, 160), (1, 5, 7, 96), (1, 3, 4, 40), (3, 9, 9, 264), (1, 7, 11, 1536)]
     cases += [shape[:4] for shape in STEP_BLOCKS[4:]]  # the pose net's ConvNeXt-T, training only
@@ -531,35 +546,50 @@ def _block_kernel_cases(rs) -> dict:
         for approximate in (False, True):
             want = fused_convnext_block_plain(*(t.double() for t in args), approximate=approximate)
             got = fused_convnext_block(*args, approximate=approximate)
+            again = fused_convnext_block(*args, approximate=approximate)
             torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                fail(f'convnext_block {shape}: two calls on the same inputs differ')
             scale = float(want.abs().max())
             err = _max_err(got, want) / scale
             p32 = _max_err(fused_convnext_block_plain(*args, approximate=approximate), want) / scale
             res['err'] = max(res['err'], err)
-            line = (f'convnext_block {shape} {"tanh" if approximate else "erf"}: max|kernel-plain(f64)| '
-                    f'/ max|y| {err:.2e} (tol {BLOCK_RTOL:.0e}; plain f32 {p32:.2e}; max|y| {scale:.2f})')
+            line = (f'convnext_block {shape} {"tanh" if approximate else "erf"} plan '
+                    f'{fwd_plan(*shape)}: max|kernel-plain(f64)| / max|y| {err:.2e} (tol '
+                    f'{BLOCK_RTOL:.0e}; plain f32 {p32:.2e}; max|y| {scale:.2f}; two calls equal)')
             print(line)
             if not err <= BLOCK_RTOL:
                 fail(line)
 
-    # Times: a request is B=1 (what the kernels line carries), a batch B=4.
-    for b in (1, 4):
-        total = new_result()
-        for h, w, c, n in stages:
+    # Times: a request is B=1 (what the kernels line carries), a batch B=4;
+    # then the KBR micro-step's 54 blocks (the kernels line's step_*), with
+    # kernel 9's device time split by CUDA launch.
+    res['step'] = new_result()
+    for name, shapes, total in (
+            ('36 blocks at B=1', [(1, h, w, c, n) for h, w, c, n in stages], res),
+            ('36 blocks at B=4', [(4, h, w, c, n) for h, w, c, n in stages], new_result()),
+            (f'54 blocks per KBR micro-step (B={TRAIN_B}, 384x640)', STEP_BLOCKS, res['step'])):
+        unfused, split = 0.0, {}
+        for b, h, w, c, n in shapes:
             args = _block_args(rs, b, h, w, c)
             ms = cuda_ms(lambda: fused_convnext_block(*args), iters=10)
             pms = cuda_ms(lambda: fused_convnext_block_plain(*args), iters=10)
             ums = cuda_ms(lambda: _unfused_block(*args), iters=10)
             cost = block_cost(b, h, w, c)
-            m, s = tile_pixels(b * h * w, c)
-            times = add_times(res if b == 1 else total, n, ms, pms, bound_ms(*cost))
-            print(f'convnext_block {(b, h, w, c)}: tiles of {m} pixels, {s} block(s) each, '
+            times = add_times(total, n, ms, pms, bound_ms(*cost))
+            print(f'convnext_block {(b, h, w, c)}: plan {fwd_plan(b, h, w, c)}, '
                   f'{cost[1] / ms.ms / 1e9:.1f} TFLOP/s; unfused with kernel 1 {ums.ms:.4f} '
                   f'({ums.eager_ms:.4f}) ms{times}')
-            total['unfused'] = total.get('unfused', 0.0) + n * ums.ms
-        t = res if b == 1 else total
-        print(f'convnext_block, 36 blocks at B={b}: kernel {t["ms"]:.3f} ms, plain {t["plain_ms"]:.3f} '
-              f'ms, unfused with kernel 1 {total["unfused"]:.3f} ms, bound {t["bound_ms"]:.3f} ms')
+            unfused += n * ums.ms
+            if total is res['step']:
+                for k, v in launch_split(lambda: fused_convnext_block(*args)).items():
+                    k = k.replace('convnext_block_fwd_', '').replace('_kernel', '')
+                    split[k] = split.get(k, 0.0) + n * v
+            del args
+        print(f'convnext_block, {name}: kernel {total["ms"]:.3f} ms, plain {total["plain_ms"]:.3f} '
+              f'ms, unfused with kernel 1 {unfused:.3f} ms, bound {total["bound_ms"]:.3f} ms'
+              + ('; by CUDA launch (torch.profiler): '
+                 + ', '.join(f'{k} {v:.3f}' for k, v in split.items()) + ' ms' if split else ''))
     return res
 
 
@@ -1499,14 +1529,16 @@ def main() -> None:
          'plain_eager_ms': kern[name]['plain_eager_ms'],
          'library_eager_ms': kern[name]['library_eager_ms'], 'timed_by': kern[name]['timed_by']}
         for name, (src, rep) in sources.items()]}
-    step = kern['dwconv_step']  # kernel 1's 108 launches per KBR micro-step
-    line['kernels'][0].update({f'step_{k}': step[k] for k in (
-        'ms', 'plain_ms', 'library_ms', 'bound_ms', 'eager_ms', 'plain_eager_ms')})
+    rows = {row['name']: row for row in line['kernels']}
+    for name, step in (('dwconv', kern['dwconv_step']),  # its 108 launches per KBR micro-step
+                       ('convnext_block', kern['convnext_block']['step'])):  # 54, blocks fused
+        rows[name].update({f'step_{k}': step[k] for k in (
+            'ms', 'plain_ms', 'library_ms', 'bound_ms', 'eager_ms', 'plain_eager_ms')})
     print('(launches: dwconv and decoder_stage in the serving slice, convnext_block in its '
           "fused-blocks half, decoder_stage_bwd in the training run's first epoch, warp_packed in "
           'its bf16 epoch, the others in the training slice; ms / plain_ms / bound_ms / library_ms: '
           'device time per ConvNeXt-B + decoder forward at B=2, 384x640, for dwconv and '
-          'decoder_stage (dwconv step_*: its 108 launches per KBR micro-step), per request (36 blocks at B=1, 384x640) for convnext_block, per KBR '
+          'decoder_stage (dwconv step_*: its 108 launches per KBR micro-step), per request (36 blocks at B=1, 384x640) for convnext_block (step_*: its 54 launches per KBR micro-step with fused blocks), per KBR '
           'micro-step at B=4, 384x640 for the others; convnext_block max_abs_err is relative to '
           'max|y|; bound_ms from 67 TFLOP/s float32 and 3.35 TB/s; photo_bwd and '
           "decoder_stage_bwd max_abs_err are relative to the gradient's own largest magnitude; "

@@ -38,7 +38,7 @@ _FLOAT = ctypes.c_float
 SIGNATURES = {
     'slowtv_dwconv_fwd_f32': [_PTR] * 4 + [_INT] * 6 + [_PTR],
     'slowtv_dwconv_dw_f32': [_PTR] * 4 + [_INT] * 9 + [_PTR],
-    'slowtv_convnext_block_fwd_f32': [_PTR] * 11 + [_INT] * 8 + [_PTR],
+    'slowtv_convnext_block_fwd_f32': [_PTR] * 12 + [_INT] * 9 + [_PTR],
     'slowtv_convnext_block_bwd_f32': [_PTR] * 21 + [_INT] * 10 + [_PTR],
     'slowtv_decoder_stage_fwd_f32': [_PTR] * 10 + [_INT] * 6 + [_PTR],
     'slowtv_decoder_stage_bwd_f32': [_PTR] * 17 + [_INT] * 7 + [_PTR],
@@ -121,6 +121,10 @@ def load() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.slowtv_decoder_stage_bwd_scratch_floats.argtypes = [_INT] * 5
     lib.slowtv_decoder_stage_bwd_scratch_floats.restype = ctypes.c_longlong
+    lib.slowtv_convnext_block_fwd_cluster_blocks.argtypes = [_INT] * 2
+    lib.slowtv_convnext_block_fwd_cluster_blocks.restype = ctypes.c_int
+    lib.slowtv_convnext_block_fwd_scratch_floats.argtypes = [_INT] * 4
+    lib.slowtv_convnext_block_fwd_scratch_floats.restype = ctypes.c_longlong
     lib.slowtv_convnext_block_bwd_scratch_floats.argtypes = [_INT] * 7
     lib.slowtv_convnext_block_bwd_scratch_floats.restype = ctypes.c_longlong
     lib.slowtv_cuda_error_string.argtypes = [ctypes.c_int]

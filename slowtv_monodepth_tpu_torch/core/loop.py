@@ -16,7 +16,8 @@ Counterpart of `slowtv_monodepth_tpu/core/loop.py` on one device:
   stopping.
 
 Not ported, each raising `NotImplementedError`: device meshes, ZeRO and
-spatial sharding (ROADMAP A11), the heavy image logger (A7), profiler traces
+spatial sharding (ROADMAP A11), the heavy image logger and asynchronous
+checkpoint saves (`trainer.async_ckpt`, A7), profiler traces
 (`trainer.profile_dir`, A12). `trainer.precompile_buckets` is accepted and
 does nothing: eager PyTorch has no compile step to front-load.
 """
@@ -105,6 +106,7 @@ class MonoDepthLoop:
         for name, given, item in (
                 ('mesh', mesh, 'A11'), ('trainer.zero', tcfg.get('zero'), 'A11'),
                 ('heavy_logger', heavy_logger, 'A7'),
+                ('trainer.async_ckpt', tcfg.get('async_ckpt'), 'A7'),
                 ('trainer.profile_dir', tcfg.get('profile_dir'), 'A12')):
             if given:
                 raise NotImplementedError(f'{name} is not ported yet (ROADMAP queue A item '

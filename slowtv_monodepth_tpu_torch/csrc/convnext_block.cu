@@ -1,246 +1,324 @@
-// Fused ConvNeXt block, forward: one launch computes
+// Fused ConvNeXt block, forward:
 //
 //     y = x + gamma * fc2(gelu(fc1(LN(dwconv7x7(x) + b_dw))))
 //
 // Float32, NHWC activations, parameters in PyTorch's layouts: taps (C, 1, 7, 7),
-// fc1 (4C, C), fc2 (C, 4C). Only y goes back to device memory; the (pixels, 4C)
-// hidden activation lives in shared memory, 256 columns at a time.
+// fc1 (4C, C), fc2 (C, 4C).
 //
 // Replaces the TPU kernel slowtv_monodepth_tpu/ops/pallas_convnext.py:
 // _fwd_kernel (launched by _block_fwd_jit); entry point fused_convnext_block.
-// 36 launches per ConvNeXt-B forward.
+// 36 calls per ConvNeXt-B forward, 54 per KBR micro-step with the fused
+// blocks on both nets.
 //
 // Bound on Hopper: operations. 16 * pixels * C^2 float32 operations in the two
-// matrix products against at most 8 * pixels * C bytes of x and y and 32 * C^2
-// bytes of weights: 250 operations per byte and more at the ConvNeXt-B shapes.
-// Both products are written here by hand as float32 FMA loops (no tensor
-// cores: TF32 or bf16 would change the numerics of the exact-float32 recipe).
-// 512 threads with half the register tile measured slower than 256.
+// matrix products against 8 * pixels * C bytes of x and y and 32 * C^2 bytes
+// of weights: 250 operations per byte and more at the ConvNeXt-B shapes. The
+// products are float32 FMA on the CUDA cores (no tensor cores: TF32 or bf16
+// would change the numerics of the exact-float32 recipe).
 //
-// Design (what the TPU kernel's sequential (b, row-band) grid and its three
-// clamped halo views become):
-// - One tile of M consecutive pixels of the flattened (b, y, x) index, M in
-//   {8, 16, 32}, per CLUSTER of S thread blocks (S = 1, 2, 4 or 8); each pixel
-//   derives its own (b, y, x) and the ragged last tile is masked. With plenty
-//   of pixels S = 1 and blocks share nothing. With few (a single image's deep
-//   stages) one block per tile would leave most SMs idle, and smaller tiles
-//   would make every block stream all the weights through L2 for a few pixels,
-//   so the S blocks of a cluster split the tile's work instead: each computes
-//   the taps and the LayerNorm of its share of the pixels and the others copy
-//   the result out of its shared memory (distributed shared memory); each
-//   runs the MLP over ITS share of the hidden chunks (every weight is read
-//   once per tile, not once per block); at the end each sums, in block
-//   order, the S partial sums of its share of the pixels out of the S shared
-//   memories and writes y. Nothing but y reaches device memory and the sum
-//   order is fixed. The caller picks M and S.
-// - Phase A: the 49 taps + bias of the tile's M x C values into shared
-//   memory, threads along C (one coalesced 128-byte read of x per warp;
-//   neighbouring tiles' reads meet in L2), zeros outside the image. A thread
-//   computes strips of 4 pixels of one image row from one window of 10 loads
-//   per tap row (70 loads per 4 outputs, not 196), its channel's taps in
-//   registers.
-// - Phase B: LayerNorm per pixel, one warp per pixel, two passes over shared
-//   memory (mean, then mean squared deviation: not E[x^2] - E[x]^2), in place.
-// - Phase C: for each chunk of 256 hidden columns:
-//       h   = gelu(xln @ fc1[chunk, :]^T + b1[chunk])     (M, 256), shared
-//       acc += h @ fc2[:, chunk]^T                        (M, C),   shared
-//   Both are the same routine, `gemm_panel` (convnext_common.cuh): a (M, K) operand in shared memory
-//   times 256 rows of a K-contiguous weight matrix in device memory. PyTorch's
-//   (out, in) layouts are K-contiguous for both products, so nothing is
-//   transposed: every output is a dot product of two rows. 256 threads as
-//   4 rows x 64 columns, each with an (M/4) x 4 register tile; weights stream
-//   through a [256][32] shared tile (rows padded to 36 floats: conflict-free
-//   128-bit reads), the next tile prefetched into registers during the
-//   current one's FMAs; both operands are read as float4 along K, and a warp
-//   (8 columns x 4 rows) shares its reads: 12 shared-memory wavefronts per
-//   128 FMAs of a warp.
-// - Epilogue: y = x + gamma * (b2 + the cluster's partial sums). Not in place:
-//   a tile's taps read neighbouring tiles' x.
-// Later work: 8 x 8 register tiles with fc2's sums kept in registers (the FMA
-// loops run at about half the float32 peak), weight tiles multicast to a
-// cluster by TMA, wgmma from the same shared tiles where TF32 is allowed.
+// Design: one C entry, three CUDA launches around the product core `gemm_run`
+// of convnext_common.cuh (a 128 x 128 tile a block of 256 threads, 8 x 8 a
+// thread, K-major [32][128] slabs by cp.async in a ring), which kernel 10
+// shares. The core reads K-major operands only, so:
+// 1. prep (per tile of M pixels): the 49 taps + bias and the LayerNorm into
+//    shared memory, written out transposed as xln^T (C, pixels rounded up to
+//    4); extra blocks of the same launch write fc1^T (C, 4C) and fc2^T
+//    (4C, C).
+// 2. fc1 (tile: 128 pixels x 128 hidden units, hidden tiles fastest, K = C):
+//    h = xln fc1^T; the epilogue adds b1, applies the GELU and stores
+//    hg^T (4C, pixels rounded up to 4).
+// 3. fc2 (tile: 128 pixels x 128 channels, channel tiles fastest, K = 4C):
+//    the epilogue writes y = x + gamma * (hg fc2^T + b2).
+// A block sums its K in float32 chains of at most kMaxGroup (256), the chains
+// added in order in registers, and passes the tile to its epilogue through
+// shared memory (`product`). Where the tiles are too few for the card, the S
+// blocks of a cluster (S = 2 to 8) split each tile's K; each leaves its
+// partial tile in shared memory and sums its 1/S of the tile's values out of
+// the S shared memories (distributed shared memory) in rank order before its
+// share of the epilogue. No atomics: every sum runs in a fixed order, so two
+// calls give the same bits. The plan (M, the two splits) is made by the
+// caller (ops/convnext_block.py fwd_plan) for the card: its SMs, and how many
+// blocks it runs at once in clusters of each size (cluster_blocks).
+// Scratch (from the caller's allocator): xln^T, hg^T, fc1^T, fc2^T
+// (scratch_floats).
 #include "convnext_common.cuh"
 
 namespace {
 
-template <int RM>
-__global__ void __launch_bounds__(kThreads, 1)
-convnext_block_fwd_kernel(const float* __restrict__ x, const float* __restrict__ dww,
-                          const float* __restrict__ dwb, const float* __restrict__ lnw,
-                          const float* __restrict__ lnb, const float* __restrict__ w1,
-                          const float* __restrict__ b1, const float* __restrict__ w2,
-                          const float* __restrict__ b2, const float* __restrict__ gamma,
-                          float* __restrict__ out, int B, int H, int W, int C,
-                          int approximate) {
-  constexpr int M = kTM * RM;
-  SLOWTV_DYNAMIC_SMEM(smem4);
-  const int ldx = C + 4;                         // padded: see gemm_panel
-  float* xln = reinterpret_cast<float*>(smem4);  // [M][ldx]: taps, then LN in place
-  float* accs = xln + M * ldx;                   // [M][C]: fc2's running sum
-  float* hs = accs + M * C;                      // [M][kHS]: one hidden chunk
-  float* Ws = hs + M * kHS;                      // [256][kWS]: weight tile
-  const int t = threadIdx.x;
-  const cg::cluster_group cluster = cg::this_cluster();
-  const int S = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
-  const long long pixels = (long long)B * H * W;
-  const long long p0 = (long long)(blockIdx.x / S) * M;
-  // Strip k (pixels 4k .. 4k + 3 of the tile) belongs to block k % S of the
-  // cluster: its taps, its LayerNorm and, at the end, its output.
-  constexpr int kStrips = M / kStrip;
-  const int owned = rank < kStrips ? (kStrips - rank + S - 1) / S : 0;
+constexpr int kFc1Stages = 2;  // slabs in the ring of the fc1 launch (K = C)
+constexpr int kFc2Stages = 3;  // of the fc2 launch (K = 4C)
+constexpr int kLp = kBM + 4;   // padded row of the partial tile, [kBN][kLp]: part[n * kLp + m]
+static_assert(ring_floats(2) >= kBN * kLp, "the partial tile fits the ring");
 
-  // Phase A: depthwise 7x7 + bias of this block's strips (taps_tile).
-  taps_tile(x, dww, dwb, xln, ldx, p0, pixels, M, H, W, C, rank, S);
-  __syncthreads();
-
-  // Phase B: LayerNorm over C of this block's pixels, one warp per pixel, two passes.
-  const int lane = t & 31, warp = t >> 5;
-  for (int q = warp; q < owned * kStrip; q += kThreads / 32) {
-    float* u = xln + ((rank + S * (q / kStrip)) * kStrip + q % kStrip) * ldx;
-    float s = 0.f;
-    for (int c = lane; c < C; c += 32) s += u[c];
-    const float mean = warp_sum(s) / (float)C;
-    float v = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float d = u[c] - mean;
-      v = fmaf(d, d, v);
-    }
-    const float rstd = 1.f / sqrtf(warp_sum(v) / (float)C + kEps);
-    for (int c = lane; c < C; c += 32) {
-      u[c] = (u[c] - mean) * rstd * __ldg(lnw + c) + __ldg(lnb + c);
-    }
+__device__ __forceinline__ float gelu(float h, bool approximate) {
+  if (approximate) {
+    const float inner = 0.7978845608028654f * (h + 0.044715f * h * h * h);
+    return 0.5f * h * (1.f + tanhf(inner));
   }
-  for (int idx = t; idx < M * C; idx += kThreads) accs[idx] = 0.f;
-  if (S > 1) {
-    // The other blocks' pixels: copy their rows out of the owners' shared memory.
-    cluster.sync();
-    const int c4 = C / 4;
-    for (int idx = t; idx < M * c4; idx += kThreads) {
-      const int m = idx / c4, owner = (m / kStrip) % S;
-      if (owner != rank) {
-        const int off = m * ldx + (idx - m * c4) * 4;
-        *reinterpret_cast<float4*>(xln + off) =
-            *reinterpret_cast<const float4*>(cluster.map_shared_rank(xln, owner) + off);
-      }
-    }
-  }
-  // (gemm_panel's first barrier orders these writes before any read.)
-
-  // Phase C: the MLP over this block's hidden chunks, 256 columns at a time.
-  const int hidden = 4 * C;
-  const int tn = thread_col(t), tm = thread_row(t);
-  float acc[RM][kRN];
-  for (int j0 = rank * kNP; j0 < hidden; j0 += S * kNP) {
-    const int nh = hidden - j0 < kNP ? hidden - j0 : kNP;
-    gemm_panel<RM, false>(xln, ldx, w1 + (long long)j0 * C, C, nh, C, Ws, acc);
-#pragma unroll
-    for (int i = 0; i < kRN; ++i) {
-      const int n = tn + kTN * i;
-      if (n < nh) {
-        const float bias = __ldg(b1 + j0 + n);
-#pragma unroll
-        for (int r = 0; r < RM; ++r) {
-          hs[(tm + kTM * r) * kHS + n] = gelu(acc[r][i] + bias, approximate);
-        }
-      }
-    }
-    for (int c0 = 0; c0 < C; c0 += kNP) {
-      const int nc = C - c0 < kNP ? C - c0 : kNP;
-      gemm_panel<RM, false>(hs, kHS, w2 + (long long)c0 * hidden + j0, hidden, nc, nh, Ws, acc);
-#pragma unroll
-      for (int i = 0; i < kRN; ++i) {
-        const int n = tn + kTN * i;
-        if (n < nc) {
-#pragma unroll
-          for (int r = 0; r < RM; ++r) accs[(tm + kTM * r) * C + c0 + n] += acc[r][i];
-        }
-      }
-    }
-  }
-  __syncthreads();
-  if (S > 1) cluster.sync();  // every block's partial sums are complete
-
-  // Epilogue for this block's pixels: the S partial sums in block order, fc2's
-  // bias, layer scale and residual.
-  for (int idx = t; idx < owned * kStrip * C; idx += kThreads) {
-    const int q = idx / C, c = idx - q * C;
-    const int m = (rank + S * (q / kStrip)) * kStrip + q % kStrip;
-    const long long p = p0 + m;
-    if (p >= pixels) continue;
-    float sum = __ldg(b2 + c);
-    if (S == 1) {
-      sum += accs[m * C + c];
-    } else {
-      for (int r = 0; r < S; ++r) sum += cluster.map_shared_rank(accs, r)[m * C + c];
-    }
-    out[p * C + c] = __ldg(x + p * C + c) + __ldg(gamma + c) * sum;
-  }
-  if (S > 1) cluster.sync();  // no block leaves while its shared memory is being read
+  return 0.5f * h * (1.f + erff(h * 0.7071067811865475f));
 }
 
-template <int RM>
-cudaError_t launch(const float* x, const float* dww, const float* dwb, const float* lnw,
-                   const float* lnb, const float* w1, const float* b1, const float* w2,
-                   const float* b2, const float* gamma, float* out, int B, int H, int W,
-                   int C, int S, int approximate, cudaStream_t s) {
-  constexpr int M = kTM * RM;
-  const size_t bytes = sizeof(float) * ((size_t)M * (2 * C + 4) + M * kHS + kNP * kWS);
-  // Above 48 KB shared memory is dynamic and has to be asked for, or the
-  // launch is refused.
-  cudaError_t err = cudaFuncSetAttribute(convnext_block_fwd_kernel<RM>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
-  if (err != cudaSuccess) return err;
-  const long long pixels = (long long)B * H * W;
+// Launch 1. Blocks [0, tiles): one per tile of M pixels, shared memory u
+// [M][C + 4]; then one per 32 x 32 tile of fc1 -> fc1^T, then of fc2 -> fc2^T.
+__global__ void __launch_bounds__(kThreads)
+convnext_block_fwd_prep_kernel(const float* __restrict__ x, const float* __restrict__ dww,
+                               const float* __restrict__ dwb, const float* __restrict__ lnw,
+                               const float* __restrict__ lnb, const float* __restrict__ w1,
+                               const float* __restrict__ w2, float* __restrict__ xlnT,
+                               float* __restrict__ w1T, float* __restrict__ w2T, int B, int H,
+                               int W, int C, int M, int tiles) {
+  SLOWTV_DYNAMIC_SMEM(smem4);
+  float* u = reinterpret_cast<float*>(smem4);
+  const int ldu = C + 4, t = threadIdx.x, hidden = 4 * C;
+  const long long pixels = (long long)B * H * W, ldp = (pixels + 3) / 4 * 4;
+  if ((int)blockIdx.x >= tiles) {
+    const int b = blockIdx.x - tiles, per = (hidden + 31) / 32 * ((C + 31) / 32);
+    if (b < per) {
+      transpose_tile(w1, w1T, hidden, C, b, u);  // fc1 (4C, C) -> (C, 4C)
+    } else {
+      transpose_tile(w2, w2T, C, hidden, b - per, u);  // fc2 (C, 4C) -> (4C, C)
+    }
+    return;
+  }
+  const long long p0 = (long long)blockIdx.x * M;
+  const int live = pixels - p0 < M ? (int)(pixels - p0) : M;
+  taps_tile(x, dww, dwb, u, ldu, p0, pixels, M, H, W, C);
+  __syncthreads();
+  layer_norm_rows(  // xln back into u
+      u, ldu, live, C, lnw, lnb,
+      [&](int q, int c, float, float val) { u[q * ldu + c] = val; }, [](int, float) {});
+  __syncthreads();
+  // xln^T (C, ldp): threads along the pixels.
+  for (int e = t; e < C * M; e += kThreads) {
+    const int c = e / M, m = e - c * M;
+    if (m < live) xlnT[c * ldp + p0 + m] = u[m * ldu + c];
+  }
+}
+
+// The tile's four values at part[off .. off + 3]: the S blocks' partials
+// added in rank order.
+__device__ __forceinline__ float4 cluster_sum(float* part, int S, int off) {
+  const cg::cluster_group cluster = cg::this_cluster();
+  float4 v = *reinterpret_cast<const float4*>(cluster.map_shared_rank(part, 0) + off);
+  for (int s = 1; s < S; ++s) {
+    const float4 q = *reinterpret_cast<const float4*>(cluster.map_shared_rank(part, s) + off);
+    v.x += q.x;
+    v.y += q.y;
+    v.z += q.z;
+    v.w += q.w;
+  }
+  return v;
+}
+
+// A product launch: out(p, n) = sum_k A(k, p) B(k, n) over K, one 128 x 128
+// tile (pixel tiles slowest) a cluster of S blocks; A the activations,
+// K-major (K, ldp: the pixels rounded up to 4), B the weights, K-major (K, N).
+// Rank r of the cluster takes rows [r * len, (r + 1) * len) of K, len =
+// split_len(K, S) (none when that starts at or past K), in float32 chains of
+// kMaxGroup added in order; each block leaves its partial tile in shared
+// memory ([kBN][kLp], transposed: part[n * kLp + m]) and then sums its 1/S of
+// the tile's quads (pixels p .. p + 3 of column n, p < pixels) out of the
+// cluster's shared memories in rank order into epi(n, p, the four sums).
+// PIXELS_FASTEST: its threads walk the quads along the pixels, else along the
+// columns (coalesced stores in either layout).
+template <int STAGES, bool PIXELS_FASTEST, class Epi>
+__device__ __forceinline__ void product(const float* __restrict__ A, long long pixels,
+                                        const float* __restrict__ B, int N, int K, int S,
+                                        float* smem, Epi&& epi) {
+  const int tiles_n = (N + kBN - 1) / kBN;
+  const int tile = blockIdx.x / S, rank = blockIdx.x % S;
+  const int m0 = (tile / tiles_n) * kBM, n0 = (tile % tiles_n) * kBN;
+  const int m_end = (int)(pixels < m0 + kBM ? pixels : m0 + kBM);
+  const int len = (int)split_len(K, S);
+  const int k0 = rank * len < K ? rank * len : K, k1 = k0 + len < K ? k0 + len : K;
+  const Operand a{A, (pixels + 3) / 4 * 4, m0, m_end}, b{B, N, n0, N};
+  float acc[kTile][kTile], sum[kTile][kTile];
+  zero(sum);
+  gemm_run<STAGES>(
+      (k1 - k0 + kBK - 1) / kBK, kMaxGroup / kBK, smem, acc,
+      [&](int i, float* As, float* Bs) { stage_pair(As, Bs, a, b, k0 + i * kBK, k1); },
+      [&](int) {
+#pragma unroll
+        for (int i = 0; i < kTile; ++i) {
+#pragma unroll
+          for (int j = 0; j < kTile; ++j) sum[i][j] += acc[i][j];
+        }
+        zero(acc);
+      });
+  __syncthreads();  // the ring's last readers are done: the partial takes its place
+#pragma unroll
+  for (int j = 0; j < kTile; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      *reinterpret_cast<float4*>(smem + tile_col(j) * kLp + tile_row(4 * h)) = make_float4(
+          sum[4 * h][j], sum[4 * h + 1][j], sum[4 * h + 2][j], sum[4 * h + 3][j]);
+    }
+  }
+  const cg::cluster_group cluster = cg::this_cluster();
+  if (S > 1) {
+    cluster.sync();
+  } else {
+    __syncthreads();
+  }
+  constexpr int kQuads = kBN * kBM / 4;
+  const int share = (kQuads + S - 1) / S;
+  const int end = (rank + 1) * share < kQuads ? (rank + 1) * share : kQuads;
+  for (int q = rank * share + threadIdx.x; q < end; q += kThreads) {
+    const int n = PIXELS_FASTEST ? q / (kBM / 4) : q % kBN;
+    const int m = (PIXELS_FASTEST ? q % (kBM / 4) : q / kBN) * 4;
+    if (n0 + n >= N || m0 + m >= m_end) continue;
+    epi(n0 + n, m0 + m,
+        S == 1 ? *reinterpret_cast<const float4*>(smem + n * kLp + m)
+               : cluster_sum(smem, S, n * kLp + m));
+  }
+  if (S > 1) cluster.sync();  // no block leaves while its partial is read
+}
+
+// Launch 2: h = xln fc1^T over tiles of 128 pixels x 128 hidden units (hidden
+// tiles fastest), K = C; the epilogue stores hg^T = gelu(h + b1)^T (a quad
+// that straddles the last pixel fills the padding of hg^T's row).
+__global__ void __launch_bounds__(kThreads, 1)
+convnext_block_fwd_fc1_kernel(const float* __restrict__ xlnT, const float* __restrict__ w1T,
+                              const float* __restrict__ b1, float* __restrict__ hgT,
+                              long long pixels, int C, int S, int approximate) {
+  SLOWTV_DYNAMIC_SMEM(smem4);
+  const long long ldp = (pixels + 3) / 4 * 4;
+  product<kFc1Stages, true>(
+      xlnT, pixels, w1T, 4 * C, C, S, reinterpret_cast<float*>(smem4),
+      [&](int n, int p, float4 v) {
+        const float bias = __ldg(b1 + n);
+        *reinterpret_cast<float4*>(hgT + n * ldp + p) =
+            make_float4(gelu(v.x + bias, approximate), gelu(v.y + bias, approximate),
+                        gelu(v.z + bias, approximate), gelu(v.w + bias, approximate));
+      });
+}
+
+// Launch 3: y = x + gamma * (hg fc2^T + b2) over tiles of 128 pixels x 128
+// channels (channel tiles fastest), K = 4C.
+__global__ void __launch_bounds__(kThreads, 1)
+convnext_block_fwd_fc2_kernel(const float* __restrict__ hgT, const float* __restrict__ w2T,
+                              const float* __restrict__ b2, const float* __restrict__ gamma,
+                              const float* __restrict__ x, float* __restrict__ out,
+                              long long pixels, int C, int S) {
+  SLOWTV_DYNAMIC_SMEM(smem4);
+  product<kFc2Stages, false>(
+      hgT, pixels, w2T, C, 4 * C, S, reinterpret_cast<float*>(smem4),
+      [&](int c, int p, float4 v) {
+        const float g = __ldg(gamma + c), bias = __ldg(b2 + c);
+        const float vs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const long long i = (long long)(p + q) * C + c;
+          if (p + q < pixels) out[i] = __ldg(x + i) + g * (vs[q] + bias);
+        }
+      });
+}
+
+// Offsets (in floats) of the scratch buffers; the last is the total. ldp: the
+// pixels rounded up to 4, the row of the transposed activations.
+struct Layout {
+  long long ldp, xlnT, hgT, w1T, w2T, total;
+};
+
+Layout scratch_layout(long long pixels, int C) {
+  Layout l;
+  l.ldp = (pixels + 3) / 4 * 4;
+  l.xlnT = 0;
+  l.hgT = l.xlnT + C * l.ldp;
+  l.w1T = l.hgT + 4LL * C * l.ldp;
+  l.w2T = l.w1T + 4LL * C * C;
+  l.total = l.w2T + 4LL * C * C;
+  return l;
+}
+
+bool valid_split(int s) { return s >= 1 && s <= 8; }
+
+// Clusters of `split` blocks of `kernel` (`smem` bytes of shared memory a
+// block) that the card runs at once; 0 if the runtime cannot say.
+template <class K>
+int max_clusters(K kernel, size_t smem, int split) {
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
+      cudaSuccess) {
+    return 0;
+  }
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)S;
+  attr[0].val.clusterDim.x = (unsigned)split;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)((pixels + M - 1) / M) * S);
+  cfg.gridDim = dim3((unsigned)split);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = bytes;
-  cfg.stream = s;
+  cfg.dynamicSmemBytes = smem;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, convnext_block_fwd_kernel<RM>, x, dww, dwb, lnw, lnb, w1, b1,
-                           w2, b2, gamma, out, B, H, W, C, approximate);
-  return err != cudaSuccess ? err : cudaGetLastError();
+  int n = 0;
+  return cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) == cudaSuccess ? n : 0;
 }
 
 }  // namespace
 
+// Thread blocks of the fc1 and fc2 launches (the fewer of the two) that the
+// card runs at once in clusters of `split` blocks: one block an SM, but a
+// cluster's blocks must share a GPC, so large clusters leave SMs out. 0 if
+// the runtime cannot say.
+extern "C" int slowtv_convnext_block_fwd_cluster_blocks(int split, int device) {
+  if (cudaSetDevice(device) != cudaSuccess || !valid_split(split)) return 0;
+  const int fc1 = max_clusters(convnext_block_fwd_fc1_kernel,
+                               sizeof(float) * ring_floats(kFc1Stages), split);
+  const int fc2 = max_clusters(convnext_block_fwd_fc2_kernel,
+                               sizeof(float) * ring_floats(kFc2Stages), split);
+  return (fc1 < fc2 ? fc1 : fc2) * split;
+}
+
+// Floats of scratch that slowtv_convnext_block_fwd_f32 needs for these shapes.
+extern "C" long long slowtv_convnext_block_fwd_scratch_floats(int B, int H, int W, int C) {
+  return scratch_layout((long long)B * H * W, C).total;
+}
+
 // x, out (B, H, W, C); dww (C, 1, 7, 7); dwb, lnw, lnb, b2, gamma (C,); w1
-// (4C, C); b1 (4C,); w2 (C, 4C); all float32, contiguous, on `device`; C a
-// multiple of 4 and w1, w2 16-byte aligned. M (8, 16 or 32) is the pixel tile
-// and S (1, 2, 4 or 8, at most the number of 256-column hidden chunks) the
-// number of thread blocks of the cluster that shares it:
-// 4 * (M * (2 * C + 4) + 260 * M + 256 * 36) bytes of shared memory must fit the
-// block's 227 KB. Launches on `stream` and returns the launch's cudaError_t
-// (0 on success).
+// (4C, C); b1 (4C,); w2 (C, 4C); scratch of
+// slowtv_convnext_block_fwd_scratch_floats floats; all float32, contiguous, on
+// `device`; out and scratch 16-byte aligned; C a multiple of 4. The
+// plan: M (8, 16 or 32) pixels per tile of the prep launch, whose
+// 4 * M * (C + 4) bytes of shared memory must fit the block's 227 KB; split1
+// and split2 (1 to 8) blocks per cluster splitting the K of fc1 and of fc2.
+// Launches on `stream` and returns the first failing launch's cudaError_t (0
+// on success).
 extern "C" int slowtv_convnext_block_fwd_f32(
     const float* x, const float* dww, const float* dwb, const float* lnw, const float* lnb,
     const float* w1, const float* b1, const float* w2, const float* b2, const float* gamma,
-    float* out, int B, int H, int W, int C, int M, int S, int approximate, int device,
-    void* stream) {
+    float* out, float* scratch, int B, int H, int W, int C, int M, int split1, int split2,
+    int approximate, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (C % 4 != 0 || (S != 1 && S != 2 && S != 4 && S != 8) || (S - 1) * kNP >= 4 * C) {
+  if (C % 4 != 0 || C <= 0 || (M != 8 && M != 16 && M != 32) || !valid_split(split1) ||
+      !valid_split(split2)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (M) {
-    case 8:
-      return (int)launch<2>(x, dww, dwb, lnw, lnb, w1, b1, w2, b2, gamma, out, B, H, W, C,
-                            S, approximate, s);
-    case 16:
-      return (int)launch<4>(x, dww, dwb, lnw, lnb, w1, b1, w2, b2, gamma, out, B, H, W, C,
-                            S, approximate, s);
-    case 32:
-      return (int)launch<8>(x, dww, dwb, lnw, lnb, w1, b1, w2, b2, gamma, out, B, H, W, C,
-                            S, approximate, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const long long pixels = (long long)B * H * W;
+  const int hidden = 4 * C;
+  const Layout l = scratch_layout(pixels, C);
+  float* xlnT = scratch + l.xlnT;
+  float* hgT = scratch + l.hgT;
+  float* w1T = scratch + l.w1T;
+  float* w2T = scratch + l.w2T;
+  const int tiles = (int)((pixels + M - 1) / M), mtiles = (int)((pixels + kBM - 1) / kBM);
+  const size_t row_smem = sizeof(float) * (size_t)M * (C + 4);
+  const size_t prep_smem = row_smem > sizeof(float) * 32 * 33 ? row_smem : sizeof(float) * 32 * 33;
+
+  err = launch(convnext_block_fwd_prep_kernel,
+               (unsigned)(tiles + 2 * ((hidden + 31) / 32) * ((C + 31) / 32)), prep_smem, 0, s,
+               x, dww, dwb, lnw, lnb, w1, w2, xlnT, w1T, w2T, B, H, W, C, M, tiles);
+  if (err != cudaSuccess) return (int)err;
+  err = launch(convnext_block_fwd_fc1_kernel,
+               (unsigned)(mtiles * ((hidden + kBN - 1) / kBN) * split1),
+               sizeof(float) * ring_floats(kFc1Stages), split1, s, (const float*)xlnT,
+               (const float*)w1T, b1, hgT, pixels, C, split1, approximate);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch(convnext_block_fwd_fc2_kernel,
+                     (unsigned)(mtiles * ((C + kBN - 1) / kBN) * split2),
+                     sizeof(float) * ring_floats(kFc2Stages), split2, s, (const float*)hgT,
+                     (const float*)w2T, b2, gamma, x, out, pixels, C, split2);
 }

@@ -22,16 +22,16 @@
 // recipe's numerics).
 //
 // Design. The five products are large-tile SIMT matrix products on ONE core,
-// `gemm_run`: a block of 256 threads owns a 128 x 128 output tile, each
-// thread an 8 x 8 register tile (a warp 32 x 64: its 128-bit shared reads of
-// one operand row are one wavefront, so 64 FMAs cost 4 shared loads); both
-// operands are staged as [k][128] slabs of 32 k by 16-byte cp.async copies in
-// a ring of two (mlp) or three (products), one barrier a slab. Every operand is read K-major (row k
-// holds the tile's columns): the products' natural NT and NN forms (h1 =
-// xln fc1^T, dhg = (dy gamma) fc2, dxln = dh1 fc1) are turned into that form
-// by writing xln, dy * gamma and dh1 also transposed, (C or 4C, pixels), and
-// fc1 as fc1^T, in the launches that produce them. The per-pixel work sits in
-// the passes around the products and in their epilogues:
+// `gemm_run` (convnext_common.cuh, shared with the forward): a block of 256
+// threads owns a 128 x 128 output tile, each thread an 8 x 8 register tile;
+// both operands are staged as [k][128] slabs of 32 k by 16-byte cp.async
+// copies in a ring of two (mlp) or three (products), one barrier a slab.
+// Every operand is read K-major (row k holds the tile's columns): the
+// products' natural NT and NN forms (h1 = xln fc1^T, dhg = (dy gamma) fc2,
+// dxln = dh1 fc1) are turned into that form by writing xln, dy * gamma and
+// dh1 also transposed, (C or 4C, pixels), and fc1 as fc1^T, in the launches
+// that produce them. The per-pixel work sits in the passes around the
+// products and in their epilogues:
 // 1. prep (per tile of M pixels): the taps and the LayerNorm (xln, xhat,
 //    rstd; xln^T), (dy * gamma)^T, this tile's sum of dy; extra blocks
 //    transpose fc1.
@@ -57,26 +57,13 @@
 // the same from run to run. The plan (M, group, splits) is made by the
 // caller (ops/convnext_block.py bwd_plan) for the card's SM count. Scratch
 // (from the caller's allocator): see scratch_layout.
-#include <cuda_pipeline_primitives.h>
-
 #include "convnext_common.cuh"
 
 namespace {
 
-constexpr int kBM = 128;                 // product tile rows
-constexpr int kBN = 128;                 // product tile columns
-constexpr int kBK = 32;                  // K per staged slab
 constexpr int kMlpStages = 2;            // slabs in the ring: mlp (measured best at 2)
 constexpr int kProductsStages = 3;       // products (3 x 2 slabs and the double sums: 227 KB)
-constexpr int kLd = kBM + 4;             // padded slab row (128-bit aligned)
-constexpr int kSlab = kBK * kLd;         // floats of one operand's slab
-__host__ __device__ constexpr int ring_floats(int stages) { return stages * 2 * kSlab; }
-constexpr int kTile = 8;                 // a thread's register tile is kTile x kTile
-constexpr int kMaxGroup = 256;           // the longest float32 chain of a product's K
 constexpr int kVec = 4;                  // per-pixel-tile partials: 4C floats
-constexpr int kWarps = kThreads / 32;
-static_assert(kBM == kBN && kBM * kBN == kThreads * kTile * kTile, "8 x 8 per thread");
-static_assert(kBK * kBM % (4 * kThreads) == 0, "whole copies a thread");
 
 __device__ __forceinline__ double warp_sum_d(double v) {
 #pragma unroll
@@ -95,110 +82,6 @@ __device__ __forceinline__ void gelu_grad(float h, bool approximate, float& hg, 
     const float t = erff(h * 0.7071067811865475f);
     hg = 0.5f * h * (1.f + t);
     dg = 0.5f * (1.f + t) + h * 0.3989422804014327f * expf(-0.5f * h * h);
-  }
-}
-
-// This thread's rows and columns of the 128 x 128 tile. Warp w covers rows
-// 32 (w % 4) .. + 31 and columns 64 (w / 4) .. + 63; lane l owns rows
-// 4 (l / 8) + {0..3} and + 16, columns 4 (l % 8) + {0..3} and + 32.
-__device__ __forceinline__ int tile_row(int i) {
-  const int t = threadIdx.x;
-  return ((t >> 5) & 3) * 32 + (i >> 2) * 16 + ((t & 31) >> 3) * 4 + (i & 3);
-}
-__device__ __forceinline__ int tile_col(int j) {
-  const int t = threadIdx.x;
-  return (t >> 7) * 64 + (j >> 2) * 32 + (t & 7) * 4 + (j & 3);
-}
-
-// A K-major operand of a product: element (k, mn) at g[k * ld + mn], the
-// tile's columns from mn0, live below mn_end. Every operand is laid out so:
-// the launch that writes it writes it so.
-struct Operand {
-  const float* g;
-  long long ld;
-  int mn0, mn_end;
-};
-
-// One operand's [kBK][kBM] slab, rows k0 .., into s (row stride kLd) by
-// 16-byte cp.async; a warp copies one 512-byte slab row. Rows at or past
-// k_end and quads starting at or past mn_end read zeros; a quad that
-// straddles mn_end (the last pixel, in a row padded to a multiple of 4) reads
-// the row's padding, which only reaches outputs that are not stored.
-__device__ __forceinline__ void stage_slab(float* s, const Operand& o, int k0, int k_end) {
-  const int t = threadIdx.x;
-#pragma unroll
-  for (int r = 0; r < kBK * kBM / 4 / kThreads; ++r) {
-    const int q = t + kThreads * r, k = q / (kBM / 4), m = (q % (kBM / 4)) * 4;
-    const bool in = k0 + k < k_end && o.mn0 + m < o.mn_end;
-    __pipeline_memcpy_async(s + k * kLd + m,
-                            in ? o.g + (long long)(k0 + k) * o.ld + o.mn0 + m : o.g, 16,
-                            in ? 0 : 16);
-  }
-}
-
-__device__ __forceinline__ void stage_pair(float* As, float* Bs, const Operand& a,
-                                           const Operand& b, int k0, int k_end) {
-  stage_slab(As, a, k0, k_end);
-  stage_slab(Bs, b, k0, k_end);
-}
-
-// acc += the slab pair's kBK k for this thread's 8 x 8: per k four 128-bit
-// shared reads (A's two row quads, B's two column quads) and 64 FMAs.
-__device__ __forceinline__ void mma_slab(const float* As, const float* Bs,
-                                         float (&acc)[kTile][kTile]) {
-  const int t = threadIdx.x;
-  const int am = ((t >> 5) & 3) * 32 + ((t & 31) >> 3) * 4, bn = (t >> 7) * 64 + (t & 7) * 4;
-#pragma unroll
-  for (int k = 0; k < kBK; ++k) {
-    const float4 a0 = *reinterpret_cast<const float4*>(As + k * kLd + am);
-    const float4 a1 = *reinterpret_cast<const float4*>(As + k * kLd + am + 16);
-    const float4 b0 = *reinterpret_cast<const float4*>(Bs + k * kLd + bn);
-    const float4 b1 = *reinterpret_cast<const float4*>(Bs + k * kLd + bn + 32);
-    const float a[kTile] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float b[kTile] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-    for (int i = 0; i < kTile; ++i) {
-#pragma unroll
-      for (int j = 0; j < kTile; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-  }
-}
-
-__device__ __forceinline__ void zero(float (&acc)[kTile][kTile]) {
-#pragma unroll
-  for (int i = 0; i < kTile; ++i) {
-#pragma unroll
-    for (int j = 0; j < kTile; ++j) acc[i][j] = 0.f;
-  }
-}
-
-// The product core. From acc = 0, nk slabs: stage(i, As, Bs) issues slab i's
-// copies (STAGES - 1 slabs ahead of the FMAs), acc += slab i for this
-// thread's 8 x 8 of the 128 x 128 tile (tile_row, tile_col), one float32
-// chain per output in k order; after slab i, when i + 1 is a multiple of
-// per_chain or i + 1 == nk, chain(i) takes acc (and may reset it). The ring
-// (ring_floats(STAGES) of shared memory) keeps flowing across chains. Every
-// thread of the block calls it.
-template <int STAGES, class Stage, class Chain>
-__device__ __forceinline__ void gemm_run(int nk, int per_chain, float* ring,
-                                         float (&acc)[kTile][kTile], Stage&& stage,
-                                         Chain&& chain) {
-  zero(acc);
-  __syncthreads();  // the ring's last readers are done
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) stage(s, ring + 2 * s * kSlab, ring + (2 * s + 1) * kSlab);
-    __pipeline_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    __pipeline_wait_prior(STAGES - 2);  // slab kt has landed (this thread's copies)
-    __syncthreads();                     // ... and everyone's; slab kt - 1 is read
-    const int next = kt + STAGES - 1, s = next % STAGES;
-    if (next < nk) stage(next, ring + 2 * s * kSlab, ring + (2 * s + 1) * kSlab);
-    __pipeline_commit();
-    const float* slab = ring + 2 * (kt % STAGES) * kSlab;
-    mma_slab(slab, slab + kSlab, acc);
-    if ((kt + 1) % per_chain == 0 || kt + 1 == nk) chain(kt);
   }
 }
 
@@ -236,49 +119,26 @@ convnext_block_bwd_prep_kernel(const float* __restrict__ x, const float* __restr
                                int tiles) {
   SLOWTV_DYNAMIC_SMEM(smem4);
   float* u = reinterpret_cast<float*>(smem4);
-  const int ldu = C + 4, t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int ldu = C + 4, t = threadIdx.x;
   const long long pixels = (long long)B * H * W, ldp = (pixels + 3) / 4 * 4;
-  if ((int)blockIdx.x >= tiles) {  // fc1 (4C, C) -> w1T (C, 4C), through a [32][33] tile
-    const int hidden = 4 * C, tc = (C + 31) / 32, b = blockIdx.x - tiles;
-    const int j0 = (b / tc) * 32, c0 = (b % tc) * 32;
-    for (int e = t; e < 32 * 32; e += kThreads) {
-      const int r = e >> 5, q = e & 31;
-      if (j0 + r < hidden && c0 + q < C) u[r * 33 + q] = __ldg(w1 + (long long)(j0 + r) * C + c0 + q);
-    }
-    __syncthreads();
-    for (int e = t; e < 32 * 32; e += kThreads) {
-      const int r = e >> 5, q = e & 31;
-      if (c0 + r < C && j0 + q < hidden) w1T[(long long)(c0 + r) * hidden + j0 + q] = u[q * 33 + r];
-    }
+  if ((int)blockIdx.x >= tiles) {  // fc1 (4C, C) -> w1T (C, 4C)
+    transpose_tile(w1, w1T, 4 * C, C, blockIdx.x - tiles, u);
     return;
   }
   const long long p0 = (long long)blockIdx.x * M;
   const int live = pixels - p0 < M ? (int)(pixels - p0) : M;
 
-  taps_tile(x, dww, dwb, u, ldu, p0, pixels, M, H, W, C, 0, 1);
+  taps_tile(x, dww, dwb, u, ldu, p0, pixels, M, H, W, C);
   __syncthreads();
-  // LayerNorm, one warp per pixel, two passes; xln back into u.
-  for (int q = warp; q < live; q += kWarps) {
-    float* uq = u + q * ldu;
-    const long long p = p0 + q;
-    float s = 0.f;
-    for (int c = lane; c < C; c += 32) s += uq[c];
-    const float mean = warp_sum(s) / (float)C;
-    float v = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float d = uq[c] - mean;
-      v = fmaf(d, d, v);
-    }
-    const float r = 1.f / sqrtf(warp_sum(v) / (float)C + kEps);
-    for (int c = lane; c < C; c += 32) {
-      const float xh = (uq[c] - mean) * r;
-      const float val = xh * __ldg(lnw + c) + __ldg(lnb + c);
-      xhat[p * C + c] = xh;
-      xln[p * C + c] = val;
-      uq[c] = val;
-    }
-    if (lane == 0) rstd[p] = r;
-  }
+  layer_norm_rows(  // xln back into u
+      u, ldu, live, C, lnw, lnb,
+      [&](int q, int c, float xh, float val) {
+        const long long p = p0 + q;
+        xhat[p * C + c] = xh;
+        xln[p * C + c] = val;
+        u[q * ldu + c] = val;
+      },
+      [&](int q, float r) { rstd[p0 + q] = r; });
   __syncthreads();
   // xln^T (C, ldp): threads along the pixels.
   for (int e = t; e < C * M; e += kThreads) {
@@ -384,12 +244,6 @@ convnext_block_bwd_mlp_kernel(const float* __restrict__ xlnT, const float* __res
     db1_part[(long long)mt * hidden + n0 + t] =
         ((red[t] + red[kBN + t]) + red[2 * kBN + t]) + red[3 * kBN + t];
   }
-}
-
-// Pixels per split of the weight gradients, and hidden units per split of dxln
-// (multiples of kBK; the host's plan uses the same).
-__host__ __device__ __forceinline__ long long split_len(long long n, int splits) {
-  return ((n + splits - 1) / splits + kBK - 1) / kBK * kBK;
 }
 
 // Launch 3. Blocks [0, 2 * tiles_w * splits_w): weight-gradient tiles (G's,
@@ -643,22 +497,6 @@ Layout scratch_layout(long long pixels, int C, int M, int splits_w, int splits_x
   return l;
 }
 
-template <class K, class... Args>
-cudaError_t launch(K kernel, unsigned grid, size_t smem, cudaStream_t s, Args... args) {
-  // Above 48 KB shared memory is dynamic and has to be asked for, or the
-  // launch is refused (as it is above what the card allows).
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  return err != cudaSuccess ? err : cudaGetLastError();
-}
-
 }  // namespace
 
 // Floats of scratch that slowtv_convnext_block_bwd_f32 needs for these shapes
@@ -715,27 +553,27 @@ extern "C" int slowtv_convnext_block_bwd_f32(
   const int tiles_h = (hidden + kBN - 1) / kBN, tiles_c = (C + kBN - 1) / kBN;
 
   err = launch(convnext_block_bwd_prep_kernel,
-               (unsigned)(l.tiles + (hidden + 31) / 32 * ((C + 31) / 32)), prep_smem, s, x, dy,
-               dww, dwb, lnw, lnb, gamma, w1, xln, xhat, xlnT, dx_part, w1T, rstd, part, B, H,
-               W, C, M, l.tiles);
+               (unsigned)(l.tiles + (hidden + 31) / 32 * ((C + 31) / 32)), prep_smem, 0, s, x,
+               dy, dww, dwb, lnw, lnb, gamma, w1, xln, xhat, xlnT, dx_part, w1T, rstd, part, B,
+               H, W, C, M, l.tiles);
   if (err != cudaSuccess) return (int)err;
-  err = launch(convnext_block_bwd_mlp_kernel, (unsigned)(l.mtiles * tiles_h), mlp_smem, s,
+  err = launch(convnext_block_bwd_mlp_kernel, (unsigned)(l.mtiles * tiles_h), mlp_smem, 0, s,
                (const float*)xlnT, (const float*)dx_part, (const float*)w1T, b1, w2, hg, dh1,
                dh1T, db1_part, pixels, C, approximate);
   if (err != cudaSuccess) return (int)err;
   const unsigned products = (unsigned)(2 * tiles_c * tiles_h * splits_w +
                                        l.mtiles * tiles_c * splits_x);
-  err = launch(convnext_block_bwd_products_kernel, products, products_smem, s, dy,
+  err = launch(convnext_block_bwd_products_kernel, products, products_smem, 0, s, dy,
                (const float*)hg, (const float*)dh1, (const float*)dh1T, (const float*)xln, w1,
                dx_part, w_part, pixels, C, group, splits_w, splits_x);
   if (err != cudaSuccess) return (int)err;
-  err = launch(convnext_block_bwd_ln_kernel, (unsigned)l.tiles, row_smem, s,
+  err = launch(convnext_block_bwd_ln_kernel, (unsigned)l.tiles, row_smem, 0, s,
                (const float*)dx_part, splits_x, (const float*)xhat, (const float*)rstd, lnw, du,
                part, pixels, C, M);
   if (err != cudaSuccess) return (int)err;
   const unsigned finish = (unsigned)((C + kWarps - 1) / kWarps + (hidden + kWarps - 1) / kWarps +
                                      (3 * C + hidden + 31) / 32);
-  return (int)launch(convnext_block_bwd_finish_kernel, finish, sizeof(double) * kThreads, s,
+  return (int)launch(convnext_block_bwd_finish_kernel, finish, sizeof(double) * kThreads, 0, s,
                      (const float*)w_part, splits_w, (const float*)part, l.tiles,
                      (const float*)db1_part, l.mtiles, C, w2, b2, gamma, dw1, dw2, dgamma, db2,
                      dlnw, dlnb, ddwb, db1);

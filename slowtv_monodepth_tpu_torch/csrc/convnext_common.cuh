@@ -1,19 +1,19 @@
 // Device code shared by the fused ConvNeXt block's forward (convnext_block.cu)
 // and backward (convnext_block_bwd.cu): the 7x7 depthwise taps of a pixel
-// tile, and `gemm_panel`, a (M, K) operand in shared memory times 256 rows of
-// a weight matrix in device memory, by hand-written float32 FMA loops.
+// tile, the LayerNorm of its rows, a 32 x 32 tile transpose, and the product
+// core `gemm_run`.
 //
-// gemm_panel: 256 threads as 4 rows x 64 columns, each with an (M/4) x 4
-// register tile; weights stream through a [256][32] shared tile (rows padded
-// to 36 floats: conflict-free 128-bit reads), the next tile prefetched into
-// registers during the current one's FMAs; both operands are read as float4
-// along K, and a warp (8 columns x 4 rows) shares its reads: 12 shared-memory
-// wavefronts per 128 FMAs of a warp. The weight rows are either K-contiguous
-// (PyTorch's (out, in) layout read as it is: the forward's two products) or
-// the transposed read of the same matrix (the backward's two input-gradient
-// products), which a transposing tile load puts in the same shared layout.
+// gemm_run: a block of 256 threads owns a 128 x 128 output tile, each thread
+// an 8 x 8 register tile (a warp 32 x 64: its 128-bit shared reads of one
+// operand row are one wavefront, so 64 FMAs cost 4 shared loads); both
+// operands are staged as [k][128] slabs of 32 k by 16-byte cp.async copies in
+// a ring, one barrier a slab. Every operand is read K-major (row k holds the
+// tile's columns, `Operand`): the launch that writes an operand writes it so.
+// Float32 FMA on the CUDA cores only (no tensor cores: TF32 would change the
+// exact-float32 recipe's numerics).
 #pragma once
 #include <cooperative_groups.h>
+#include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 
 // The block's dynamic shared memory. (tests/cuda_emu builds the sources for the
@@ -27,181 +27,25 @@ namespace {
 namespace cg = cooperative_groups;
 
 constexpr int kThreads = 256;
-constexpr int kTN = 64;          // thread columns
-constexpr int kTM = 4;           // thread rows (kTM * kTN threads)
-constexpr int kRN = 4;           // output columns per thread (n = tn + 64 * i)
-constexpr int kNP = kTN * kRN;   // panel width = hidden chunk = 256
-constexpr int kKT = 32;          // K per weight tile
-constexpr int kWS = kKT + 4;     // padded row stride of the weight tile
-constexpr int kHS = kNP + 4;     // padded row stride of the hidden chunk
-constexpr int kK = 7;            // depthwise taps per axis
-constexpr int kFetch = 8;        // float4 per thread and weight tile (256 * 8 / 256)
-constexpr int kStrip = 4;        // pixels per strip of the taps
-constexpr float kEps = 1e-6f;    // the LayerNorm's epsilon (as the TPU kernel's)
-
-// Timing aids, never defined in the library's build: each leaves one part of
-// kernel 9 out (the result is then wrong), so that the package's
-// tools/block_kernel_bench.py can say where the time goes.
-#ifdef K9_NO_TAPS
-constexpr bool kTaps = false;    // skip the 49 taps
-#else
-constexpr bool kTaps = true;
-#endif
-#ifdef K9_NO_FMA
-constexpr bool kFma = false;     // skip the matrix products' FMAs
-#else
-constexpr bool kFma = true;
-#endif
-#ifdef K9_NO_STREAM
-constexpr bool kStream = false;  // skip the weight tiles' loads, stores and barriers
-#else
-constexpr bool kStream = true;
-#endif
-
-__device__ __forceinline__ float gelu(float h, bool approximate) {
-  if (approximate) {
-    const float inner = 0.7978845608028654f * (h + 0.044715f * h * h * h);
-    return 0.5f * h * (1.f + tanhf(inner));
-  }
-  return 0.5f * h * (1.f + erff(h * 0.7071067811865475f));
-}
+constexpr int kWarps = kThreads / 32;
+constexpr int kK = 7;                    // depthwise taps per axis
+constexpr int kStrip = 4;                // pixels per strip of the taps
+constexpr float kEps = 1e-6f;            // the LayerNorm's epsilon (as the TPU kernel's)
+constexpr int kBM = 128;                 // product tile rows
+constexpr int kBN = 128;                 // product tile columns
+constexpr int kBK = 32;                  // K per staged slab
+constexpr int kLd = kBM + 4;             // padded slab row (128-bit aligned)
+constexpr int kSlab = kBK * kLd;         // floats of one operand's slab
+__host__ __device__ constexpr int ring_floats(int stages) { return stages * 2 * kSlab; }
+constexpr int kTile = 8;                 // a thread's register tile is kTile x kTile
+constexpr int kMaxGroup = 256;           // the longest float32 chain of a product's K
+static_assert(kBM == kBN && kBM * kBN == kThreads * kTile * kTile, "8 x 8 per thread");
+static_assert(kBK * kBM % (4 * kThreads) == 0, "whole copies a thread");
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// Thread t's place in the 4 x 64 grid of register tiles: a warp covers 8
-// columns x 4 rows. The thread owns rows tm + 4 * r and columns tn + 64 * i.
-__device__ __forceinline__ int thread_col(int t) { return (t >> 5) * 8 + (t & 7); }
-__device__ __forceinline__ int thread_row(int t) { return (t & 31) >> 3; }
-
-// This thread's kFetch float4 of the [256][32] weight tile at k = kt.
-// K-contiguous rows (TRANS false): W(n, k) = Wg[n * ldw + k]; the thread
-// reads row ln + 32 * i, columns lk .. lk + 3. Transposed (TRANS true):
-// W(n, k) = Wg[k * ldw + n]; a warp reads 8 k-rows x 4 float4 along n (64
-// contiguous bytes per k-row). Rows n >= N and columns k >= K read as zero;
-// N and K are multiples of 4.
-template <bool TRANS>
-__device__ __forceinline__ void fetch_tile(float4 (&pre)[kFetch], const float* __restrict__ Wg,
-                                           long long ldw, int N, int K, int kt, int t) {
-#pragma unroll
-  for (int i = 0; i < kFetch; ++i) {
-    int n, k;
-    if (TRANS) {
-      const int q = i * 8 + (t >> 5), lane = t & 31;
-      k = (q & 3) * 8 + (lane >> 2);
-      n = ((q >> 2) * 4 + (lane & 3)) * 4;
-    } else {
-      n = (t >> 3) + 32 * i;
-      k = (t & 7) * 4;
-    }
-    const bool live = n < N && kt + k < K;
-    const float* src = TRANS ? Wg + (long long)(kt + k) * ldw + n : Wg + n * ldw + kt + k;
-    pre[i] = live ? __ldg(reinterpret_cast<const float4*>(src)) : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-}
-
-// The fetched float4s into the [256][kWS] tile, in the [n][k] layout both
-// kinds of fetch share. (Transposed: one float per row, 2-way bank conflicts.)
-template <bool TRANS>
-__device__ __forceinline__ void store_tile(const float4 (&pre)[kFetch], float* Ws, int t) {
-#pragma unroll
-  for (int i = 0; i < kFetch; ++i) {
-    if (TRANS) {
-      const int q = i * 8 + (t >> 5), lane = t & 31;
-      const int k = (q & 3) * 8 + (lane >> 2), n = ((q >> 2) * 4 + (lane & 3)) * 4;
-      Ws[(n + 0) * kWS + k] = pre[i].x;
-      Ws[(n + 1) * kWS + k] = pre[i].y;
-      Ws[(n + 2) * kWS + k] = pre[i].z;
-      Ws[(n + 3) * kWS + k] = pre[i].w;
-    } else {
-      *reinterpret_cast<float4*>(&Ws[((t >> 3) + 32 * i) * kWS + (t & 7) * 4]) = pre[i];
-    }
-  }
-}
-
-// One step of 4 along K for this thread's RM x 4 register tile. FULL: all four
-// of its columns are live (no test).
-template <int RM, bool FULL>
-__device__ __forceinline__ void mma_step(const float* Ar, int lda, const float* Wr, int k4,
-                                         int ni, float (&acc)[RM][kRN]) {
-  float4 w[kRN];
-#pragma unroll
-  for (int i = 0; i < kRN; ++i) {
-    w[i] = *reinterpret_cast<const float4*>(&Wr[kTN * i * kWS + 4 * k4]);
-  }
-#pragma unroll
-  for (int r = 0; r < RM; ++r) {
-    const float4 a = *reinterpret_cast<const float4*>(&Ar[kTM * r * lda + 4 * k4]);
-#pragma unroll
-    for (int i = 0; i < kRN; ++i) {
-      if (FULL || i < ni) {
-        acc[r][i] = fmaf(a.x, w[i].x, acc[r][i]);
-        acc[r][i] = fmaf(a.y, w[i].y, acc[r][i]);
-        acc[r][i] = fmaf(a.z, w[i].z, acc[r][i]);
-        acc[r][i] = fmaf(a.w, w[i].w, acc[r][i]);
-      }
-    }
-  }
-}
-
-// One weight tile's worth of FMAs: nk4 steps; a whole tile (all but K's last
-// one, when K is no multiple of 32) is straight-line code.
-template <int RM, bool FULL>
-__device__ __forceinline__ void mma_tile(const float* Ar, int lda, const float* Wr, int nk4,
-                                         int ni, float (&acc)[RM][kRN]) {
-  if (!kFma) return;
-  if (nk4 == kKT / 4) {
-#pragma unroll
-    for (int k4 = 0; k4 < kKT / 4; ++k4) mma_step<RM, FULL>(Ar, lda, Wr, k4, ni, acc);
-  } else {
-    for (int k4 = 0; k4 < nk4; ++k4) mma_step<RM, FULL>(Ar, lda, Wr, k4, ni, acc);
-  }
-}
-
-// acc[r][i] = sum_k A[tm + 4 * r][k] * W(tn + 64 * i, k), k < K, for the N <=
-// 256 rows of W (see fetch_tile for TRANS). A is in shared memory (row stride
-// lda, 16-byte aligned rows), Wg in device memory (16-byte aligned rows; N and
-// K multiples of 4). Ws is the [256][kWS] staging tile. Every thread of the
-// block must call it.
-//
-// A warp is 8 thread columns x 4 thread rows: a 128-bit read of the weight
-// tile touches 8 rows (one 128-byte wavefront, the 4 thread rows share it) and
-// one of A touches 4 rows (lda = 4 mod 32 keeps them on different banks).
-template <int RM, bool TRANS>
-__device__ __forceinline__ void gemm_panel(const float* A, int lda,
-                                           const float* __restrict__ Wg, long long ldw,
-                                           int N, int K, float* Ws,
-                                           float (&acc)[RM][kRN]) {
-  const int t = threadIdx.x, tn = thread_col(t), tm = thread_row(t);
-#pragma unroll
-  for (int r = 0; r < RM; ++r) {
-#pragma unroll
-    for (int i = 0; i < kRN; ++i) acc[r][i] = 0.f;
-  }
-  int ni = (N - tn + kTN - 1) / kTN;  // this thread's live columns
-  ni = ni < 0 ? 0 : (ni > kRN ? kRN : ni);
-
-  float4 pre[kFetch];
-  if (kStream) fetch_tile<TRANS>(pre, Wg, ldw, N, K, 0, t);
-  for (int kt = 0; kt < K; kt += kKT) {
-    if (kStream || kt == 0) __syncthreads();  // the last tile's reads and A's writers are done
-    if (kStream) {
-      store_tile<TRANS>(pre, Ws, t);
-      if (kt + kKT < K) fetch_tile<TRANS>(pre, Wg, ldw, N, K, kt + kKT, t);
-      __syncthreads();
-    }
-    const int nk4 = (K - kt < kKT ? K - kt : kKT) / 4;
-    const float* Ar = A + tm * lda + kt;
-    const float* Wr = Ws + tn * kWS;
-    if (ni == kRN) {
-      mma_tile<RM, true>(Ar, lda, Wr, nk4, ni, acc);
-    } else {
-      mma_tile<RM, false>(Ar, lda, Wr, nk4, ni, acc);
-    }
-  }
 }
 
 // u[j] = bias + the 49 taps at pixel (py, px + j) of the image whose first row is
@@ -240,13 +84,12 @@ __device__ __forceinline__ void taps_strip(const float* __restrict__ x,
 // last pixel. A thread keeps one channel's 49 taps in registers and computes
 // strips of 4 pixels of one image row from one window of 10 loads per tap row
 // (70 loads per 4 outputs, not 196); with fewer than 256 channels the strips
-// are dealt to 256 / C thread groups. Strip k belongs to block k % S of a
-// cluster of S (rank: this block's place in it).
+// are dealt to 256 / C thread groups.
 __device__ __forceinline__ void taps_tile(const float* __restrict__ x,
                                           const float* __restrict__ dww,
                                           const float* __restrict__ dwb, float* us, int ldu,
                                           long long p0, long long pixels, int M, int H, int W,
-                                          int C, int rank, int S) {
+                                          int C) {
   const int t = threadIdx.x, strips = M / kStrip;
   const int groups = C >= kThreads ? 1 : kThreads / C;
   const int g = groups == 1 ? 0 : t / C;
@@ -255,7 +98,7 @@ __device__ __forceinline__ void taps_tile(const float* __restrict__ x,
 #pragma unroll
     for (int i = 0; i < kK * kK; ++i) wr[i] = __ldg(dww + (long long)c * (kK * kK) + i);
     const float bias = __ldg(dwb + c);
-    for (int k = rank + S * g; kTaps && k < strips; k += S * groups) {
+    for (int k = g; k < strips; k += groups) {
       const int m = k * kStrip;
       const long long p = p0 + m;
       const int px = (int)(p % W);
@@ -279,6 +122,191 @@ __device__ __forceinline__ void taps_tile(const float* __restrict__ x,
       }
     }
   }
+}
+
+// The LayerNorm over C of rows q < live of u (row stride ldu), one warp per
+// row, two passes (the mean, then the mean squared deviation: not E[x^2] -
+// E[x]^2). emit(q, c, xhat, xhat * lnw + lnb) for every value of a row, then
+// done(q, rstd) on its lane 0.
+template <class Emit, class Done>
+__device__ __forceinline__ void layer_norm_rows(const float* u, int ldu, int live, int C,
+                                                const float* __restrict__ lnw,
+                                                const float* __restrict__ lnb, Emit&& emit,
+                                                Done&& done) {
+  const int lane = threadIdx.x & 31;
+  for (int q = threadIdx.x >> 5; q < live; q += kWarps) {
+    const float* uq = u + q * ldu;
+    float s = 0.f;
+    for (int c = lane; c < C; c += 32) s += uq[c];
+    const float mean = warp_sum(s) / (float)C;
+    float v = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float d = uq[c] - mean;
+      v = fmaf(d, d, v);
+    }
+    const float r = 1.f / sqrtf(warp_sum(v) / (float)C + kEps);
+    for (int c = lane; c < C; c += 32) {
+      const float xh = (uq[c] - mean) * r;
+      emit(q, c, xh, xh * __ldg(lnw + c) + __ldg(lnb + c));
+    }
+    if (lane == 0) done(q, r);
+  }
+}
+
+// Tile b of src (R, Q) -> dst (Q, R), 32 x 32 through u ([32][33] floats):
+// tiles row-major over ceil(R / 32) x ceil(Q / 32). Every thread of the block
+// calls it.
+__device__ __forceinline__ void transpose_tile(const float* __restrict__ src,
+                                               float* __restrict__ dst, int R, int Q, int b,
+                                               float* u) {
+  const int t = threadIdx.x, tq = (Q + 31) / 32;
+  const int r0 = (b / tq) * 32, q0 = (b % tq) * 32;
+  for (int e = t; e < 32 * 32; e += kThreads) {
+    const int r = e >> 5, q = e & 31;
+    if (r0 + r < R && q0 + q < Q) u[r * 33 + q] = __ldg(src + (long long)(r0 + r) * Q + q0 + q);
+  }
+  __syncthreads();
+  for (int e = t; e < 32 * 32; e += kThreads) {
+    const int r = e >> 5, q = e & 31;
+    if (q0 + r < Q && r0 + q < R) dst[(long long)(q0 + r) * R + r0 + q] = u[q * 33 + r];
+  }
+}
+
+// This thread's rows and columns of the 128 x 128 tile. Warp w covers rows
+// 32 (w % 4) .. + 31 and columns 64 (w / 4) .. + 63; lane l owns rows
+// 4 (l / 8) + {0..3} and + 16, columns 4 (l % 8) + {0..3} and + 32.
+__device__ __forceinline__ int tile_row(int i) {
+  const int t = threadIdx.x;
+  return ((t >> 5) & 3) * 32 + (i >> 2) * 16 + ((t & 31) >> 3) * 4 + (i & 3);
+}
+__device__ __forceinline__ int tile_col(int j) {
+  const int t = threadIdx.x;
+  return (t >> 7) * 64 + (j >> 2) * 32 + (t & 7) * 4 + (j & 3);
+}
+
+// A K-major operand of a product: element (k, mn) at g[k * ld + mn], the
+// tile's columns from mn0, live below mn_end. Every operand is laid out so:
+// the launch that writes it writes it so.
+struct Operand {
+  const float* g;
+  long long ld;
+  int mn0, mn_end;
+};
+
+// One operand's [kBK][kBM] slab, rows k0 .., into s (row stride kLd) by
+// 16-byte cp.async; a warp copies one 512-byte slab row. Rows at or past
+// k_end and quads starting at or past mn_end read zeros; a quad that
+// straddles mn_end (the last pixel, in a row padded to a multiple of 4) reads
+// the row's padding, which only reaches outputs that are not stored.
+__device__ __forceinline__ void stage_slab(float* s, const Operand& o, int k0, int k_end) {
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int r = 0; r < kBK * kBM / 4 / kThreads; ++r) {
+    const int q = t + kThreads * r, k = q / (kBM / 4), m = (q % (kBM / 4)) * 4;
+    const bool in = k0 + k < k_end && o.mn0 + m < o.mn_end;
+    __pipeline_memcpy_async(s + k * kLd + m,
+                            in ? o.g + (long long)(k0 + k) * o.ld + o.mn0 + m : o.g, 16,
+                            in ? 0 : 16);
+  }
+}
+
+__device__ __forceinline__ void stage_pair(float* As, float* Bs, const Operand& a,
+                                           const Operand& b, int k0, int k_end) {
+  stage_slab(As, a, k0, k_end);
+  stage_slab(Bs, b, k0, k_end);
+}
+
+// acc += the slab pair's kBK k for this thread's 8 x 8: per k four 128-bit
+// shared reads (A's two row quads, B's two column quads) and 64 FMAs.
+__device__ __forceinline__ void mma_slab(const float* As, const float* Bs,
+                                         float (&acc)[kTile][kTile]) {
+  const int t = threadIdx.x;
+  const int am = ((t >> 5) & 3) * 32 + ((t & 31) >> 3) * 4, bn = (t >> 7) * 64 + (t & 7) * 4;
+#pragma unroll
+  for (int k = 0; k < kBK; ++k) {
+    const float4 a0 = *reinterpret_cast<const float4*>(As + k * kLd + am);
+    const float4 a1 = *reinterpret_cast<const float4*>(As + k * kLd + am + 16);
+    const float4 b0 = *reinterpret_cast<const float4*>(Bs + k * kLd + bn);
+    const float4 b1 = *reinterpret_cast<const float4*>(Bs + k * kLd + bn + 32);
+    const float a[kTile] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float b[kTile] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int i = 0; i < kTile; ++i) {
+#pragma unroll
+      for (int j = 0; j < kTile; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+}
+
+__device__ __forceinline__ void zero(float (&acc)[kTile][kTile]) {
+#pragma unroll
+  for (int i = 0; i < kTile; ++i) {
+#pragma unroll
+    for (int j = 0; j < kTile; ++j) acc[i][j] = 0.f;
+  }
+}
+
+// The product core. From acc = 0, nk slabs: stage(i, As, Bs) issues slab i's
+// copies (STAGES - 1 slabs ahead of the FMAs), acc += slab i for this
+// thread's 8 x 8 of the 128 x 128 tile (tile_row, tile_col), one float32
+// chain per output in k order; after slab i, when i + 1 is a multiple of
+// per_chain or i + 1 == nk, chain(i) takes acc (and may reset it). The ring
+// (ring_floats(STAGES) of shared memory) keeps flowing across chains. Every
+// thread of the block calls it.
+template <int STAGES, class Stage, class Chain>
+__device__ __forceinline__ void gemm_run(int nk, int per_chain, float* ring,
+                                         float (&acc)[kTile][kTile], Stage&& stage,
+                                         Chain&& chain) {
+  zero(acc);
+  __syncthreads();  // the ring's last readers are done
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) stage(s, ring + 2 * s * kSlab, ring + (2 * s + 1) * kSlab);
+    __pipeline_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    __pipeline_wait_prior(STAGES - 2);  // slab kt has landed (this thread's copies)
+    __syncthreads();                     // ... and everyone's; slab kt - 1 is read
+    const int next = kt + STAGES - 1, s = next % STAGES;
+    if (next < nk) stage(next, ring + 2 * s * kSlab, ring + (2 * s + 1) * kSlab);
+    __pipeline_commit();
+    const float* slab = ring + 2 * (kt % STAGES) * kSlab;
+    mma_slab(slab, slab + kSlab, acc);
+    if ((kt + 1) % per_chain == 0 || kt + 1 == nk) chain(kt);
+  }
+}
+
+// Rows of K per split: ceil(n / splits) rounded up to the 32-deep slab (the
+// host's plans, ops/convnext_block.py _split_len, use the same).
+__host__ __device__ __forceinline__ long long split_len(long long n, int splits) {
+  return ((n + splits - 1) / splits + kBK - 1) / kBK * kBK;
+}
+
+// Launch `kernel` on a 1-D grid of kThreads-thread blocks with `smem` bytes of
+// dynamic shared memory, in clusters of `cluster` blocks (0: no cluster
+// attribute), on stream s.
+template <class K, class... Args>
+cudaError_t launch(K kernel, unsigned grid, size_t smem, int cluster, cudaStream_t s,
+                   Args... args) {
+  // Above 48 KB shared memory is dynamic and has to be asked for, or the
+  // launch is refused (as it is above what the card allows).
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 0 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace

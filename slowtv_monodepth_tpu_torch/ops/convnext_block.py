@@ -11,10 +11,10 @@ with a stride-1 zero-'SAME' 7x7 depthwise conv, a LayerNorm over the channels
 
 On a CUDA tensor `fused_convnext_block` is a `torch.autograd.Function`:
 - forward: the hand-written Hopper kernel `csrc/convnext_block.cu` (kernel 9:
-  both matrix products, the taps, the LayerNorm and the GELU in one kernel; the
-  (pixels, 4C) hidden activation never reaches device memory; with few pixels
-  a cluster of thread blocks shares each pixel tile, see `tile_pixels`). It
-  saves x and the parameters only;
+  one C entry, three CUDA launches: the taps and the LayerNorm, then the two
+  matrix products as 128 x 128 register-tiled float32 tiles with the GELU and
+  the residual in their epilogues; with few pixels the blocks of a cluster
+  split a tile's K, see `fwd_plan`). It saves x and the parameters only;
 - backward: `fused_convnext_block_bwd`, which recomputes the forward as the
   JAX VJP does: `csrc/convnext_block_bwd.cu` (kernel 10: du, the cotangent
   before the depthwise conv, and the gradients of b_dw, the LayerNorm, fc1,
@@ -45,29 +45,22 @@ from .dwconv import _forward as _dwconv_forward
 from .dwconv import _sm_count, depthwise_conv_plain, dwconv_dw
 
 __all__ = ['fused_convnext_block', 'fused_convnext_block_plain', 'fused_convnext_block_bwd',
-           'fused_convnext_block_bwd_plain', 'tile_pixels', 'bwd_plan', 'MAX_CHANNELS',
-           'LN_EPS']
+           'fused_convnext_block_bwd_plain', 'fwd_plan', 'bwd_plan', 'MAX_CHANNELS', 'LN_EPS']
 
-LN_EPS = 1e-6         # the block's LayerNorm epsilon (csrc/convnext_block.cu kEps)
-MAX_CHANNELS = 2048   # the smallest pixel tile's shared memory fits up to here
+LN_EPS = 1e-6         # the block's LayerNorm epsilon (csrc/convnext_common.cuh kEps)
+MAX_CHANNELS = 2048   # the widest block the kernels take
 _K = 7
-_TILES = (32, 16, 8)  # pixels per tile the kernel is built for
+_TILES = (32, 16, 8)  # pixels per tile of the per-pixel launches
 _SMEM = 232448        # bytes of shared memory one block can use on Hopper
-_MIN_BLOCKS = 99      # 3/4 of an H100's 132 SMs: with fewer tiles, clusters share them
-_MAX_CLUSTER = 8      # thread blocks per cluster (the portable limit)
-# Kernel 10 (csrc/convnext_block_bwd.cu) and its plan, `bwd_plan`:
-_BWD_TILE = 128       # product tile, rows and columns (kBM, kBN)
-_BWD_K = 32           # K per staged slab (kBK)
+# The product core of kernels 9 and 10 (csrc/convnext_common.cuh) and their
+# plans, `fwd_plan` and `bwd_plan`:
+_TILE = 128           # product tile, rows and columns (kBM, kBN)
+_SLAB_K = 32          # K per staged slab (kBK)
 BWD_GROUP = 256       # K per float32 chain of the products, at most (kMaxGroup)
+_FWD_SPLITS = tuple(range(1, 9))  # blocks of a cluster splitting a forward product's K
 _BWD_SPLITS_W = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128)
 _BWD_SPLITS_X = (1, 2, 4)
 _SLAB_BYTES = 8e6     # bytes the card moves while an SM takes one slab of a tile (~2.4 us)
-
-
-def _smem_bytes(m: int, c: int) -> int:
-    """Shared memory of one forward block: LN output (m, c + 4), fc2 sum (m, c),
-    one hidden chunk (m, 260), one weight tile (256, 36); float32."""
-    return 4 * (m * (2 * c + 4) + 260 * m + 256 * 36)
 
 
 def _bwd_row_smem(m: int, c: int) -> int:
@@ -80,7 +73,7 @@ def _bwd_row_smem(m: int, c: int) -> int:
 def _split_len(n: int, splits: int) -> int:
     """Rows of K per split: ceil(n / splits) rounded up to the 32-deep slab
     (`split_len` in csrc/convnext_block_bwd.cu)."""
-    return -(-(-(-n // splits)) // _BWD_K) * _BWD_K
+    return -(-(-(-n // splits)) // _SLAB_K) * _SLAB_K
 
 
 def _makespan(blocks: list, sms: int) -> float:
@@ -90,6 +83,61 @@ def _makespan(blocks: list, sms: int) -> float:
     for length in blocks:
         heapq.heapreplace(free, free[0] + length)
     return max(free)
+
+
+def _pixel_tile(p: int, c: int, sms: int) -> int:
+    """Pixels per tile of the per-pixel launches (kernel 9's prep, kernel 10's
+    prep and ln): the largest of 32, 16 and 8 whose shared memory fits and
+    that leaves a tile for every SM, else the smallest that fits."""
+    fits = [m for m in _TILES if _bwd_row_smem(m, c) <= _SMEM]  # 16 and 8 up to MAX_CHANNELS
+    return next((m for m in fits if -(-p // m) >= sms), fits[-1])
+
+
+def _fwd_split(tiles: int, k: int, slots: tuple) -> int:
+    """Blocks of a cluster splitting the K of each of a forward product's
+    `tiles` 128 x 128 tiles: the split of `_FWD_SPLITS` that leaves no split
+    empty and minimises the launch's makespan, `slots[i]` blocks running at
+    once in clusters of `_FWD_SPLITS[i]`, a block taking its 32-deep slabs
+    plus two for the pipeline's start and its epilogue, plus one more for
+    the cluster's sum when split."""
+    best = None
+    for s, n in zip(_FWD_SPLITS, slots):
+        length = _split_len(k, s)
+        if s > 1 and (s - 1) * length >= k:  # a split without K
+            continue
+        cost = _makespan([-(-length // _SLAB_K) + 2 + (s > 1)] * (tiles * s), n)
+        if best is None or cost < best[0]:
+            best = (cost, s)
+    return best[1]
+
+
+@functools.lru_cache(maxsize=64)
+def fwd_plan(b: int, h: int, w: int, c: int, sms: int,
+             cluster_blocks: tuple | None = None) -> tuple[int, int, int]:
+    """Kernel 9's plan on a card of `sms` SMs -> (pixels per tile of its prep
+    launch, blocks per cluster splitting fc1's K = c, and fc2's K = 4c).
+
+    `cluster_blocks`: for each split of `_FWD_SPLITS`, the blocks of the
+    product launches the card runs at once in clusters of that size (a
+    cluster's blocks share a GPC, so large clusters leave SMs out;
+    `_cluster_blocks` asks the card); `sms` for every split when not given.
+    """
+    p = b * h * w
+    mtiles = -(-p // _TILE)
+    slots = cluster_blocks or (sms,) * len(_FWD_SPLITS)
+    return (_pixel_tile(p, c, sms), _fwd_split(mtiles * -(-4 * c // _TILE), c, slots),
+            _fwd_split(mtiles * -(-c // _TILE), 4 * c, slots))
+
+
+@functools.lru_cache(maxsize=8)
+def _cluster_blocks(device: int) -> tuple:
+    """`fwd_plan`'s `cluster_blocks` for this card, from the CUDA runtime's
+    occupancy of the product launches."""
+    lib = _build.load()
+    out = tuple(lib.slowtv_convnext_block_fwd_cluster_blocks(s, device) for s in _FWD_SPLITS)
+    if not all(out):
+        raise RuntimeError(f'the CUDA runtime gave no cluster occupancy for kernel 9: {out}')
+    return out
 
 
 @functools.lru_cache(maxsize=64)
@@ -108,41 +156,25 @@ def bwd_plan(b: int, h: int, w: int, c: int, sms: int) -> tuple[int, int, int, i
     written and read, at `_SLAB_BYTES` a slab.
     """
     p, hidden = b * h * w, 4 * c
-    fits = [m for m in _TILES if _bwd_row_smem(m, c) <= _SMEM]  # 16 and 8 up to MAX_CHANNELS
-    m = next((m for m in fits if -(-p // m) >= sms), fits[-1])
-    tiles_c, tiles_h, mtiles = -(-c // _BWD_TILE), -(-hidden // _BWD_TILE), -(-p // _BWD_TILE)
+    m = _pixel_tile(p, c, sms)
+    tiles_c, tiles_h, mtiles = -(-c // _TILE), -(-hidden // _TILE), -(-p // _TILE)
     best = None
     for sw in _BWD_SPLITS_W:
         lw = _split_len(p, sw)
         if sw > 1 and (sw - 1) * lw >= p:  # a split without pixels
             continue
-        w_block = -(-lw // _BWD_K) + 2 + -(-lw // BWD_GROUP) / 4
+        w_block = -(-lw // _SLAB_K) + 2 + -(-lw // BWD_GROUP) / 4
         for sx in _BWD_SPLITS_X:
             lx = _split_len(hidden, sx)
             if sx > 1 and (sx - 1) * lx >= hidden:
                 continue
-            x_block = -(-lx // _BWD_K) + 2 + -(-lx // BWD_GROUP) / 4
+            x_block = -(-lx // _SLAB_K) + 2 + -(-lx // BWD_GROUP) / 4
             blocks = [w_block] * (2 * tiles_c * tiles_h * sw) + [x_block] * (mtiles * tiles_c * sx)
             partials = 8 * (2 * sw * c * hidden + (sx - 1) * p * c)  # bytes, written and read
             cost = _makespan(blocks, sms) + partials / _SLAB_BYTES
             if best is None or cost < best[0]:
                 best = (cost, sw, sx)
     return m, BWD_GROUP, best[1], best[2]
-
-
-def tile_pixels(pixels: int, c: int) -> tuple[int, int]:
-    """(pixels per tile, thread blocks per tile): the largest tile that fits
-    shared memory; while its tiles would leave more than a quarter of the SMs
-    idle, twice the blocks share each tile (a cluster, which splits the
-    tile's pixels for the taps and its 256-column hidden chunks for the MLP)."""
-    m = next((m for m in _TILES if _smem_bytes(m, c) <= _SMEM), None)
-    if m is None:
-        raise ValueError(f'no pixel tile fits {c} channels')  # excluded by MAX_CHANNELS
-    tiles, chunks = -(-pixels // m), -(-4 * c // 256)
-    s = 1
-    while s < _MAX_CLUSTER and tiles * s < _MIN_BLOCKS and 2 * s <= chunks:
-        s *= 2
-    return m, s
 
 
 def _check(x, dw_weight, dw_bias, ln_weight, ln_bias, fc1_weight, fc1_bias,
@@ -193,16 +225,18 @@ def _forward(x, dw_weight, dw_bias, ln_weight, ln_bias, fc1_weight, fc1_bias, fc
             fc2_bias, gamma)
     if x.device.type == 'cpu':
         return fused_convnext_block_plain(*args, approximate=approximate)
-    if fc1_weight.data_ptr() % 16 or fc2_weight.data_ptr() % 16:
-        raise ValueError('fc1_weight and fc2_weight must start on a 16-byte boundary')
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
     b, h, w, c = x.shape
-    err = _build.load().slowtv_convnext_block_fwd_f32(
-        *(t.data_ptr() for t in args), out.data_ptr(), b, h, w, c,
-        *tile_pixels(b * h * w, c), int(bool(approximate)), x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    lib = _build.load()
+    scratch = torch.empty(lib.slowtv_convnext_block_fwd_scratch_floats(b, h, w, c),
+                          dtype=torch.float32, device=x.device)
+    err = lib.slowtv_convnext_block_fwd_f32(
+        *(t.data_ptr() for t in args), out.data_ptr(), scratch.data_ptr(), b, h, w, c,
+        *fwd_plan(b, h, w, c, _sm_count(x.device.index), _cluster_blocks(x.device.index)),
+        int(bool(approximate)),
+        x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, 'convnext-block kernel')
     fused_convnext_block.launches += 1
     return out
@@ -238,9 +272,10 @@ def fused_convnext_block(x, dw_weight, dw_bias, ln_weight, ln_bias, fc1_weight, 
     :param approximate: tanh GELU instead of the exact erf one.
     :return: (b, h, w, c) contiguous, a new tensor (never in place).
 
-    `fused_convnext_block.launches` counts the forward kernel's launches on
-    the card (one per call); `fused_convnext_block_bwd.launches` the
-    backward's (one per block backward).
+    `fused_convnext_block.launches` counts the forward kernel's calls on the
+    card (one per call, however many CUDA launches kernel 9 makes inside);
+    `fused_convnext_block_bwd.launches` the backward's (one per block
+    backward).
     """
     args = (x, dw_weight, dw_bias, ln_weight, ln_bias, fc1_weight, fc1_bias, fc2_weight,
             fc2_bias, gamma)

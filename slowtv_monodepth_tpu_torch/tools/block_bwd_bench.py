@@ -22,19 +22,26 @@ compare them on one card.
 
     python -m slowtv_monodepth_tpu_torch.tools.block_bwd_bench variants
 
-builds `csrc/convnext_block_bwd.cu` as the library does and as copies with
-one edit each, patched in at build time (all nvcc runs started together; the
-library's source carries no such switches), and times each copy's C entry on
+builds `csrc/convnext_block_bwd.cu` as the library does and as copies of it
+and of `csrc/convnext_common.cuh` with one edit each, patched in at build
+time (all nvcc runs started together; the library's sources carry no such
+switches), and times each copy's C entry on
 the library's plan (`ops.convnext_block.bwd_plan`) in the same way: other
 slab depths and ring lengths, and three timing aids whose results are
 wrong: the products' FMAs left out, their staging copies left out, the
 prep's taps left out. The others'
 eight parameter gradients are held to the plain backward in float64 within
 1e-5 of each one's largest magnitude.
+
+    python -m slowtv_monodepth_tpu_torch.tools.block_bwd_bench digests
+
+prints a digest of each of kernel 10's outputs at the eight shapes on seeded
+inputs: run it in two checkouts to see that they give the same bits.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import re
 import subprocess
 import sys
@@ -134,39 +141,45 @@ def kernel10(args):
 
 
 ENTRY = 'slowtv_convnext_block_bwd_f32'
-# name -> edits of csrc/convnext_block_bwd.cu, (old, new) each.
+# name -> edits of csrc/convnext_block_bwd.cu or csrc/convnext_common.cuh,
+# (file, old, new) each.
 VARIANTS = {
     'library': (),
-    'products ring of 2': (('constexpr int kProductsStages = 3;',
+    'products ring of 2': (('convnext_block_bwd.cu', 'constexpr int kProductsStages = 3;',
                             'constexpr int kProductsStages = 2;'),),
-    'mlp ring of 3': (('constexpr int kMlpStages = 2;', 'constexpr int kMlpStages = 3;'),),
-    '16-deep slabs': (('constexpr int kBK = 32;', 'constexpr int kBK = 16;'),),
+    'mlp ring of 3': (('convnext_block_bwd.cu', 'constexpr int kMlpStages = 2;',
+                       'constexpr int kMlpStages = 3;'),),
+    '16-deep slabs': (('convnext_common.cuh', 'constexpr int kBK = 32;',
+                       'constexpr int kBK = 16;'),),
     'prep without taps (wrong)': (
-        ('  taps_tile(x, dww, dwb, u, ldu, p0, pixels, M, H, W, C, 0, 1);', ''),),
-    'no FMA (wrong)': (('    mma_slab(slab, slab + kSlab, acc);',
+        ('convnext_block_bwd.cu', '  taps_tile(x, dww, dwb, u, ldu, p0, pixels, M, H, W, C);', ''),),
+    'no FMA (wrong)': (('convnext_common.cuh', '    mma_slab(slab, slab + kSlab, acc);',
                         '    if (nk < 0) mma_slab(slab, slab + kSlab, acc);'),),
-    'no staging (wrong)': (('    if (s < nk) stage(', '    if (s < nk && nk < 0) stage('),
-                           ('    if (next < nk) stage(', '    if (next < nk && nk < 0) stage(')),
+    'no staging (wrong)': (('convnext_common.cuh', '    if (s < nk) stage(',
+                            '    if (s < nk && nk < 0) stage('),
+                           ('convnext_common.cuh', '    if (next < nk) stage(',
+                            '    if (next < nk && nk < 0) stage(')),
 }
 
 
 def _build_variants() -> dict:
     """One library per entry of `VARIANTS`, all nvcc runs started together."""
     out = _build.BUILD_DIR / 'block_bwd_bench'
-    out.mkdir(parents=True, exist_ok=True)
-    text = (_build.CSRC / 'convnext_block_bwd.cu').read_text()
     procs = {}
     for i, (name, edits) in enumerate(VARIANTS.items()):
-        src = text
-        for old, new in edits:
-            if src.count(old) != 1:
-                raise RuntimeError(f'variant {name!r}: {old!r} is not in the source once')
-            src = src.replace(old, new)
-        cu = out / f'variant_{i}.cu'
-        cu.write_text(src)
-        path = out / f'variant_{i}.so'
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, f'-I{_build.CSRC}', '-shared', '-o', str(path),
-               str(cu)]
+        src = out / f'variant_{i}'
+        src.mkdir(parents=True, exist_ok=True)
+        for file in ('convnext_block_bwd.cu', 'convnext_common.cuh'):
+            text = (_build.CSRC / file).read_text()
+            for f, old, new in edits:
+                if f == file:
+                    if text.count(old) != 1:
+                        raise RuntimeError(f'variant {name!r}: {old!r} is not in {f} once')
+                    text = text.replace(old, new)
+            (src / file).write_text(text)
+        path = src / 'kernel10.so'
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, '-shared', '-o', str(path),
+               str(src / 'convnext_block_bwd.cu')]
         procs[name] = (path, cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                    stderr=subprocess.STDOUT, text=True))
     libs = {}
@@ -237,6 +250,17 @@ def bench_variants() -> None:
               + ', '.join(f'{k} {v:.3f}' for k, v in splits[name].items()))
 
 
+def digests() -> None:
+    """sha256 of each of kernel 10's nine outputs at the micro-step's shapes,
+    on seeded inputs: equal lines from two checkouts mean the same bits."""
+    rs = np.random.RandomState(0)
+    for b, h, w, c, _ in STEP_BLOCKS:
+        out = kernel10(block_args(rs, b, h, w, c))
+        torch.cuda.synchronize()
+        print(f'digest ({b}, {h}, {w}, {c}): ' + ' '.join(
+            hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16] for t in out))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit('block_bwd_bench needs a CUDA card')
@@ -244,8 +268,8 @@ def main() -> None:
                          capture_output=True, text=True, check=True).stdout.strip())
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision('highest')
-    if sys.argv[1:] == ['variants']:
-        bench_variants()
+    if sys.argv[1:] in (['variants'], ['digests']):
+        (bench_variants if sys.argv[1] == 'variants' else digests)()
         return
     build = _build.build()
     _build.load()

@@ -48,6 +48,12 @@ struct cudaLaunchConfig_t {
 };
 inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+// One cluster of any size at a time, as this emulation runs them.
+template <class F>
+inline cudaError_t cudaOccupancyMaxActiveClusters(int* n, F, const cudaLaunchConfig_t*) {
+  *n = 1;
+  return cudaSuccess;
+}
 // As on an H100: asking for more dynamic shared memory than a block may have
 // (227 KB) is refused.
 template <class F> inline cudaError_t cudaFuncSetAttribute(F, int attr, int value) {

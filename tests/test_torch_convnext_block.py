@@ -288,18 +288,3 @@ def test_cpu_path_counts_no_launches_and_keeps_autograd():
     y, _ = _port(_inputs(1, 4, 4, 8), grad=True)
     assert tb.fused_convnext_block.launches == before
     assert y.grad_fn is not None
-
-
-@pytest.mark.parametrize('pixels,c,want', [
-    (15360, 128, (32, 1)), (3840, 256, (32, 1)), (960, 512, (32, 4)), (240, 1024, (16, 8)),  # KBR, B=1
-    (61440, 128, (32, 1)), (15360, 256, (32, 1)), (3840, 512, (32, 1)), (960, 1024, (16, 2)),  # B=4
-    (35, 96, (32, 2)), (12, 40, (32, 1)), (77, 1536, (8, 8)), (10 ** 6, 2048, (8, 1))])
-def test_tile_pixels_fits_shared_memory_and_fills_the_card(pixels, c, want):
-    """The tile is the largest that fits a block's 227 KB; a cluster of up to 8
-    blocks shares each tile while the tiles alone are fewer than 99, and never
-    more blocks than there are 256-column hidden chunks."""
-    m, s = tb.tile_pixels(pixels, c)
-    assert (m, s) == want
-    assert 4 * (m * (2 * c + 4) + 260 * m + 256 * 36) <= 227 * 1024
-    assert s in (1, 2, 4, 8) and (s - 1) * 256 < 4 * c
-    assert s == 1 or -(-pixels // m) * s // 2 < 99

@@ -353,18 +353,34 @@ def _block_args(rs, b, h, w, c):
 @pytest.mark.parametrize('approximate', [False, True], ids=['erf', 'tanh'])
 @pytest.mark.parametrize('b,h,w,c', [(2, 12, 16, 128), (1, 5, 7, 96), (2, 37, 53, 160),
                                      (1, 3, 4, 40), (3, 9, 9, 264), (1, 7, 11, 1536),
-                                     (1, 1, 1, 8), (2, 24, 40, 512)])
+                                     (1, 1, 1, 8), (2, 24, 40, 512), (4, 24, 40, 512),
+                                     (1, 24, 40, 512), (1, 12, 20, 1024), (4, 12, 20, 1024)])
 def test_convnext_block_kernel_matches_plain(card, b, h, w, c, approximate):
     """Kernel 9 against the unfused block in float64: heights under the 7x7
-    halo, pixel counts off every tile, channels off 32 and off 256."""
+    halo, pixel counts off the 128-pixel tile and off 4, channels off 128, on
+    the plan `fwd_plan` makes for this card (at the few-pixel deep stages of a
+    request the blocks of a cluster split a product's K); two calls give the
+    same bits."""
     from slowtv_monodepth_tpu_torch.ops import convnext_block as cb
     args = _block_args(np.random.RandomState(10), b, h, w, c)
     n = cb.fused_convnext_block.launches
     out = cb.fused_convnext_block(*args, approximate=approximate)
+    again = cb.fused_convnext_block(*args, approximate=approximate)
     torch.cuda.synchronize()
-    assert cb.fused_convnext_block.launches == n + 1
-    assert out.data_ptr() != args[0].data_ptr()
+    assert cb.fused_convnext_block.launches == n + 2
+    assert out.data_ptr() != args[0].data_ptr() and torch.equal(out, again)
     assert _close(out, cb.fused_convnext_block_plain(*_f64(*args), approximate=approximate))
+
+
+def test_convnext_block_plan_splits_the_deep_stages_of_a_request(card):
+    """The shapes above cover both kinds of plan on this card: split K at the
+    last stage of a B=1 request, no split at the third stage at B=4."""
+    from slowtv_monodepth_tpu_torch.ops import convnext_block as cb
+    from slowtv_monodepth_tpu_torch.ops.dwconv import _sm_count
+    sms, slots = _sm_count(0), cb._cluster_blocks(0)
+    assert all(0 < n <= sms for n in slots)
+    assert max(cb.fwd_plan(1, 12, 20, 1024, sms, slots)[1:]) > 1
+    assert cb.fwd_plan(4, 24, 40, 512, sms, slots)[1:] == (1, 1)
 
 
 def test_convnext_block_under_grad_on_the_card_keeps_autograd(card):
@@ -441,20 +457,20 @@ def test_convnext_block_backward_refuses_what_it_cannot_take(card):
 
 
 def test_convnext_block_takes_a_view_that_starts_off_alignment(card):
-    """x one float into its storage (not 16-byte aligned); misaligned fc
-    weights, which the kernel reads 16 bytes at a time, are refused."""
+    """x and the fc weights one float into their storage (not 16-byte
+    aligned): the kernel reads them a float at a time (its 16-byte reads are
+    of its own scratch)."""
     from slowtv_monodepth_tpu_torch.ops import convnext_block as cb
     rs = np.random.RandomState(12)
     args = _block_args(rs, 1, 10, 12, 32)
-    x = torch.empty(args[0].numel() + 1, device='cuda')[1:].view(args[0].shape)
-    x.copy_(args[0])
-    assert x.data_ptr() % 16 and x.is_contiguous()
-    out = cb.fused_convnext_block(x, *args[1:])
+
+    def off(t):
+        return torch.empty(t.numel() + 1, device='cuda')[1:].view(t.shape).copy_(t)
+    x, w1, w2 = off(args[0]), off(args[5]), off(args[7])
+    assert x.data_ptr() % 16 and w1.data_ptr() % 16 and x.is_contiguous()
+    out = cb.fused_convnext_block(x, *args[1:5], w1, args[6], w2, *args[8:])
     torch.cuda.synchronize()
     assert _close(out, cb.fused_convnext_block_plain(*_f64(*args)))
-    w1 = torch.empty(args[5].numel() + 1, device='cuda')[1:].view(args[5].shape).copy_(args[5])
-    with pytest.raises(ValueError, match='16-byte'):
-        cb.fused_convnext_block(*args[:5], w1, *args[6:])
 
 
 def test_depthnet_fused_blocks_match_plain_path_in_float64(card):

@@ -184,6 +184,19 @@ def test_resume_refuses_a_last_checkpoint_without_optimizer_state(tmp_path):
         _loop(tmp_path, 'run')._init_state()
 
 
+@pytest.mark.parametrize('async_ckpt', [True, False, None], ids=['on', 'off', 'absent'])
+def test_async_checkpoints_raise_naming_the_roadmap_item(tmp_path, async_ckpt):
+    """`trainer.async_ckpt` (the JAX loop's asynchronous saves) is not ported:
+    asked for, it raises as every other key the port lacks does; off or absent,
+    the loop builds."""
+    trainer = {} if async_ckpt is None else {'async_ckpt': async_ckpt}
+    if async_ckpt:
+        with pytest.raises(NotImplementedError, match='trainer.async_ckpt .*queue A item 7'):
+            _loop(tmp_path, 'run', **trainer)
+    else:
+        _loop(tmp_path, 'run', **trainer)
+
+
 # ---------------------------------------------------------- 5. TPU recipe options
 def test_a_tpu_recipe_depth_cfg_builds_and_serves_the_same_maps():
     """`cfg/kbr/tpu.yaml`'s net.depth with the two exact transforms it may carry."""
