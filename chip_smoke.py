@@ -13,7 +13,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    erf and tanh, two calls bitwise equal, at the four ConvNeXt-B stage shapes
    and the four ConvNeXt-T ones of the pose net (B=8); timed at B=1 and B=4
    and at the KBR micro-step's 54 block shapes, there also split by CUDA
-   launch (prep, fc1, fc2).
+   launch (prep, fc1, fc2). The decoder stage (kernel 3) is held to the
+   plain stage for ha, feat and disp, two calls bitwise equal (an unaligned
+   x among the ragged shapes), timed per request at B=1, per forward at B=2
+   and per micro-step (B=4), there also split by CUDA launch (conv_a,
+   conv_b, disp).
 4. golden: ConvNeXt-B + monodepth at full width with seeded weights
    (`models.seeded_state_dict`) against the JAX package's outputs stored in
    `tests/fixtures/torch_port_golden.npz`, with the ConvNeXt blocks unfused
@@ -316,14 +320,18 @@ def run_buckets() -> list[tuple[tuple[int, int], tuple[int, int]]]:
     return [(crop, sample_resize(crop, ref, eps=0.8)) for crop in RUN_CROPS]
 
 
-def stage_cost(b, h, w, ci, cd, backward: bool) -> tuple[float, float]:
-    """(bytes, float32 operations) of one decoder stage, forward or backward."""
+def stage_cost(b, h, w, ci, cd, backward: bool, taps9: bool = False) -> tuple[float, float]:
+    """(bytes, float32 operations) of one decoder stage, forward or backward.
+    The forward's conv_b counts as kernel 3 computes it, four pre-summed taps
+    per output (16 CD x CD products per ha pixel), or with `taps9` as nine taps
+    on the upsampled grid (36)."""
     p = b * h * w
     conv_flops = 2 * 9 * (ci * cd * p + cd * cd * 4 * p + cd * 4 * p)
     params = 9 * (ci * cd + cd * cd + cd) + 2 * cd + 1
     x, ha, feat, disp = p * ci, p * cd, 4 * p * cd, 4 * p
     if not backward:  # reads x and the parameters, writes feat and disp
-        return 4 * (x + params + feat + disp), conv_flops
+        presum = 0 if taps9 else 2 * 16 * cd * cd * p - 2 * 9 * cd * cd * 4 * p
+        return 4 * (x + params + feat + disp), conv_flops + presum
     # reads x, the weights, ha, feat, disp and both cotangents; writes seven gradients;
     # each conv has an input and a weight gradient of the forward's cost each, but the
     # input gradient through the upsample: 16 pre-summed taps (cd x cd) per ha pixel.
@@ -369,6 +377,13 @@ def phase_build() -> None:
         if 'convnext_block_fwd_' in entry and 'spill' in line \
                 and '0 bytes spill stores, 0 bytes spill loads' not in line:
             fail(f'a launch of the fused ConvNeXt block kernel spills registers: {line.strip()}')
+        if 'decoder_stage_fwd_' in entry and 'stack frame' in line \
+                and '0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads' not in line:
+            fail(f'a launch of the decoder-stage kernel uses local memory: {line.strip()}')
+        # Kernel 3's launches run two 256-thread blocks an SM only within 128 registers.
+        if 'decoder_stage_fwd_' in entry and 'registers' in line \
+                and int(line.split('Used ')[1].split()[0]) > 128:
+            print(f'  NOTE: over 128 registers (one block an SM) in {entry.strip()}')
         # Kernels 1, 2, 4, 9 and 10 keep their register tiles (the row ring,
         # the taps' window, the tap sums, the 8 x 8 product tiles) in
         # registers only when every index into them is a constant.
@@ -382,6 +397,8 @@ def phase_build() -> None:
     if not all(f'convnext_block_{k}_kernel' in log
                for k in ('fwd_prep', 'fwd_fc1', 'fwd_fc2', 'bwd_mlp')):
         fail('the build log does not show the fused ConvNeXt block kernels')
+    if not all(f'decoder_stage_fwd_{k}_kernel' in log for k in ('conv_a', 'conv_b', 'disp')):
+        fail('the build log does not show the decoder-stage kernels')
 
 
 def _rand(rs, *shape, scale=1.0):
@@ -389,9 +406,7 @@ def _rand(rs, *shape, scale=1.0):
 
 
 def phase_kernels() -> dict:
-    from slowtv_monodepth_tpu_torch.ops import (depthwise_conv, depthwise_conv_plain,
-                                                fused_upconv_stage, fused_upconv_stage_plain)
-    import torch.nn.functional as F
+    from slowtv_monodepth_tpu_torch.ops import depthwise_conv, depthwise_conv_plain
     rs = np.random.RandomState(0)
     res = {'dwconv': new_result(), 'decoder_stage': new_result()}
 
@@ -433,27 +448,65 @@ def phase_kernels() -> dict:
                  f'({int((ek > DWCONV_ATOL).sum())} of {ek.numel()} values off), plain vs plain in '
                  f'float64 {ep.max().item():.2e} ({int((ep > DWCONV_ATOL).sum())} values off)')
 
-    # (b, h, w, ci, cd, stages per forward): KBR stages 1 and 0 at B=2
-    # (timed) and B=1, then ragged ones.
-    st_cases = [(2, 96, 160, 64, 32, 1), (2, 192, 320, 32, 16, 1),
-                (1, 96, 160, 64, 32, 0), (1, 192, 320, 32, 16, 0),
-                (2, 23, 37, 6, 5, 0), (1, 21, 19, 20, 20, 0)]
-    for _, (bh, bw) in run_buckets():  # the training run's buckets at B=4, stages 1 and 0
-        st_cases += [(4, bh // 4, bw // 4, 64, 32, 0), (4, bh // 2, bw // 2, 32, 16, 0)]
-    for b, h, w, ci, cd, n in st_cases:
-        args = (_rand(rs, b, h, w, ci, scale=0.5),
-                _rand(rs, cd, ci, 3, 3, scale=1 / np.sqrt(9 * ci)), _rand(rs, cd, scale=0.1),
-                _rand(rs, cd, cd, 3, 3, scale=1 / np.sqrt(9 * cd)), _rand(rs, cd, scale=0.1),
-                _rand(rs, 1, cd, 3, 3, scale=1 / np.sqrt(9 * cd)), _rand(rs, 1, scale=0.1))
-        (fk, dk), (fp, dp) = fused_upconv_stage(*args), fused_upconv_stage_plain(*args)
-        err = max((fk - fp).abs().max().item(), (dk - dp).abs().max().item())
+    res['decoder_stage_step'], res['decoder_stage_b1'] = new_result(), new_result()
+    _stage_kernel_cases(rs, res)
+    res['convnext_block'] = _block_kernel_cases(rs)
+    torch.cuda.synchronize()
+    return res
+
+
+def _stage_args(rs, b, h, w, ci, cd, misaligned=False) -> tuple:
+    """x and the stage's six parameters, fan-in scaled; x one float into its
+    storage (not 16-byte aligned) when `misaligned`."""
+    x = _rand(rs, b, h, w, ci, scale=0.5)
+    if misaligned:
+        x = torch.cat([torch.zeros(1, device='cuda'), x.flatten()])[1:].view(x.shape)
+    return (x, _rand(rs, cd, ci, 3, 3, scale=1 / np.sqrt(9 * ci)), _rand(rs, cd, scale=0.1),
+            _rand(rs, cd, cd, 3, 3, scale=1 / np.sqrt(9 * cd)), _rand(rs, cd, scale=0.1),
+            _rand(rs, 1, cd, 3, 3, scale=1 / np.sqrt(9 * cd)), _rand(rs, 1, scale=0.1))
+
+
+def _stage_kernel_cases(rs, res) -> None:
+    """Kernel 3 against the plain stage (ha, feat and disp), two calls bitwise
+    equal, at the KBR stages, the training run's buckets and ragged shapes;
+    timed per forward at B=2 (res['decoder_stage']), per KBR micro-step (B=4,
+    res['decoder_stage_step']) and per request at B=1 (res['decoder_stage_b1']),
+    split by CUDA launch at the micro-step's shapes."""
+    import torch.nn.functional as F
+    from slowtv_monodepth_tpu_torch.ops import decoder_stage as ds
+    from slowtv_monodepth_tpu_torch.ops.dwconv import _sm_count
+    from slowtv_monodepth_tpu_torch.tools.block_bwd_bench import launch_split
+    sms = _sm_count(0)
+    timed = {2: res['decoder_stage'], 4: res['decoder_stage_step'], 1: res['decoder_stage_b1']}
+    # (b, h, w, ci, cd): KBR stages 1 and 0 at B=2, B=4 and B=1 (timed), then
+    # ragged ones: grids of 2 and 3, one decoder channel, channels off 4, input
+    # channels over one chunk of 32, decoder channels over one tile, h and w
+    # off the tiles; the training run's buckets at B=4, stages 1 and 0.
+    st_cases = [(b, h, w, ci, cd) for b in (2, 4, 1)
+                for h, w, ci, cd in ((96, 160, 64, 32), (192, 320, 32, 16))]
+    st_cases += [(2, 23, 37, 6, 5), (1, 21, 19, 20, 20), (1, 2, 3, 4, 3), (2, 3, 2, 3, 1),
+                 (1, 37, 45, 40, 17)]
+    for _, (bh, bw) in run_buckets():
+        st_cases += [(4, bh // 4, bw // 4, 64, 32), (4, bh // 2, bw // 2, 32, 16)]
+    split, bound9 = {}, {k: 0.0 for k in timed}
+    for i, (b, h, w, ci, cd) in enumerate(st_cases + [(1, 10, 12, 32, 16)]):
+        misaligned = i == len(st_cases)
+        args = _stage_args(rs, b, h, w, ci, cd, misaligned)
+        outs = ds._launch_fwd(*args)
+        again = ds._launch_fwd(*args)
+        want = (ds.stage_ha_plain(*args[:3]), *ds.fused_upconv_stage_plain(*args))
+        (fk, dk), errs = ds.fused_upconv_stage(*args), [_max_err(o, t) for o, t in zip(outs, want)]
         torch.cuda.synchronize()
+        err = max(errs + [_max_err(fk, want[1]), _max_err(dk, want[2])])
         res['decoder_stage']['err'] = max(res['decoder_stage']['err'], err)
-        line = (f'decoder_stage {(b, h, w, ci)} -> cd={cd}: max|kernel-plain| '
-                f'{err:.2e} (tol {STAGE_ATOL:.0e})')
-        if n:
-            ms = cuda_ms(lambda: fused_upconv_stage(*args))
-            pms = cuda_ms(lambda: fused_upconv_stage_plain(*args))
+        line = (f'decoder_stage {(b, h, w, ci)} -> cd={cd}{", x not 16-byte aligned" * misaligned}'
+                f' plan {ds.fwd_plan(b, h, w, ci, cd, sms)}: max|kernel-plain| ha {errs[0]:.2e}, '
+                f'feat {errs[1]:.2e}, disp {errs[2]:.2e} (tol {STAGE_ATOL:.0e}; two calls equal)')
+        if not all(torch.equal(u, v) for u, v in zip(outs, again)):
+            fail(f'{line}: two calls on the same inputs differ')
+        if i < 6:
+            ms = cuda_ms(lambda: ds.fused_upconv_stage(*args))
+            pms = cuda_ms(lambda: ds.fused_upconv_stage_plain(*args))
             # Library: cuDNN for the stage's three convs alone (zero padding
             # in the call, no ELU, upsample or sigmoid).
             xa = args[0].permute(0, 3, 1, 2)
@@ -462,14 +515,24 @@ def phase_kernels() -> dict:
             lms = cuda_ms(lambda: (F.conv2d(xa, args[1], args[2], padding=1),
                                    F.conv2d(ub, args[3], args[4], padding=1),
                                    F.conv2d(ub, args[5], args[6], padding=1)))
-            line += add_times(res['decoder_stage'], n, ms, pms,
-                              bound_ms(*stage_cost(b, h, w, ci, cd, False)), lms)
+            b9 = bound_ms(*stage_cost(b, h, w, ci, cd, False, taps9=True))
+            bound9[b] += max(b9)
+            line += add_times(timed[b], 1, ms, pms, bound_ms(*stage_cost(b, h, w, ci, cd, False)),
+                              lms) + f' (9-tap bound {max(b9):.4f})'
+            if b == 4:
+                for k, v in launch_split(lambda: ds._launch_fwd(*args)).items():
+                    k = k.replace('decoder_stage_fwd_', '').replace('_kernel', '')
+                    split[k] = split.get(k, 0.0) + v
         print(line)
         if not err <= STAGE_ATOL:
             fail(line)
-    res['convnext_block'] = _block_kernel_cases(rs)
-    torch.cuda.synchronize()
-    return res
+    for b, what in ((1, 'per request at B=1'), (2, 'per forward at B=2'),
+                    (4, f'per KBR micro-step (B={TRAIN_B}, 384x640)')):
+        r = timed[b]
+        print(f'decoder_stage, 2 stages {what}: kernel {r["ms"]:.4f} ms, plain {r["plain_ms"]:.4f}, '
+              f'cuDNN three convs {r["library_ms"]:.4f}, bound {r["bound_ms"]:.4f} (9-tap '
+              f'{bound9[b]:.4f})' + ('; by CUDA launch (torch.profiler): ' + ', '.join(
+                  f'{k} {v:.4f}' for k, v in split.items()) + ' ms' if b == 4 else ''))
 
 
 def block_cost(b, h, w, c) -> tuple[float, float]:
@@ -1439,7 +1502,7 @@ def profile_train(out: Path = ROOT / 'build' / 'train_profile.txt',
             and not getattr(e, 'is_user_annotation', False) and not e.key.startswith('Optimizer.')]
     rows.sort(key=lambda r: -r[1])
     device = sum(r[1] for r in rows)
-    cats = {'hand-written kernels': ('dwconv_', 'warp_bilinear', 'photo_', 'conv3x3_reflect',
+    cats = {'hand-written kernels': ('dwconv_', 'warp_bilinear', 'photo_', 'decoder_stage_fwd_',
                                      'sigmoid_grad', 'reduce_weight_grad', 'presum_kernel',
                                      'weight_grad_kernel', 'input_grad_kernel',
                                      'convnext_block_'),
@@ -1463,7 +1526,7 @@ def profile_train(out: Path = ROOT / 'build' / 'train_profile.txt',
               sorted(totals.items(), key=lambda kv: -kv[1])]
     # The hand-written kernels' CUDA launches by the TPU kernel each replaces.
     by_row = {'1 dwconv': ('dwconv_fwd_kernel',), '2 dwconv_dw': ('dwconv_dw_',),
-              '3 decoder_stage': ('conv3x3_reflect_kernel',),
+              '3 decoder_stage': ('decoder_stage_fwd_',),
               '4 decoder_stage_bwd': ('sigmoid_grad', 'presum_kernel', 'weight_grad_kernel',
                                       'input_grad_kernel', 'reduce_weight_grad'),
               '5 warp': ('warp_bilinear_kernel',), '6 warp_packed': ('warp_bilinear_packed',),
@@ -1531,14 +1594,18 @@ def main() -> None:
         for name, (src, rep) in sources.items()]}
     rows = {row['name']: row for row in line['kernels']}
     for name, step in (('dwconv', kern['dwconv_step']),  # its 108 launches per KBR micro-step
-                       ('convnext_block', kern['convnext_block']['step'])):  # 54, blocks fused
+                       ('convnext_block', kern['convnext_block']['step']),  # 54, blocks fused
+                       ('decoder_stage', kern['decoder_stage_step'])):  # 2 stages at B=4
         rows[name].update({f'step_{k}': step[k] for k in (
             'ms', 'plain_ms', 'library_ms', 'bound_ms', 'eager_ms', 'plain_eager_ms')})
+    rows['decoder_stage'].update({f'b1_{k}': kern['decoder_stage_b1'][k] for k in (
+        'ms', 'plain_ms', 'library_ms', 'bound_ms', 'eager_ms', 'plain_eager_ms')})
     print('(launches: dwconv and decoder_stage in the serving slice, convnext_block in its '
           "fused-blocks half, decoder_stage_bwd in the training run's first epoch, warp_packed in "
           'its bf16 epoch, the others in the training slice; ms / plain_ms / bound_ms / library_ms: '
           'device time per ConvNeXt-B + decoder forward at B=2, 384x640, for dwconv and '
-          'decoder_stage (dwconv step_*: its 108 launches per KBR micro-step), per request (36 blocks at B=1, 384x640) for convnext_block (step_*: its 54 launches per KBR micro-step with fused blocks), per KBR '
+          'decoder_stage (dwconv step_*: its 108 launches per KBR micro-step; decoder_stage '
+          'step_*: its 2 stages per KBR micro-step, b1_*: per request at B=1), per request (36 blocks at B=1, 384x640) for convnext_block (step_*: its 54 launches per KBR micro-step with fused blocks), per KBR '
           'micro-step at B=4, 384x640 for the others; convnext_block max_abs_err is relative to '
           'max|y|; bound_ms from 67 TFLOP/s float32 and 3.35 TB/s; photo_bwd and '
           "decoder_stage_bwd max_abs_err are relative to the gradient's own largest magnitude; "

@@ -40,7 +40,7 @@ SIGNATURES = {
     'slowtv_dwconv_dw_f32': [_PTR] * 4 + [_INT] * 9 + [_PTR],
     'slowtv_convnext_block_fwd_f32': [_PTR] * 12 + [_INT] * 9 + [_PTR],
     'slowtv_convnext_block_bwd_f32': [_PTR] * 21 + [_INT] * 10 + [_PTR],
-    'slowtv_decoder_stage_fwd_f32': [_PTR] * 10 + [_INT] * 6 + [_PTR],
+    'slowtv_decoder_stage_fwd_f32': [_PTR] * 10 + [_INT] * 15 + [_PTR],
     'slowtv_decoder_stage_bwd_f32': [_PTR] * 17 + [_INT] * 7 + [_PTR],
     'slowtv_warp_bilinear_f32': [_PTR] * 6 + [_INT] * 7 + [_PTR],
     'slowtv_warp_bilinear_packed_bf16': [_PTR] * 6 + [_INT] * 7 + [_PTR],

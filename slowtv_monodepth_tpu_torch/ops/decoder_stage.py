@@ -9,7 +9,8 @@ Counterpart of `slowtv_monodepth_tpu/ops/pallas_decoder.py:fused_upconv_stage`:
 
 On a CUDA tensor `fused_upconv_stage` is a `torch.autograd.Function` over the
 hand-written Hopper kernels: forward `csrc/decoder_stage.cu` (three launches
-of one direct-conv kernel; `u` is never stored; TPU kernel 3), backward
+of register-tiled direct convs on the plan of `fwd_plan`; `u` is never
+stored, conv_b runs as four pre-summed parity taps over `ha`; TPU kernel 3), backward
 `csrc/decoder_stage_bwd.cu` (`fused_upconv_stage_bwd`, TPU kernel 4: the
 stage's seven gradients from the stored `ha`, `feat` and `disp`, nothing
 recomputed). On a CPU tensor it runs the plain PyTorch version
@@ -22,17 +23,93 @@ Activations are NHWC as in the JAX package; weights keep PyTorch's OIHW
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from .. import _build
+from .dwconv import _sm_count
 
 __all__ = ['fused_upconv_stage', 'fused_upconv_stage_plain', 'fused_upconv_stage_bwd',
-           'fused_upconv_stage_bwd_plain', 'MAX_CHANNELS']
+           'fused_upconv_stage_bwd_plain', 'fwd_plan', 'stage_ha_plain', 'MAX_CHANNELS']
 
-# The kernels keep a [9 * ci][16] weight tile in shared memory (227 KB per
-# block on Hopper): 400 channels fit, forward and backward.
+# The backward keeps a [9 * ci][16] weight tile in shared memory (227 KB per
+# block on Hopper): 400 channels fit. (The forward stages its weights in
+# chunks of at most 32 input channels and takes any width.)
 MAX_CHANNELS = 400
+
+# The forward's three convs, as in csrc/decoder_stage.cu: 'a' x -> ha, 'b' ha ->
+# feat through the upsample (16 pre-summed parity taps), 'o' feat -> disp; for
+# each, the rows a thread owns, the output channels a thread owns and the
+# weight matrices per input channel.
+_CONVS = {'a': (4, 8, 9), 'b': (4, 4, 16), 'o': (8, 1, 9)}
+_TILE_W = 32                # columns of a block's tile, one per lane
+# Input channels per chunk at most: disp's tiles are the tallest (8 rows a
+# thread), and its chunks of 8 let more blocks share an SM (measured faster
+# per KBR micro-step than 16 or 32).
+_MAX_CHUNK = {'a': 32, 'b': 32, 'o': 8}
+_SMEM_TARGET = 113 * 1024   # two blocks an SM (227 KB of shared memory each)
+
+
+def smem_bytes(conv: str, rg: int, cgb: int, cic: int) -> int:
+    """Shared memory of one block of `conv` on `rg` row warps, `cgb` channel
+    warps and `cic` input channels per chunk: the input tile with its halo
+    and the chunk's weights, or the output tile of the epilogue (conv_a and
+    conv_b, a pixel padded to 4 more floats), whichever is larger
+    (`slowtv_decoder_stage_fwd_smem_bytes` in the source)."""
+    p, to, nt = _CONVS[conv]
+    stage = 4 * cic * ((rg * p + 2) * (_TILE_W + 2) + nt * cgb * to)
+    up = 2 if conv == 'b' else 1
+    return max(stage, 0 if to == 1 else 4 * up * rg * p * up * _TILE_W * (cgb * to + 4))
+
+
+def conv_tiles(conv: str, b: int, h: int, w: int, cout: int, rg: int, cgb: int):
+    """(rows, columns, channels) of one block's tile and the blocks of `conv` on
+    a (b, h, w) grid (conv 'b': ha's) with `cout` output channels."""
+    p, to, _ = _CONVS[conv]
+    rows, chans = rg * p, cgb * to
+    return rows, _TILE_W, chans, b * -(-h // rows) * -(-w // _TILE_W) * -(-cout // chans)
+
+
+def conv_plan(conv: str, b: int, h: int, w: int, cin: int, cout: int,
+              sms: int) -> tuple[int, int, int]:
+    """(row warps, channel warps, input channels per chunk) of one conv.
+
+    The largest block (8, 4, 2 or 1 warps, then most channel warps: one staged tile
+    feeds more output channels) that still gives every SM a block; where
+    none does, the plan with the most blocks. The chunk is the widest (at
+    most `_MAX_CHUNK` channels, a multiple of 4) that keeps the block's shared memory
+    within two blocks an SM; a block whose output tile does not fit is not
+    taken.
+    """
+    p, to, _ = _CONVS[conv]
+    groups = -(-cout // to)
+    best = None
+    for warps in (8, 4, 2, 1):
+        for cgb in range(min(groups, warps), 0, -1):
+            if warps % cgb:
+                continue
+            rg = warps // cgb
+            cic = min(_MAX_CHUNK[conv], -(-cin // 4) * 4)
+            while cic > 4 and smem_bytes(conv, rg, cgb, cic) > _SMEM_TARGET:
+                cic = max(4, -(-(cic // 2) // 4) * 4)
+            if smem_bytes(conv, rg, cgb, cic) > _SMEM_TARGET:
+                continue
+            blocks = conv_tiles(conv, b, h, w, cout, rg, cgb)[3]
+            if blocks >= sms:
+                return rg, cgb, cic
+            if best is None or blocks >= best[0]:  # ties: the smaller block
+                best = (blocks, (rg, cgb, cic))
+    return best[1]
+
+
+@functools.lru_cache(maxsize=256)
+def fwd_plan(b: int, h: int, w: int, ci: int, cd: int, sms: int) -> tuple[int, ...]:
+    """The forward's plan on a card of `sms` SMs: `conv_plan` of conv_a,
+    conv_b and disp, nine ints in that order."""
+    return (*conv_plan('a', b, h, w, ci, cd, sms), *conv_plan('b', b, h, w, cd, cd, sms),
+            *conv_plan('o', b, 2 * h, 2 * w, cd, 1, sms))
 
 
 def _check(x, wa, ba, wb, bb, wo, bo) -> None:
@@ -63,6 +140,12 @@ def _check(x, wa, ba, wb, bb, wo, bo) -> None:
 
 def _conv_reflect(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
     return F.conv2d(F.pad(x, (1, 1, 1, 1), mode='reflect'), w, b)
+
+
+def stage_ha_plain(x, wa, ba):
+    """Plain PyTorch version of the stage's ha = ELU(conv3x3_reflect(x, wa) + ba),
+    NHWC: what the forward kernel writes for the backward."""
+    return F.elu(_conv_reflect(x.permute(0, 3, 1, 2), wa, ba)).permute(0, 2, 3, 1)
 
 
 def fused_upconv_stage_plain(x, wa, ba, wb, bb, wo, bo):
@@ -101,8 +184,8 @@ def _launch_fwd(x, wa, ba, wb, bb, wo, bo):
         return ha, feat, disp
     err = _build.load().slowtv_decoder_stage_fwd_f32(
         *(t.data_ptr() for t in (x, wa, ba, wb, bb, wo, bo, ha, feat, disp)),
-        b, h, w, ci, cd, x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        b, h, w, ci, cd, *fwd_plan(b, h, w, ci, cd, _sm_count(x.device.index)),
+        x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, 'decoder-stage kernel')
     fused_upconv_stage.launches += 1
     return ha, feat, disp
@@ -194,7 +277,7 @@ def fused_upconv_stage(x, wa, ba, wb, bb, wo, bo):
     :return: (feat (b, 2h, 2w, cd), disp (b, 2h, 2w, 1)), contiguous.
 
     `fused_upconv_stage.launches` counts the stages run forward on the card
-    (each is three kernel launches on the current stream),
+    (each is three CUDA launches on the current stream: conv_a, conv_b, disp),
     `fused_upconv_stage_bwd.launches` their backward passes.
     """
     _check(x, wa, ba, wb, bb, wo, bo)
