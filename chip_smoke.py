@@ -38,7 +38,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    from 720x1280 sources at the coords the augmentation gives it); times
    kernel, plain and, where one PyTorch call computes the function, that call
    (float32). Kernel 6 is also held to kernel 5 on the
-   widened source. Kernel 1 at the step's eight block shapes (float64,
+   widened source. Kernel 8 called twice must give the same bits, also at
+   the edges of its tiles (h = 2, w = 2, C = 1, images two and three tiles
+   wide), and kernel 7's error map the bits the parent checkout gave
+   (`PHOTO_FWD_SHA256`, `tools/photo_bench.fwd_digests`). Kernel 1 at the step's eight block shapes (float64,
    timed per micro-step); kernels 2 (at the step's eight block shapes) and
    4 called twice on the same inputs must give the same bits. The fused block's backward (kernel 10, with kernels 1 and 2
    finishing dx and the taps' gradient) at the eight block shapes of the
@@ -192,6 +195,12 @@ BF16_LOSS_RTOL = 5e-3  # first-step loss, bfloat16 warp sources (8 mantissa bits
 # twice the plain version's own float32 error against float64, plus:
 PHOTO_ATOL = 1e-5      # of the error map (in [0, 1])
 PHOTO_BWD_RTOL = 1e-5  # of the largest |gradient|
+# Kernel 7's map at the KBR step's two photometric shapes on
+# `tools/photo_bench.digest_inputs`, as its parent checkout (f3a8e85) gave it on an
+# H100: separating kernel 8 out of csrc/photo.cu left kernel 7's bits alone.
+PHOTO_FWD_SHA256 = {
+    '(32, 384, 640, 3)': '8a7043fe5d1e0bb8469633ff36f6f3fe51efb2eac9c49f8a25029d6043aef40b',
+    '(8, 384, 640, 3)': 'd2dd0378e18652077e764e20c8ef8d79e8283778e231c3f38453b7a3def10000'}
 
 
 def fail(msg: str) -> None:
@@ -380,6 +389,9 @@ def phase_build() -> None:
         if 'decoder_stage_fwd_' in entry and 'stack frame' in line \
                 and '0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads' not in line:
             fail(f'a launch of the decoder-stage kernel uses local memory: {line.strip()}')
+        if 'photo_bwd_kernel' in entry and 'stack frame' in line \
+                and '0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads' not in line:
+            fail(f'a launch of the photometric backward uses local memory: {line.strip()}')
         # Kernel 3's launches run two 256-thread blocks an SM only within 128 registers.
         if 'decoder_stage_fwd_' in entry and 'registers' in line \
                 and int(line.split('Used ')[1].split()[0]) > 128:
@@ -399,6 +411,8 @@ def phase_build() -> None:
         fail('the build log does not show the fused ConvNeXt block kernels')
     if not all(f'decoder_stage_fwd_{k}_kernel' in log for k in ('conv_a', 'conv_b', 'disp')):
         fail('the build log does not show the decoder-stage kernels')
+    if not all(f'photo_bwd_kernelILi{r}ELi{c}E' in log for r in (4, 16) for c in (1, 2, 3, 4)):
+        fail('the build log does not show the photometric backward kernel')
 
 
 def _rand(rs, *shape, scale=1.0):
@@ -1009,12 +1023,20 @@ def phase_train_kernels(scenes) -> dict:
                     for t in _scene_pair(scenes, mm, rs))
             g = torch.from_numpy(rs.rand(mm, bh, bw).astype(np.float32)).cuda()
             _photo_case(record, x, y, g, 0, 0)
-    for shape in [(2, 37, 70, 3), (1, 2, 2, 3), (3, 19, 33, 1)]:
+    # Ragged shapes with exact ties, also at kernel 8's tile edges (62 columns,
+    # 4-16 rows): h = 2, w = 2, C = 1 and 2, two and three tiles wide.
+    for shape in [(2, 37, 70, 3), (1, 2, 2, 3), (3, 19, 33, 1), (2, 2, 67, 3), (1, 35, 2, 2),
+                  (1, 17, 125, 1), (2, 33, 124, 3)]:
         x = torch.from_numpy(rs.rand(*shape).astype(np.float32)).cuda()
         y = torch.from_numpy(rs.rand(*shape).astype(np.float32)).cuda()
         y[:, :, : shape[2] // 2] = x[:, :, : shape[2] // 2]  # x == y: S == 0 exactly
         _photo_case(record, x, y, torch.from_numpy(rs.rand(*shape[:3]).astype(np.float32)).cuda(),
                     0, 0)
+    from slowtv_monodepth_tpu_torch.tools.photo_bench import fwd_digests
+    digests = fwd_digests()
+    if digests != PHOTO_FWD_SHA256:
+        fail(f'photo_fwd: the error map is not the parent checkout\'s: {digests}')
+    print(f'photo_fwd: the map has the parent checkout\'s sha256 at {sorted(digests)}')
     torch.cuda.synchronize()
     return res
 
@@ -1110,10 +1132,14 @@ def _photo_case(record, x, y, g, n_fwd, n_bwd):
     want = photo.photo_bwd_plain(xd, yd, g.double(), 0.85)
     scale = max(1.0, max(float(w.abs().max()) for w in want))
     plain32 = max(_max_err(a, b) for a, b in zip(photo.photo_bwd_plain(x, y, g, 0.85), want))
-    err = max(_max_err(a, b) for a, b in zip(photo.photo_bwd(x, y, g, 0.85), want))
+    got = photo.photo_bwd(x, y, g, 0.85)
+    if not all(torch.equal(u, v) for u, v in zip(got, photo.photo_bwd(x, y, g, 0.85))):
+        fail(f'photo_bwd {tuple(x.shape)}: two calls on the same inputs differ')
+    err = max(_max_err(a, b) for a, b in zip(got, want))
+    plan = photo.bwd_plan(*x.shape, torch.cuda.get_device_properties(0).multi_processor_count)
     record('photo_bwd', err / scale, PHOTO_BWD_RTOL + 2 * plain32 / scale,
-           f'photo_bwd {tuple(x.shape)} (relative to max|grad| {scale:.3g}; plain f32 '
-           f'{plain32 / scale:.2e})', n_bwd,
+           f'photo_bwd {tuple(x.shape)}, tiles of {plan} rows, two calls bitwise equal '
+           f'(relative to max|grad| {scale:.3g}; plain f32 {plain32 / scale:.2e})', n_bwd,
            lambda: photo.photo_bwd(x, y, g, 0.85), lambda: photo.photo_bwd_plain(x, y, g, 0.85),
            (4 * (4 * px + g.numel()), 250 * px))
 
@@ -1569,7 +1595,7 @@ def main() -> None:
                'warp': ('warp.cu', 'pallas_warp.py:130'),
                'warp_packed': ('warp.cu', 'pallas_warp.py:225'),
                'photo_fwd': ('photo.cu', 'pallas_photo.py:116'),
-               'photo_bwd': ('photo.cu', 'pallas_photo.py:159'),
+               'photo_bwd': ('photo_bwd.cu', 'pallas_photo.py:159'),
                'convnext_block': ('convnext_block.cu', 'pallas_convnext.py:147'),
                'convnext_block_bwd': ('convnext_block_bwd.cu', 'pallas_convnext.py:234')}
     # Launches: the serving slice's for kernels 1 and 3, its fused-blocks half

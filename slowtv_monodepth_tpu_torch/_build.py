@@ -45,7 +45,7 @@ SIGNATURES = {
     'slowtv_warp_bilinear_f32': [_PTR] * 6 + [_INT] * 7 + [_PTR],
     'slowtv_warp_bilinear_packed_bf16': [_PTR] * 6 + [_INT] * 7 + [_PTR],
     'slowtv_photo_fwd_f32': [_PTR] * 3 + [_INT] * 4 + [_FLOAT] * 2 + [_INT, _PTR],
-    'slowtv_photo_bwd_f32': [_PTR] * 5 + [_INT] * 4 + [_FLOAT] * 2 + [_INT, _PTR],
+    'slowtv_photo_bwd_f32': [_PTR] * 5 + [_INT] * 4 + [_FLOAT] * 2 + [_INT] * 2 + [_PTR],
 }
 
 
@@ -127,6 +127,8 @@ def load() -> ctypes.CDLL:
     lib.slowtv_convnext_block_fwd_scratch_floats.restype = ctypes.c_longlong
     lib.slowtv_convnext_block_bwd_scratch_floats.argtypes = [_INT] * 7
     lib.slowtv_convnext_block_bwd_scratch_floats.restype = ctypes.c_longlong
+    lib.slowtv_photo_bwd_smem_bytes.argtypes = [_INT] * 2
+    lib.slowtv_photo_bwd_smem_bytes.restype = ctypes.c_longlong
     lib.slowtv_cuda_error_string.argtypes = [ctypes.c_int]
     lib.slowtv_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -11,27 +11,40 @@ it.
   kernel `photo_fwd` of `csrc/photo.cu` (TPU kernel 7); on a CPU tensor its
   plain version `photo_fwd_plain`.
 - `photo_bwd`: the VJP (dx, dy) for a cotangent of the map. On a CUDA
-  tensor the kernel `photo_bwd` of `csrc/photo.cu` (TPU kernel 8); on a
-  CPU tensor `photo_bwd_plain`, which differentiates `photo_fwd_plain`.
+  tensor the kernel of `csrc/photo_bwd.cu` (TPU kernel 8: one launch, tiles
+  of `bwd_plan`'s height x 62 columns x all channels, at most 4, each pooled
+  position's statistics computed once); on a CPU tensor `photo_bwd_plain`,
+  which differentiates `photo_fwd_plain`.
 The clip's VJP is `jnp.clip`'s: 0.5 at an exact tie (x == y over a 3x3
 patch gives S == 0 exactly), as the TPU kernel's mask; the L1 term's is
 sign(x - y), 0 at a tie.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import torch
 import torch.nn.functional as F
 
 from .. import _build
+from .dwconv import _sm_count
 from .ops import clip
 
 __all__ = ['avg_pool3x3_reflect', 'ssim_error', 'photo_err_ssim', 'photo_fwd',
-           'photo_bwd', 'photo_fwd_plain', 'photo_bwd_plain']
+           'photo_bwd', 'photo_fwd_plain', 'photo_bwd_plain', 'bwd_plan', 'bwd_tiles']
 
 C1 = 0.01 ** 2
 C2 = 0.03 ** 2
+
+# Kernel 8's tiles (csrc/photo_bwd.cu): 62 output columns (64 pooled with the
+# halo) x all channels, `bwd_plan`'s rows; 64 C threads, one a pooled float
+# column, so at most 4 channels; the adjoint's vertical sums kept 2 rows at
+# a time (its kChunk).
+BWD_TILE_W = 62
+BWD_ROWS = (16, 4)
+BWD_CHUNK = 2
+MAX_CHANNELS = 4
 
 
 def avg_pool3x3_reflect(x: torch.Tensor) -> torch.Tensor:
@@ -63,6 +76,33 @@ def photo_bwd_plain(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
     with torch.enable_grad():
         x, y = x.detach().requires_grad_(), y.detach().requires_grad_()
         return torch.autograd.grad(photo_fwd_plain(x, y, w_ssim), (x, y), g)
+
+
+def smem_bytes(rows: int, c: int) -> int:
+    """Shared memory of one kernel-8 block, a tile `rows` high of c channels:
+    x and y staged with a 2-pixel halo (66 c floats a row, 16-byte aligned, +3
+    for the shift), a chunk of the adjoint's four vertical sums (up to
+    `BWD_CHUNK` rows x 64 c) and g on the 1-pixel halo
+    (`slowtv_photo_bwd_smem_bytes`)."""
+    row = (66 * c + 6) // 4 * 4
+    chunk = min(rows, BWD_CHUNK)
+    return 4 * (2 * (rows + 4) * row + 4 * chunk * 64 * c + (rows + 2) * 64)
+
+
+def bwd_tiles(m: int, h: int, w: int, rows: int) -> tuple[int, int, int]:
+    """(row tiles, column tiles, blocks) of kernel 8 on (m, h, w) images."""
+    rt, ct = -(-h // rows), -(-w // BWD_TILE_W)
+    return rt, ct, m * rt * ct
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan(m: int, h: int, w: int, c: int, sms: int) -> int:
+    """Kernel 8's tile height on a card of `sms` SMs: 16 rows where that gives
+    every SM five blocks (as many as fit it; a taller tile recomputes less of
+    its 2-row halo), else 4."""
+    if not 1 <= c <= MAX_CHANNELS:
+        raise ValueError(f'photo_bwd takes 1 to {MAX_CHANNELS} channels on the card, got {c}')
+    return next((r for r in BWD_ROWS if bwd_tiles(m, h, w, r)[2] >= 5 * sms), BWD_ROWS[-1])
 
 
 def _check(*ts: torch.Tensor) -> None:
@@ -118,8 +158,8 @@ photo_fwd.launches = 0
 def photo_bwd(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor, w_ssim: float):
     """VJP of `photo_fwd` for a cotangent g (m, h, w) -> (dx, dy), (m, h, w, c).
 
-    Kernel 8 on a CUDA tensor, counted by `photo_bwd.launches`;
-    `photo_bwd_plain` on a CPU tensor.
+    Kernel 8 on a CUDA tensor (tiles of `bwd_plan`; 1 to 4 channels),
+    counted by `photo_bwd.launches`; `photo_bwd_plain` on a CPU tensor.
     """
     _check(x, y, g)
     if x.device.type == 'cpu':
@@ -128,9 +168,10 @@ def photo_bwd(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor, w_ssim: float):
     dx, dy = torch.empty_like(x), torch.empty_like(y)
     if x.numel() == 0:
         return dx, dy
+    rows = bwd_plan(m, h, w, c, _sm_count(x.device.index))
     err = _build.load().slowtv_photo_bwd_f32(
         x.data_ptr(), y.data_ptr(), g.data_ptr(), dx.data_ptr(), dy.data_ptr(),
-        m, h, w, c, float(w_ssim / c), float((1 - w_ssim) / c), x.device.index,
+        m, h, w, c, float(w_ssim / c), float((1 - w_ssim) / c), rows, x.device.index,
         _stream(x))
     _build.check(err, 'photo backward kernel')
     photo_bwd.launches += 1

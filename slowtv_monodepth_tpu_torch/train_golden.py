@@ -77,8 +77,9 @@ def seeded_weights(seed: int = SEED) -> dict:
     return {k: seeded_state_dict(net, seed) for k, net in nets.items()}
 
 
-def port_step(gold: dict, device='cpu', kernels: bool = True, fused_blocks: bool = False) -> dict:
-    """One micro-step of the port's trainer on the fixture's inputs -> results
+def port_step(gold: dict, device: str, kernels: bool = True, fused_blocks: bool = False) -> dict:
+    """One micro-step of the port's trainer on `device` ('cuda', or 'cpu' as
+    the tests ask) on the fixture's inputs -> results
     in the fixture's keys (numpy), plus `grad_finite_nonzero`. `fused_blocks`
     turns the fused ConvNeXt blocks on in both nets (the same weights)."""
     from . import parsers

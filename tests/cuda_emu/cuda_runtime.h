@@ -2,9 +2,9 @@
 // for the CPU: one std::thread per CUDA thread, std::barrier for
 // __syncthreads and for each warp's shuffles, the blocks of a cluster run
 // together, blocks and clusters one after another (see emu.cpp). It covers
-// what csrc/convnext_block.cu and csrc/convnext_block_bwd.cu use and nothing
-// more. Shared memory is filled with NaN before every cluster, so a read of a
-// value nobody wrote shows.
+// what the csrc/ sources built by the tests/test_torch_*_emu.py files use
+// and nothing more. Shared memory is filled with NaN before every cluster,
+// so a read of a value nobody wrote shows.
 #pragma once
 #include <cmath>
 #include <cstddef>
@@ -24,6 +24,14 @@ struct dim3 {
 };
 extern thread_local dim3 threadIdx, blockIdx;
 template <class T> inline T __ldg(const T* p) { return *p; }
+// Float arithmetic of csrc/photo_bwd.cu: IEEE round-to-nearest (build with
+// -ffp-contract=off so that g++ fuses none of them into an FMA), and the
+// card's approximate division, exact here.
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
+inline float __fdividef(float a, float b) { return a / b; }  // approximate on the card
 void __syncthreads();
 float __shfl_xor_sync(unsigned mask, float v, int lane_mask);
 double __shfl_xor_sync(unsigned mask, double v, int lane_mask);

@@ -321,7 +321,11 @@ def test_warp_kernel_matches_plain(card, b, h, w, c, ho, wo):
 
 @pytest.mark.parametrize('m,h,w,c,ties', [(3, 16, 24, 3, False), (2, 8, 13, 3, True),
                                           (1, 104, 40, 1, False), (2, 37, 70, 3, True),
-                                          (1, 2, 2, 3, False)])
+                                          (1, 2, 2, 3, False),
+                                          # kernel 8's tile edges (62 columns, 4-16 rows):
+                                          # h = 2, w = 2, two and three tiles wide
+                                          (2, 2, 67, 3, True), (1, 35, 2, 2, False),
+                                          (1, 17, 125, 1, True), (2, 33, 124, 3, True)])
 def test_photo_kernels_match_plain(card, m, h, w, c, ties):
     from slowtv_monodepth_tpu_torch.ops import photo
     rs = np.random.RandomState(7)
@@ -338,6 +342,32 @@ def test_photo_kernels_match_plain(card, m, h, w, c, ties):
     xd, yd, gd = x.double(), y.double(), g.double()
     assert _close(out, photo.photo_fwd_plain(xd, yd, 0.85))
     for got, want in zip((dx, dy), photo.photo_bwd_plain(xd, yd, gd, 0.85)):
+        assert _close(got, want)
+
+
+@pytest.mark.parametrize('rows', [4, 16])
+def test_photo_bwd_every_tile_height_is_bitwise_repeatable(card, rows):
+    """Kernel 8's C entry on each tile height the plan may pick: within
+    ATOL of the plain version in float64, two calls giving the same bits."""
+    from slowtv_monodepth_tpu_torch import _build
+    from slowtv_monodepth_tpu_torch.ops import photo
+    rs = np.random.RandomState(8)
+    m, h, w, c = 2, 37, 130, 3
+    x = torch.from_numpy(rs.rand(m, h, w, c).astype(np.float32)).cuda()
+    y = torch.from_numpy(rs.rand(m, h, w, c).astype(np.float32)).cuda()
+    y[:, :, : w // 2] = x[:, :, : w // 2]
+    g = torch.from_numpy(rs.rand(m, h, w).astype(np.float32)).cuda()
+
+    def call():
+        dx, dy = torch.empty_like(x), torch.empty_like(y)
+        _build.check(_build.load().slowtv_photo_bwd_f32(
+            x.data_ptr(), y.data_ptr(), g.data_ptr(), dx.data_ptr(), dy.data_ptr(), m, h, w, c,
+            0.85 / c, 0.15 / c, rows, 0, torch.cuda.current_stream().cuda_stream), 'kernel 8')
+        return dx, dy
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(first, second))
+    for got, want in zip(first, photo.photo_bwd_plain(x.double(), y.double(), g.double(), 0.85)):
         assert _close(got, want)
 
 

@@ -24,7 +24,7 @@ def golden():
 
 
 def test_port_reproduces_the_training_golden(golden):
-    got = tg.port_step(golden)
+    got = tg.port_step(golden, 'cpu')
     assert got['grad_finite_nonzero']
     assert tg.compare(got, golden) == []
 
@@ -32,7 +32,7 @@ def test_port_reproduces_the_training_golden(golden):
 def test_port_with_fused_blocks_reproduces_the_training_golden(golden):
     """`fused_blocks: True` on both nets: every ConvNeXt block one fused call
     (its plain version on the CPU), the same weights, the same golden."""
-    got = tg.port_step(golden, fused_blocks=True)
+    got = tg.port_step(golden, 'cpu', fused_blocks=True)
     assert got['grad_finite_nonzero']
     assert tg.compare(got, golden) == []
 
