@@ -40,10 +40,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    (float32). Kernel 6 is also held to kernel 5 on the
    widened source. Kernel 8 called twice must give the same bits, also at
    the edges of its tiles (h = 2, w = 2, C = 1, images two and three tiles
-   wide), and kernel 7's error map the bits the parent checkout gave
-   (`PHOTO_FWD_SHA256`, `tools/photo_bench.fwd_digests`). Kernel 1 at the step's eight block shapes (float64,
-   timed per micro-step); kernels 2 (at the step's eight block shapes) and
-   4 called twice on the same inputs must give the same bits. The fused block's backward (kernel 10, with kernels 1 and 2
+   wide), kernel 7's error map the bits the parent checkout gave
+   (`PHOTO_FWD_SHA256`, `tools/photo_bench.fwd_digests`) and kernel 8's dx
+   and dy theirs (`PHOTO_BWD_SHA256`, `bwd_digests`). Kernel 1 at the
+   step's eight block shapes (float64, timed per micro-step); kernels 2 (at
+   the step's eight block shapes) and 4 called twice on the same inputs must give the same bits. The fused block's backward (kernel 10, with kernels 1 and 2
    finishing dx and the taps' gradient) at the eight block shapes of the
    step (ConvNeXt-B at B=4, ConvNeXt-T at B=8), ragged shapes, erf and tanh:
    each of its ten gradients within twice the plain float32 version's error
@@ -201,6 +202,12 @@ PHOTO_BWD_RTOL = 1e-5  # of the largest |gradient|
 PHOTO_FWD_SHA256 = {
     '(32, 384, 640, 3)': '8a7043fe5d1e0bb8469633ff36f6f3fe51efb2eac9c49f8a25029d6043aef40b',
     '(8, 384, 640, 3)': 'd2dd0378e18652077e764e20c8ef8d79e8283778e231c3f38453b7a3def10000'}
+# Kernel 8's dx and dy at (32, 384, 640, 3) on the same inputs, as its parent
+# checkout (2e67e19) gave them on an H100: moving its row staging and rounded
+# operations into csrc/photo_common.cuh left its bits alone.
+PHOTO_BWD_SHA256 = {
+    'dx': '3c382221880e7ba5850843d4656af5d4382b35662edf15691349e5b1ca4242d3',
+    'dy': '3882c16cd110b8bb0ef8ad0cdd978fe395984b614db9d76777175272b5a2c416'}
 
 
 def fail(msg: str) -> None:
@@ -389,9 +396,9 @@ def phase_build() -> None:
         if 'decoder_stage_fwd_' in entry and 'stack frame' in line \
                 and '0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads' not in line:
             fail(f'a launch of the decoder-stage kernel uses local memory: {line.strip()}')
-        if 'photo_bwd_kernel' in entry and 'stack frame' in line \
+        if ('photo_bwd_kernel' in entry or 'photo_fwd_kernel' in entry) and 'stack frame' in line \
                 and '0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads' not in line:
-            fail(f'a launch of the photometric backward uses local memory: {line.strip()}')
+            fail(f'a launch of a photometric kernel uses local memory: {line.strip()}')
         # Kernel 3's launches run two 256-thread blocks an SM only within 128 registers.
         if 'decoder_stage_fwd_' in entry and 'registers' in line \
                 and int(line.split('Used ')[1].split()[0]) > 128:
@@ -413,6 +420,8 @@ def phase_build() -> None:
         fail('the build log does not show the decoder-stage kernels')
     if not all(f'photo_bwd_kernelILi{r}ELi{c}E' in log for r in (4, 16) for c in (1, 2, 3, 4)):
         fail('the build log does not show the photometric backward kernel')
+    if not all(f'photo_fwd_kernelILi{c}E' in log for c in (1, 2, 3, 4)):
+        fail('the build log does not show the photometric forward kernel')
 
 
 def _rand(rs, *shape, scale=1.0):
@@ -1024,19 +1033,25 @@ def phase_train_kernels(scenes) -> dict:
             g = torch.from_numpy(rs.rand(mm, bh, bw).astype(np.float32)).cuda()
             _photo_case(record, x, y, g, 0, 0)
     # Ragged shapes with exact ties, also at kernel 8's tile edges (62 columns,
-    # 4-16 rows): h = 2, w = 2, C = 1 and 2, two and three tiles wide.
+    # 4-16 rows): h = 2, w = 2, C = 1 and 2, two and three tiles wide; and at
+    # kernel 7's (128 columns, 6 rows): one past a tile, on two, C = 4.
     for shape in [(2, 37, 70, 3), (1, 2, 2, 3), (3, 19, 33, 1), (2, 2, 67, 3), (1, 35, 2, 2),
-                  (1, 17, 125, 1), (2, 33, 124, 3)]:
+                  (1, 17, 125, 1), (2, 33, 124, 3), (2, 9, 129, 3), (1, 16, 256, 4),
+                  (1, 25, 385, 2)]:
         x = torch.from_numpy(rs.rand(*shape).astype(np.float32)).cuda()
         y = torch.from_numpy(rs.rand(*shape).astype(np.float32)).cuda()
         y[:, :, : shape[2] // 2] = x[:, :, : shape[2] // 2]  # x == y: S == 0 exactly
         _photo_case(record, x, y, torch.from_numpy(rs.rand(*shape[:3]).astype(np.float32)).cuda(),
                     0, 0)
-    from slowtv_monodepth_tpu_torch.tools.photo_bench import fwd_digests
+    from slowtv_monodepth_tpu_torch.tools.photo_bench import bwd_digests, fwd_digests
     digests = fwd_digests()
     if digests != PHOTO_FWD_SHA256:
         fail(f'photo_fwd: the error map is not the parent checkout\'s: {digests}')
     print(f'photo_fwd: the map has the parent checkout\'s sha256 at {sorted(digests)}')
+    digests = bwd_digests()
+    if digests != PHOTO_BWD_SHA256:
+        fail(f'photo_bwd: dx and dy are not the parent checkout\'s: {digests}')
+    print('photo_bwd: dx and dy have the parent checkout\'s sha256 at (32, 384, 640, 3)')
     torch.cuda.synchronize()
     return res
 

@@ -70,15 +70,10 @@
 // height: two calls give the same bits.
 //
 // The launch goes through cudaLaunchKernelEx and shared memory is dynamic
-// (SLOWTV_DYNAMIC_SMEM), so tests/cuda_emu builds this file for the CPU.
-#include <cuda_pipeline_primitives.h>
-#include <cuda_runtime.h>
-
-// The block's dynamic shared memory. (tests/cuda_emu builds the sources for the
-// CPU with its own definition.)
-#ifndef SLOWTV_DYNAMIC_SMEM
-#define SLOWTV_DYNAMIC_SMEM(name) extern __shared__ float4 name[]
-#endif
+// (SLOWTV_DYNAMIC_SMEM), so tests/cuda_emu builds this file for the CPU. The
+// row staging, the reflect map and the rounded operations are
+// photo_common.cuh's, shared with the forward (photo.cu).
+#include "photo_common.cuh"
 
 namespace {
 
@@ -86,20 +81,6 @@ constexpr int kMaxThreads = 256;
 constexpr int kPoolW = 64;             // pooled columns of a tile: outputs and their halo
 constexpr int kTileW = kPoolW - 2;     // output columns of a tile
 constexpr int kStageW = kPoolW + 2;    // staged columns: the 2-pixel halo
-constexpr float kC1 = 0.01f * 0.01f;
-constexpr float kC2 = 0.03f * 0.03f;
-
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ float fmadd(float a, float b, float c) { return __fmaf_rn(a, b, c); }
-
-// Reflect (edge not repeated) for the pad, then clamp: positions past the pad
-// only feed pooled positions outside the image, which are never used.
-__device__ __forceinline__ int reflect(int i, int n) {
-  i = i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
-  return i < 0 ? 0 : (i >= n ? n - 1 : i);
-}
 
 // The adjoint of a reflect-padded 3-tap box at output q takes its neighbour
 // q - 1 (edge 1) or q + 1 (edge n - 2) twice where q is that edge: the
@@ -120,9 +101,6 @@ struct BwdArgs {
   int vec;    // x and y 16-byte aligned and W C % 4 == 0: interiors by 16-byte cp.async
 };
 
-// Floats of a staged row: (kTileW + 4) C, + 3 for the shift, to 16 bytes.
-__host__ __device__ constexpr int row_floats(int C) { return (kStageW * C + 6) / 4 * 4; }
-
 // Rows of the adjoint's vertical sums a block keeps in shared memory: the
 // outputs go out every kChunk rows, so that a 16-row tile of C = 3 needs
 // ~43 KB and, at 64 registers, five blocks fit an SM (per KBR micro-step on
@@ -130,58 +108,11 @@ __host__ __device__ constexpr int row_floats(int C) { return (kStageW * C + 6) /
 // SM 0.2596; tools/photo_bench.py variants).
 constexpr int kChunk = 2;
 
-// One staged row of x and y: image row `row_base / W` of the image,
-// columns ox - 2 .. ox + kTileW + 1, all channels, at xd, yd (where the
-// 16-byte copies land on 16 bytes). Lanes of one warp.
-template <int C>
-__device__ __forceinline__ void stage_row(const BwdArgs& a, long long row_base, int ox,
-                                          float* xd, float* yd, int lane) {
-  const int W = a.W;
-  const long long g0 = (row_base + ox - 2) * C;  // staged float 0 (may lie before the row)
-  const int pl = ox == 0 ? 2 : 0;                // staged pixels left of the image
-  const int pr = W - ox + 2 < kStageW ? W - ox + 2 : kStageW;  // first one right of it
-  const int fa = pl * C, fb = pr * C;            // the contiguous in-image floats
-  if (a.vec) {
-    const int sh = (int)(g0 & 3);
-    int f0 = fa + ((4 - ((sh + fa) & 3)) & 3);   // the first 16-byte aligned float
-    f0 = f0 < fb ? f0 : fb;
-    const int n4 = (fb - f0) >> 2;
-    for (int i = lane; i < n4; i += 32) {
-      const int f = f0 + 4 * i;
-      __pipeline_memcpy_async(xd + f, a.x + (g0 + f), 16);
-      __pipeline_memcpy_async(yd + f, a.y + (g0 + f), 16);
-    }
-    // The ends: at most 3 floats before f0 (lanes 0-3), 3 after (lanes 4-7).
-    const int f1 = f0 + 4 * n4;
-    const int f = lane < 4 ? fa + lane : f1 + lane - 4;
-    if (lane < 8 && f < (lane < 4 ? f0 : fb)) {
-      xd[f] = __ldg(a.x + (g0 + f));
-      yd[f] = __ldg(a.y + (g0 + f));
-    }
-  } else {
-    for (int f = fa + lane; f < fb; f += 32) {
-      xd[f] = __ldg(a.x + (g0 + f));
-      yd[f] = __ldg(a.y + (g0 + f));
-    }
-  }
-  // Staged pixels past the image's edges, through the reflect map.
-  const int nout = pl + kStageW - pr;
-  for (int i = lane; i < nout; i += 32) {
-    const int p = i < pl ? i : pr + i - pl;
-    const long long src = (row_base + reflect(ox - 2 + p, W)) * C;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      xd[p * C + c] = __ldg(a.x + src + c);
-      yd[p * C + c] = __ldg(a.y + src + c);
-    }
-  }
-}
-
 template <int TH, int C>
 __global__ void __launch_bounds__(kMaxThreads, 4) photo_bwd_kernel(BwdArgs a) {
   constexpr int CH = TH < kChunk ? TH : kChunk;
   constexpr int SC = kPoolW * C;  // floats of a pooled row: one a thread
-  constexpr int RS = row_floats(C);
+  constexpr int RS = row_floats(kStageW, C);
   SLOWTV_DYNAMIC_SMEM(smem);
   const int H = a.H, W = a.W;
   float* xs = reinterpret_cast<float*>(smem);  // [TH + 4][RS]
@@ -206,7 +137,8 @@ __global__ void __launch_bounds__(kMaxThreads, 4) photo_bwd_kernel(BwdArgs a) {
   // blocks on the SM hide the copies.)
   for (int t = tid >> 5; t < TH + 4; t += SC / 32) {
     const long long row_base = (plane + reflect(oy - 2 + t, H)) * W;
-    stage_row<C>(a, row_base, ox, xs + t * RS + sh, ys + t * RS + sh, lane);
+    stage_row<C, kStageW>(a.x, a.y, W, a.vec, row_base, ox - 2, xs + t * RS + sh,
+                          ys + t * RS + sh, lane);
   }
   for (int s = tid >> 5; s < TH + 2; s += SC / 32) {
     const int row = oy - 1 + s;
@@ -322,7 +254,8 @@ __global__ void __launch_bounds__(kMaxThreads, 4) photo_bwd_kernel(BwdArgs a) {
 
 long long smem_bytes(int rows, int C) {
   const int chunk = rows < kChunk ? rows : kChunk;
-  return 4LL * (2LL * (rows + 4) * row_floats(C) + 4LL * chunk * kPoolW * C + (rows + 2) * kPoolW);
+  return 4LL * (2LL * (rows + 4) * row_floats(kStageW, C) + 4LL * chunk * kPoolW * C +
+                (rows + 2) * kPoolW);
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<unsigned long long>(p) & 15) == 0; }

@@ -8,8 +8,9 @@ it.
 
 `photo_err_ssim` is a `torch.autograd.Function` over two wrappers:
 - `photo_fwd`: the error map. On a CUDA tensor the hand-written Hopper
-  kernel `photo_fwd` of `csrc/photo.cu` (TPU kernel 7); on a CPU tensor its
-  plain version `photo_fwd_plain`.
+  kernel of `csrc/photo.cu` (TPU kernel 7: one launch, tiles of 6 rows x 128
+  columns x all channels, at most 4, each window's statistics computed once);
+  on a CPU tensor its plain version `photo_fwd_plain`.
 - `photo_bwd`: the VJP (dx, dy) for a cotangent of the map. On a CUDA
   tensor the kernel of `csrc/photo_bwd.cu` (TPU kernel 8: one launch, tiles
   of `bwd_plan`'s height x 62 columns x all channels, at most 4, each pooled
@@ -95,13 +96,17 @@ def bwd_tiles(m: int, h: int, w: int, rows: int) -> tuple[int, int, int]:
     return rt, ct, m * rt * ct
 
 
+def _check_channels(c: int, what: str) -> None:
+    if not 1 <= c <= MAX_CHANNELS:
+        raise ValueError(f'{what} takes 1 to {MAX_CHANNELS} channels on the card, got {c}')
+
+
 @functools.lru_cache(maxsize=256)
 def bwd_plan(m: int, h: int, w: int, c: int, sms: int) -> int:
     """Kernel 8's tile height on a card of `sms` SMs: 16 rows where that gives
     every SM five blocks (as many as fit it; a taller tile recomputes less of
     its 2-row halo), else 4."""
-    if not 1 <= c <= MAX_CHANNELS:
-        raise ValueError(f'photo_bwd takes 1 to {MAX_CHANNELS} channels on the card, got {c}')
+    _check_channels(c, 'photo_bwd')
     return next((r for r in BWD_ROWS if bwd_tiles(m, h, w, r)[2] >= 5 * sms), BWD_ROWS[-1])
 
 
@@ -134,16 +139,17 @@ def _stream(t: torch.Tensor) -> int:
 def photo_fwd(x: torch.Tensor, y: torch.Tensor, w_ssim: float) -> torch.Tensor:
     """Photometric error map (m, h, w) of (m, h, w, c) float32 x, y.
 
-    Kernel 7 on a CUDA tensor, counted by `photo_fwd.launches`;
-    `photo_fwd_plain` on a CPU tensor.
+    Kernel 7 on a CUDA tensor (1 to 4 channels), counted by
+    `photo_fwd.launches`; `photo_fwd_plain` on a CPU tensor.
     """
     _check(x, y)
     if x.device.type == 'cpu':
         return photo_fwd_plain(x, y, w_ssim)
     m, h, w, c = x.shape
+    _check_channels(c, 'photo_fwd')
     out = torch.empty((m, h, w), dtype=x.dtype, device=x.device)
-    if out.numel() == 0 or c == 0:
-        return out.zero_()
+    if out.numel() == 0:
+        return out
     err = _build.load().slowtv_photo_fwd_f32(
         x.data_ptr(), y.data_ptr(), out.data_ptr(), m, h, w, c,
         float(w_ssim), float(1 - w_ssim), x.device.index, _stream(x))

@@ -24,12 +24,13 @@ struct dim3 {
 };
 extern thread_local dim3 threadIdx, blockIdx;
 template <class T> inline T __ldg(const T* p) { return *p; }
-// Float arithmetic of csrc/photo_bwd.cu: IEEE round-to-nearest (build with
+// Float arithmetic of csrc/photo*.cu: IEEE round-to-nearest (build with
 // -ffp-contract=off so that g++ fuses none of them into an FMA), and the
 // card's approximate division, exact here.
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
 inline float __fdividef(float a, float b) { return a / b; }  // approximate on the card
 void __syncthreads();

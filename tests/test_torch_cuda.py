@@ -325,7 +325,11 @@ def test_warp_kernel_matches_plain(card, b, h, w, c, ho, wo):
                                           # kernel 8's tile edges (62 columns, 4-16 rows):
                                           # h = 2, w = 2, two and three tiles wide
                                           (2, 2, 67, 3, True), (1, 35, 2, 2, False),
-                                          (1, 17, 125, 1, True), (2, 33, 124, 3, True)])
+                                          (1, 17, 125, 1, True), (2, 33, 124, 3, True),
+                                          # kernel 7's tile edges (128 columns, 6
+                                          # rows): C = 4, one past a tile, on two
+                                          (2, 7, 129, 4, True), (1, 12, 256, 3, False),
+                                          (1, 17, 385, 4, True), (1, 6, 128, 2, True)])
 def test_photo_kernels_match_plain(card, m, h, w, c, ties):
     from slowtv_monodepth_tpu_torch.ops import photo
     rs = np.random.RandomState(7)
@@ -369,6 +373,40 @@ def test_photo_bwd_every_tile_height_is_bitwise_repeatable(card, rows):
     assert all(torch.equal(u, v) for u, v in zip(first, second))
     for got, want in zip(first, photo.photo_bwd_plain(x.double(), y.double(), g.double(), 0.85)):
         assert _close(got, want)
+
+
+@pytest.mark.parametrize('c', [1, 3, 4])
+def test_photo_fwd_is_bitwise_repeatable_and_exact_at_ties(card, c):
+    """Kernel 7 three tiles wide and five high: within ATOL of the plain
+    version in float64, two calls the same bits, S == 0 exactly at ties."""
+    from slowtv_monodepth_tpu_torch.ops import photo
+    rs = np.random.RandomState(9)
+    m, h, w = 2, 37, 260
+    x = torch.from_numpy(rs.rand(m, h, w, c).astype(np.float32)).cuda()
+    y = torch.from_numpy(rs.rand(m, h, w, c).astype(np.float32)).cuda()
+    y[:, :, : w // 2] = x[:, :, : w // 2]
+    first, second = (photo.photo_fwd(x, y, 0.85) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert _close(first, photo.photo_fwd_plain(x.double(), y.double(), 0.85))
+    assert (first[:, :, : w // 2 - 1] == 0).all()  # windows in the tie half: S == 0 exactly
+
+
+def test_photo_division_by_a_constant_is_the_ieee_quotient(card):
+    """Kernel 7's divisions by 9 and by C (`div_rn` of csrc/photo_common.cuh)
+    give the IEEE quotient's bits for every float but NaN."""
+    from slowtv_monodepth_tpu_torch.tools import photo_bench
+    assert photo_bench.division_mismatches() == {d: 0 for d in photo_bench.DIVISORS}
+
+
+def test_photo_kernels_take_one_to_four_channels_on_the_card(card):
+    from slowtv_monodepth_tpu_torch.ops import photo
+    x = torch.rand(1, 8, 8, 5, device='cuda')
+    with pytest.raises(ValueError, match='photo_fwd takes 1 to 4 channels'):
+        photo.photo_fwd(x, x, 0.85)
+    with pytest.raises(ValueError, match='photo_bwd takes 1 to 4 channels'):
+        photo.photo_bwd(x, x, torch.rand(1, 8, 8, device='cuda'), 0.85)
+    assert photo.photo_fwd(x.cpu(), x.cpu(), 0.85).shape == (1, 8, 8)  # the plain version: any C
 
 
 # ------------------------------------------------------------ fused ConvNeXt block

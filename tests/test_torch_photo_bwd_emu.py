@@ -59,7 +59,8 @@ SMEM_PER_SM = 233472  # an H100 SM's shared memory (228 KB), 1 KB of it reserved
 
 def _start_build(gxx: str, src, lib) -> subprocess.Popen:
     cmd = [gxx, '-std=c++20', '-O1', '-ffp-contract=off', '-shared', '-fPIC', '-pthread',
-           f'-I{EMU}', f'-DKERNEL_SOURCE="{src}"', str(EMU / 'emu.cpp'), '-o', str(lib)]
+           f'-I{EMU}', f'-I{_build.CSRC}', f'-DKERNEL_SOURCE="{src}"', str(EMU / 'emu.cpp'),
+           '-o', str(lib)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
