@@ -41,9 +41,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    widened source. Kernel 8 called twice must give the same bits, also at
    the edges of its tiles (h = 2, w = 2, C = 1, images two and three tiles
    wide), kernel 7's error map the bits the parent checkout gave
-   (`PHOTO_FWD_SHA256`, `tools/photo_bench.fwd_digests`) and kernel 8's dx
-   and dy theirs (`PHOTO_BWD_SHA256`, `bwd_digests`). Kernel 1 at the
-   step's eight block shapes (float64, timed per micro-step); kernels 2 (at
+   (`PHOTO_FWD_SHA256`, `tools/photo_bench.fwd_digests`), kernel 8's dx
+   and dy theirs (`PHOTO_BWD_SHA256`, `bwd_digests`), and kernels 5 and 6
+   their out, ddx and ddy (`WARP_SHA256`, `tools/warp_bench.digests`).
+   Kernel 1 at the step's eight block shapes (float64, timed per micro-step); kernels 2 (at
    the step's eight block shapes) and 4 called twice on the same inputs must give the same bits. The fused block's backward (kernel 10, with kernels 1 and 2
    finishing dx and the taps' gradient) at the eight block shapes of the
    step (ConvNeXt-B at B=4, ConvNeXt-T at B=8), ragged shapes, erf and tanh:
@@ -202,6 +203,23 @@ PHOTO_BWD_RTOL = 1e-5  # of the largest |gradient|
 PHOTO_FWD_SHA256 = {
     '(32, 384, 640, 3)': '8a7043fe5d1e0bb8469633ff36f6f3fe51efb2eac9c49f8a25029d6043aef40b',
     '(8, 384, 640, 3)': 'd2dd0378e18652077e764e20c8ef8d79e8283778e231c3f38453b7a3def10000'}
+# Kernels 5 and 6's out, ddx and ddy on `tools/warp_bench.digest_inputs` (the
+# step's stack at near-identity coords, the supports' resample onto 224x832;
+# kernel 6 on the source rounded to bfloat16), as the parent checkout of their
+# redesign (72d0ae1) gave them on an H100: the redesign kept blend's bits.
+WARP_SHA256 = {
+    'warp step out': '307aa3be8ea2dccd776e5bc20627ef4ceeda6819d2b4b5a4d5eb1b61837b20ae',
+    'warp step ddx': '9351deca7fdb796dc17517f291e529c24ddb433725b49856e24d74c0a4309aee',
+    'warp step ddy': 'd8413351974e8bb855f54733793202ab3cf941cb343353075535bfaa5d198946',
+    'warp_packed step out': '08b0428dadf9fe08d7cfc96daa9685035bddf386f098146c8b8784cbc4d5706f',
+    'warp_packed step ddx': 'e380a459c7b18f8c96f8577b8b3a4a2cd4d97bc51391a9494f1351b897132879',
+    'warp_packed step ddy': '4a8b8a96bd779284ad383c3e66d31e0cd87eb593674e7709fbccfbf96490ca7f',
+    'warp resample out': 'a92e4ac05b39632004f699a13587e187e11555cdb42dc359f630d77b3c025fa1',
+    'warp resample ddx': 'c25786806a189160020fb241da24d4807a430abde943992cfeff6b84e01b979e',
+    'warp resample ddy': 'aba6b2379984c6948d35aedd191f00215712fde153cc5c4e69fdd06af1704392',
+    'warp_packed resample out': '4fb0957c6d60635b99a130f21ad285dd9ea54e63999fee0b833360f963f5ec75',
+    'warp_packed resample ddx': 'fee06b20cda9544392d567b2d543ab72aec804f413a09cfb3bf22809fd30a804',
+    'warp_packed resample ddy': 'b0889fcbbf8f65c94993f145c2cff1c3816fcd0995cf453bdd618e1a66ae89e8'}
 # Kernel 8's dx and dy at (32, 384, 640, 3) on the same inputs, as its parent
 # checkout (2e67e19) gave them on an H100: moving its row staging and rounded
 # operations into csrc/photo_common.cuh left its bits alone.
@@ -399,6 +417,9 @@ def phase_build() -> None:
         if ('photo_bwd_kernel' in entry or 'photo_fwd_kernel' in entry) and 'stack frame' in line \
                 and '0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads' not in line:
             fail(f'a launch of a photometric kernel uses local memory: {line.strip()}')
+        if 'warp_bilinear_kernel' in entry and 'stack frame' in line \
+                and '0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads' not in line:
+            fail(f'a launch of the warp kernel uses local memory: {line.strip()}')
         # Kernel 3's launches run two 256-thread blocks an SM only within 128 registers.
         if 'decoder_stage_fwd_' in entry and 'registers' in line \
                 and int(line.split('Used ')[1].split()[0]) > 128:
@@ -422,6 +443,9 @@ def phase_build() -> None:
         fail('the build log does not show the photometric backward kernel')
     if not all(f'photo_fwd_kernelILi{c}E' in log for c in (1, 2, 3, 4)):
         fail('the build log does not show the photometric forward kernel')
+    # Kernels 5 (float) and 6 (unsigned short: bfloat16), C = 1-4 and any C (0).
+    if not all(f'warp_bilinear_kernelI{t}Li{c}E' in log for t in 'ft' for c in range(5)):
+        fail('the build log does not show every instance of the warp kernel')
 
 
 def _rand(rs, *shape, scale=1.0):
@@ -1019,6 +1043,13 @@ def phase_train_kernels(scenes) -> dict:
                (2 * px + 4 * (2 * cx.numel() + 3 * pout), 14 * pout),
                library_warp(im16, cx, cy))  # the library call on the source widened in the call
 
+    from slowtv_monodepth_tpu_torch.tools.warp_bench import digests as warp_digests
+    digests = warp_digests()
+    if digests != WARP_SHA256:
+        fail(f'warp: out, ddx, ddy are not the parent checkout\'s: {digests}')
+    print('warp, warp_packed: out, ddx and ddy have the parent checkout\'s sha256 at the '
+          'step\'s stack and a resample')
+
     # Photometric error: the warped stack (m=32) and the static stack (m=8)
     # forward, the warped stack backward; then ragged shapes with exact ties.
     for mm, n_fwd, n_bwd in [(m, 1, 1), (2 * TRAIN_B, 1, 0)]:
@@ -1570,7 +1601,8 @@ def profile_train(out: Path = ROOT / 'build' / 'train_profile.txt',
               '3 decoder_stage': ('decoder_stage_fwd_',),
               '4 decoder_stage_bwd': ('sigmoid_grad', 'presum_kernel', 'weight_grad_kernel',
                                       'input_grad_kernel', 'reduce_weight_grad'),
-              '5 warp': ('warp_bilinear_kernel',), '6 warp_packed': ('warp_bilinear_packed',),
+              '5 warp': ('warp_bilinear_kernel<float',),
+              '6 warp_packed': ('warp_bilinear_kernel<unsigned short',),
               '7 photo_fwd': ('photo_fwd',), '8 photo_bwd': ('photo_bwd',),
               '9 convnext_block': ('convnext_block_fwd',),
               '10 convnext_block_bwd': ('convnext_block_bwd_',)}

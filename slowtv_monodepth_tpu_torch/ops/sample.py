@@ -126,9 +126,9 @@ warp_bilinear.launches = 0
 def warp_bilinear_packed(img: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor):
     """`warp_bilinear` on a bfloat16 CUDA source: kernel 6.
 
-    The kernel reads the source as it is, with no padded copy: whole 32-bit
-    words of two channels each for an even channel count, 16-bit values for an
-    odd one (RGB); it widens them exactly and blends in float32.
+    The kernel (kernel 5's body on 16-bit source values) reads the source as
+    it is, at any address, with no copy; it widens each value exactly and
+    blends in float32.
     """
     _check(img, fx, fy)
     if img.device.type != 'cuda' or img.dtype != torch.bfloat16:
@@ -140,8 +140,6 @@ def warp_bilinear_packed(img: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor):
                      for _ in range(3))
     if out.numel() == 0:
         return out, ddx, ddy
-    if img.data_ptr() % 8:  # a view that starts mid-word
-        img = img.clone()
     err = _build.load().slowtv_warp_bilinear_packed_bf16(
         *(t.data_ptr() for t in (img, fx, fy, out, ddx, ddy)),
         b, h, w, c, ho, wo, img.device.index,

@@ -24,6 +24,14 @@ struct dim3 {
 };
 extern thread_local dim3 threadIdx, blockIdx;
 template <class T> inline T __ldg(const T* p) { return *p; }
+// Integer min and max, and a float's bits (csrc/warp.cu).
+inline int min(int a, int b) { return a < b ? a : b; }
+inline int max(int a, int b) { return a > b ? a : b; }
+inline float __uint_as_float(unsigned u) {
+  float f;
+  std::memcpy(&f, &u, sizeof f);
+  return f;
+}
 // Float arithmetic of csrc/photo*.cu: IEEE round-to-nearest (build with
 // -ffp-contract=off so that g++ fuses none of them into an FMA), and the
 // card's approximate division, exact here.

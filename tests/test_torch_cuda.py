@@ -249,7 +249,9 @@ def test_depthnet_gradients_with_fused_stages_match_plain_path(card):
 
 
 WARP_BF16_CASES = [(2, 24, 160, 3, 16, 200), (1, 16, 128, 1, 16, 128), (3, 37, 53, 2, 37, 53),
-                   (1, 5, 7, 8, 9, 4), (2, 9, 11, 4, 6, 7), (1, 8, 8, 5, 8, 8)]
+                   (1, 5, 7, 8, 9, 4), (2, 9, 11, 4, 6, 7), (1, 8, 8, 5, 8, 8),
+                   # C = 4 on the kernel's runs of 512 pixels: one run, two, two and a part
+                   (1, 16, 32, 4, 16, 32), (2, 20, 30, 4, 16, 64), (2, 20, 30, 3, 23, 45)]
 
 
 @pytest.mark.parametrize('b,h,w,c,ho,wo', WARP_BF16_CASES)
@@ -272,6 +274,27 @@ def test_packed_warp_kernel_matches_plain_and_float32_kernel(card, b, h, w, c, h
     for g, w_, f in zip(got, want, k5):
         assert g.dtype == torch.float32 and _close(g, w_)
         assert (g - f).abs().max().item() <= 1e-6 * max(1.0, f.abs().max().item())
+
+
+@pytest.mark.parametrize('c', [2, 3, 4])
+def test_packed_warp_kernel_takes_a_misaligned_view(card, c):
+    """Kernel 6 on a bfloat16 source that starts 2 bytes past a 4-byte
+    boundary, as it lies: the same bits as kernel 5 on the widened source."""
+    from slowtv_monodepth_tpu_torch.ops import sample
+    rs = np.random.RandomState(c)
+    b, h, w, ho, wo = 2, 19, 27, 23, 45
+    flat = _rand(rs, b * h * w * c + 1).to(torch.bfloat16)
+    img = flat[1:].view(b, h, w, c)
+    assert img.is_contiguous() and img.data_ptr() % 4 == 2
+    fx = torch.from_numpy(rs.uniform(0, w - 1, (b, ho, wo)).astype(np.float32)).cuda()
+    fy = torch.from_numpy(rs.uniform(0, h - 1, (b, ho, wo)).astype(np.float32)).cuda()
+    n6 = sample.warp_bilinear_packed.launches
+    got = sample.warp_bilinear(img, fx, fy)
+    torch.cuda.synchronize()
+    assert sample.warp_bilinear_packed.launches == n6 + 1
+    want = sample.warp_bilinear_plain(img.double(), fx.double(), fy.double())
+    for g, w_, f in zip(got, want, sample.warp_bilinear(img.float(), fx, fy)):
+        assert _close(g, w_) and torch.equal(g, f)
 
 
 def test_warp_refuses_other_dtypes_on_the_card(card):
@@ -302,7 +325,11 @@ def test_grid_sample_bf16_source_gradients_on_the_card(card):
 
 
 @pytest.mark.parametrize('b,h,w,c,ho,wo', [(2, 24, 160, 3, 16, 200), (1, 16, 128, 1, 16, 128),
-                                           (3, 37, 53, 3, 37, 53), (1, 5, 7, 8, 9, 4)])
+                                           (3, 37, 53, 3, 37, 53), (1, 5, 7, 8, 9, 4),
+                                           # C = 4; the kernel's runs of 512 pixels: one
+                                           # run, two, two and a part, a part
+                                           (1, 16, 32, 4, 16, 32), (2, 20, 30, 3, 16, 64),
+                                           (1, 21, 29, 3, 23, 45), (1, 5, 7, 4, 33, 31)])
 def test_warp_kernel_matches_plain(card, b, h, w, c, ho, wo):
     from slowtv_monodepth_tpu_torch.ops import sample
     rs = np.random.RandomState(6)
