@@ -87,6 +87,19 @@ Phases, in order; any failure exits non-zero and prints no result:
    and one with `trainer.warp_bf16` (the packed warp once per micro-step,
    kernel 5 only from the augmentation), 24 batches each so that buckets repeat, after which the process-global
    matmul precision and `cudnn.benchmark` are put back and checked.
+11. recipe: `cfg/kbr/default.yaml` as it stands, through its dataset section:
+   `MonoDepthLoop` over a `ConcatDataLoader` of in-memory stand-ins for its three
+   pack datasets in its key order (`PackLoader`: KITTI 376x1242 with sparse
+   benchmark depth, MannequinChallenge and SlowTV 720x1280; the layouts the readers
+   yield, held to them by `tests/test_torch_recipe.py`), one epoch of 6 micro-steps
+   (3 updates) and a validation batch of each (192x640 for KITTI, 384x640). Asserts
+   the launch counts (each KITTI batch's depth one more kernel 5 launch, at C = 1),
+   the round robin (depth on batches 0 and 3 only), the train metrics (MAE, RMSE,
+   LogSI, AbsRel, Acc) logged finite on the KITTI micro-steps and at validation, and
+   the first KITTI micro-step's metrics within 1e-5 of a float64 numpy restatement;
+   prints each micro-step's bucket, ms and loss. Kernels 3, 4, 5 (KITTI's images and
+   its depth from 376x1242) and 7, 8 are also held to their plain versions at the
+   bucket of its second KITTI batch (phases 3 and 6).
 Every time is a device time (`cuda_ms`: the calls captured into one CUDA
 graph, CUDA events around one replay) with the eager time beside it. The last
 two lines are a JSON object per kernel and the contract line
@@ -159,6 +172,20 @@ RUN_CFG = {**KBR_TRAIN_CFG, 'seed': RUN_SEED, 'trainer': {
 # Two of the centre crops that the run's first epoch draws (seed 42): every kernel
 # is also held against its plain version at the shapes these buckets give it.
 RUN_CROPS = ((345, 1141), (620, 496))   # -> buckets 224x832 and 480x384
+# The recipe phase: cfg/kbr/default.yaml's dataset section at its published shapes, per
+# dataset (train source shape, val shape). KITTI's batches carry its benchmark depth, read
+# at `KittiRawDataset.SHAPE` in every mode, sparse: about 5% of the pixels valid, in [1, 80] m.
+RECIPE_DATASETS = {'kitti_lmdb': ((376, 1242), (192, 640)),
+                   'mannequin_lmdb': ((720, 1280), (384, 640)),
+                   'slow_tv_lmdb': ((720, 1280), (384, 640))}
+RECIPE_DEPTH_SHAPE = (376, 1242)
+RECIPE_DEPTH_VALID = 0.05
+RECIPE_TRAIN_BATCHES = 2   # per dataset: 6 micro-steps in the round robin, 3 updates
+# The centre crop of the recipe phase's second KITTI batch (seed 42, epoch 0): kernels 3, 4,
+# 5 (on KITTI's images and its depth), 7 and 8 are also held at the shapes its bucket gives.
+RECIPE_KITTI_CROP = (220, 342)   # -> bucket 320x544
+# The recipe phase's train metrics on a KITTI micro-step against a float64 numpy restatement.
+METRICS_RTOL = 1e-5
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 CONVNEXT_B_BLOCKS = (3, 3, 27, 3)
@@ -177,7 +204,9 @@ GOLDEN_ATOL = 1e-5   # 36 blocks + decoder vs the JAX package on the CPU (~8e-7)
 BLOCK_RTOL = 5e-6
 # Against the plain version in float64:
 DW_ATOL = 1e-5       # tap gradient, normalized to O(1) taps; sums over b*h*w terms
-WARP_ATOL = 1e-5     # 4-corner bilinear of values in [0, 1]
+# 4-corner bilinear of values in [0, 1]; a source of larger values (KITTI's benchmark
+# depth, up to 80 m) is held to WARP_ATOL times its max|value|.
+WARP_ATOL = 1e-5
 # The stage's backward, each gradient relative to its own largest magnitude
 # (a gradient that is exactly zero must come out exactly zero): 1e-5 for dx,
 # and for the weight and bias gradients (sums over P = b*2h*2w pixels)
@@ -354,6 +383,20 @@ def run_buckets() -> list[tuple[tuple[int, int], tuple[int, int]]]:
     return [(crop, sample_resize(crop, ref, eps=0.8)) for crop in RUN_CROPS]
 
 
+def kitti_bucket() -> tuple[tuple[int, int], tuple[int, int]]:
+    """(crop, bucket shape) of `RECIPE_KITTI_CROP` under the run's augmentation settings."""
+    from slowtv_monodepth_tpu_torch.core.aspect_ratio import sample_resize
+    return RECIPE_KITTI_CROP, sample_resize(RECIPE_KITTI_CROP,
+                                            RUN_CFG['trainer']['aspect_ratio_ref_shape'], eps=0.8)
+
+
+def sparse_depth(rs, b: int) -> np.ndarray:
+    """(b, *RECIPE_DEPTH_SHAPE, 1) float32 benchmark-style depth: `RECIPE_DEPTH_VALID`
+    of the pixels in [1, 80] m, the rest 0 (no measurement)."""
+    valid = rs.rand(b, *RECIPE_DEPTH_SHAPE, 1) < RECIPE_DEPTH_VALID
+    return np.where(valid, rs.uniform(1, 80, valid.shape), 0).astype(np.float32)
+
+
 def stage_cost(b, h, w, ci, cd, backward: bool, taps9: bool = False) -> tuple[float, float]:
     """(bytes, float32 operations) of one decoder stage, forward or backward.
     The forward's conv_b counts as kernel 3 computes it, four pre-summed taps
@@ -528,12 +571,13 @@ def _stage_kernel_cases(rs, res) -> None:
     # (b, h, w, ci, cd): KBR stages 1 and 0 at B=2, B=4 and B=1 (timed), then
     # ragged ones: grids of 2 and 3, one decoder channel, channels off 4, input
     # channels over one chunk of 32, decoder channels over one tile, h and w
-    # off the tiles; the training run's buckets at B=4, stages 1 and 0.
+    # off the tiles; the training run's buckets and the recipe's KITTI bucket at
+    # B=4, stages 1 and 0.
     st_cases = [(b, h, w, ci, cd) for b in (2, 4, 1)
                 for h, w, ci, cd in ((96, 160, 64, 32), (192, 320, 32, 16))]
     st_cases += [(2, 23, 37, 6, 5), (1, 21, 19, 20, 20), (1, 2, 3, 4, 3), (2, 3, 2, 3, 1),
                  (1, 37, 45, 40, 17)]
-    for _, (bh, bw) in run_buckets():
+    for _, (bh, bw) in run_buckets() + [kitti_bucket()]:
         st_cases += [(4, bh // 4, bw // 4, 64, 32), (4, bh // 2, bw // 2, 32, 16)]
     split, bound9 = {}, {k: 0.0 for k in timed}
     for i, (b, h, w, ci, cd) in enumerate(st_cases + [(1, 10, 12, 32, 16)]):
@@ -930,7 +974,7 @@ def phase_train_kernels(scenes) -> dict:
     st_cases = [(4, 96, 160, 64, 32, 1), (4, 192, 320, 32, 16, 1), (2, 23, 37, 6, 5, 0),
                 (1, 21, 19, 20, 20, 0), (1, 2, 3, 4, 3, 0), (2, 3, 2, 2, 2, 0),
                 (4, 56, 176, 32, 16, 0)]
-    for _, (bh, bw) in run_buckets():
+    for _, (bh, bw) in run_buckets() + [kitti_bucket()]:  # with the recipe's KITTI bucket
         st_cases += [(4, bh // 4, bw // 4, 64, 32, 0), (4, bh // 2, bw // 2, 32, 16, 0)]
     for b, h, w, ci, cd, n in st_cases:
         args = (_rand(rs, b, h, w, ci, scale=0.5),
@@ -1008,6 +1052,26 @@ def phase_train_kernels(scenes) -> dict:
             (xs.cuda() + 2 + torch.randn(m, bh, bw, device='cuda')).clamp(0, bw - 1).contiguous(),
             (ys.cuda() + 0.5 * torch.randn(m, bh, bw, device='cuda')).clamp(0, bh - 1).contiguous(),
             0))
+    cases = [(*c, 1.0) for c in cases]  # (source, coords, launches, tolerance / WARP_ATOL)
+    # The recipe's KITTI batches: the B=4 targets from 376x1242 onto its bucket, and their
+    # sparse benchmark depth (C = 1, values up to 80 m: held to WARP_ATOL times max|depth|).
+    crop, bucket = kitti_bucket()
+    kitti = torch.nn.functional.interpolate(
+        img[:TRAIN_B].permute(0, 3, 1, 2), size=RECIPE_DEPTH_SHAPE, mode='bilinear',
+        align_corners=False).permute(0, 2, 3, 1).contiguous()
+    depth = torch.from_numpy(sparse_depth(np.random.RandomState(11), TRAIN_B)).cuda()  # own seed
+    for src, scale in ((kitti, 1.0), (depth, float(depth.abs().max()))):
+        cx, cy = sample.border_coords(crop_grid(src, crop, bucket), *RECIPE_DEPTH_SHAPE)
+        cases.append((src, cx, cy, 0, scale))
+        # Timed per call, outside the kernels line's per-micro-step sums: one call each
+        # per KITTI batch of the recipe (its images' resample is one of its four).
+        t = cuda_ms(lambda: sample.warp_bilinear(src, cx, cy), iters=10)
+        pt = cuda_ms(lambda: sample.warp_bilinear_plain(src, cx, cy), iters=10)
+        bound = bound_ms(4 * (src.numel() + 2 * cx.numel() + 3 * cx.numel() * src.shape[-1]),
+                         14 * cx.numel() * src.shape[-1])
+        print(f'warp {tuple(src.shape)} -> {bucket}, per call: device ms (eager) kernel '
+              f'{t.ms:.4f} ({t.eager_ms:.4f}), plain {pt.ms:.4f} ({pt.eager_ms:.4f}), bound '
+              f'{max(bound):.4f} ({"bytes" if bound[0] >= bound[1] else "operations"})')
 
     def library_warp(im, cx, cy):
         """`F.grid_sample` on the same samples (it returns the sample only, not ddx, ddy)."""
@@ -1016,14 +1080,15 @@ def phase_train_kernels(scenes) -> dict:
         return lambda: F.grid_sample(im.float().permute(0, 3, 1, 2), grid, mode='bilinear',
                                      padding_mode='border', align_corners=False)
 
-    for im, cx, cy, n in cases:
+    for im, cx, cy, n, scale in cases:
         got = sample.warp_bilinear(im, cx, cy)
         want = sample.warp_bilinear_plain(im.double(), cx.double(), cy.double())
         px, pout = im.numel(), got[0].numel()
         lib = library_warp(im, cx, cy)
         lib_err = _max_err(lib().permute(0, 2, 3, 1), want[0])
-        record('warp', max(_max_err(a, b) for a, b in zip(got, want)), WARP_ATOL,
-               f'warp {tuple(im.shape)} -> {tuple(cx.shape[1:])} (F.grid_sample off by '
+        of = '' if scale == 1.0 else f' x max|source| {scale:.3g}'
+        record('warp', max(_max_err(a, b) for a, b in zip(got, want)), WARP_ATOL * scale,
+               f'warp {tuple(im.shape)} -> {tuple(cx.shape[1:])}{of} (F.grid_sample off by '
                f'{lib_err:.1e})', n, lambda: sample.warp_bilinear(im, cx, cy),
                lambda: sample.warp_bilinear_plain(im, cx, cy),
                (4 * (px + 2 * cx.numel() + 3 * pout), 14 * pout), lib)
@@ -1036,8 +1101,8 @@ def phase_train_kernels(scenes) -> dict:
         vs_k5 = max(_max_err(a, b) for a, b in zip(got16, k5))
         if any(t.dtype != torch.float32 for t in got16) or not vs_k5 <= 1e-6:
             fail(f'warp_packed {tuple(im.shape)}: off kernel 5 on the widened source by {vs_k5:.2e}')
-        record('warp_packed', max(_max_err(a, b) for a, b in zip(got16, want16)), WARP_ATOL,
-               f'warp_packed {tuple(im.shape)} bf16 -> {tuple(cx.shape[1:])} (vs kernel 5 on the '
+        record('warp_packed', max(_max_err(a, b) for a, b in zip(got16, want16)), WARP_ATOL * scale,
+               f'warp_packed {tuple(im.shape)} bf16 -> {tuple(cx.shape[1:])}{of} (vs kernel 5 on the '
                f'widened source {vs_k5:.1e})', n, lambda: sample.warp_bilinear(im16, cx, cy),
                lambda: sample.warp_bilinear_plain(im16, cx, cy),
                (2 * px + 4 * (2 * cx.numel() + 3 * pout), 14 * pout),
@@ -1056,7 +1121,8 @@ def phase_train_kernels(scenes) -> dict:
         x, y = _scene_pair(scenes, mm, rs)
         g = torch.from_numpy(rs.rand(mm, 384, 640).astype(np.float32)).cuda()
         _photo_case(record, x, y, g, n_fwd, n_bwd)
-    for _, (bh, bw) in run_buckets():  # the warped and the static stack at the run's buckets
+    # the warped and the static stack at the run's buckets and the recipe's KITTI bucket
+    for _, (bh, bw) in run_buckets() + [kitti_bucket()]:
         for mm in (m, 2 * TRAIN_B):
             x, y = (F.interpolate(t.permute(0, 3, 1, 2), size=(bh, bw), mode='bilinear',
                                   align_corners=False).permute(0, 2, 3, 1).contiguous()
@@ -1366,15 +1432,66 @@ class SceneLoader:
             yield x, y, {'items': [str(j) for j in idx]}
 
 
+class PackLoader(SceneLoader):
+    """In-memory stand-in for `parsers.get_dl` on one of the recipe's pack datasets
+    (`kitti_lmdb`, `mannequin_lmdb`, `slow_tv_lmdb`; the card's machine has no PIL or
+    cv2 to decode a pack): batches (x, y, m) in the layout the dataset yields with the
+    recipe's settings, keys, dtypes and shapes (`tests/test_torch_recipe.py` holds them
+    to the readers' batches): x the standardized frames and `supp_idxs`, y the raw
+    frames, [KITTI's sparse benchmark depth at `RECIPE_DEPTH_SHAPE`] and K, m the
+    readers' metadata keys.
+    """
+
+    def __init__(self, scenes, name: str, n_batches: int, shape, train: bool, seed: int = 0):
+        from slowtv_monodepth_tpu_torch.data import IMAGENET_MEAN, IMAGENET_STD
+        super().__init__(scenes, n_batches, shape, seed=seed)
+        self.name, self.train = name, train
+        self.std = (self.base - IMAGENET_MEAN) / IMAGENET_STD
+
+    def __iter__(self):
+        from slowtv_monodepth_tpu_torch.utils import MultiLevelTimer
+        for i in range(self.n):
+            timer = MultiLevelTimer(name=self.name)
+            with timer('Total'):
+                rs = np.random.RandomState(self.seed + 1000 * self.epoch + i)
+                idx = rs.randint(0, len(self.base), self.batch)
+                shift = int(rs.randint(2, 6))  # camera motion between frames, in px along W
+
+                def frames(base):
+                    imgs = base[idx]
+                    return imgs, np.stack([np.roll(imgs, shift, axis=2), np.roll(imgs, -shift, axis=2)])
+
+                (x_imgs, x_supp), (imgs, supp) = frames(self.std), frames(self.base)
+                x = {'imgs': x_imgs, 'supp_idxs': np.array(SUPP_IDXS), 'supp_imgs': x_supp}
+                y = {'imgs': imgs, 'supp_imgs': supp}
+                if self.name == 'kitti_lmdb':
+                    y['depth'] = sparse_depth(rs, self.batch)
+                y['K'] = np.ascontiguousarray(np.broadcast_to(self.K, (self.batch, 4, 4)))
+            m = {'items': [str(j) for j in idx],
+                 'items_original': [str(i * self.batch + j) for j in range(self.batch)]}
+            if self.train:
+                m['augs'] = [''] * self.batch
+            if self.name == 'kitti_lmdb':
+                m['stem'] = [f'synthetic/image_02/{j:010}' for j in idx]
+            elif self.name == 'mannequin_lmdb':
+                m['seq'] = ['synthetic'] * self.batch
+            m.update(supp=['1'] * self.batch, timer_data=[timer.copy() for _ in idx],
+                     errors=[''] * self.batch)
+            yield x, y, m
+
+
 class RunLog:
     """Scalar writer for `MonoDepthLoop` at `log_every_n_steps: 1`: per training
-    micro-step its loss and bucket shape as the loop logs them, and the time the
-    loop's own `Step` timer gained since the step before."""
+    micro-step its scalars (loss, bucket shape, train metrics) as the loop logs them,
+    and the time the loop's own `Step` timer gained since the step before; the
+    validation scalars last logged."""
 
     def __init__(self):
-        self.loop, self.rows, self._seen = None, {}, 0.0
+        self.loop, self.rows, self.val, self._seen = None, {}, {}, 0.0
 
     def add_scalar(self, tag: str, val: float, step: int) -> None:
+        if tag.startswith('val_'):
+            self.val[tag.split('/')[-1]] = val
         if not tag.startswith('train_'):
             return
         self.rows.setdefault(step, {})[tag.split('/')[-1]] = val
@@ -1389,16 +1506,22 @@ class RunLog:
 
 
 def _run_loop(cfg: dict, ckpt_dir: Path, scenes, val: bool, tag: str,
-              n_batches: int = RUN_BATCHES):
-    """One `MonoDepthLoop.fit()` over `SceneLoader`s -> (loop, stats): the launch
-    counts of the fit, each micro-step's (bucket, ms, loss) and the wall time."""
+              n_batches: int = RUN_BATCHES, loaders=None, before_fit=None):
+    """One `MonoDepthLoop.fit()` over `SceneLoader`s (or over `loaders`, a (train,
+    val) pair) -> (loop, stats): the launch counts of the fit, each micro-step's
+    (bucket, ms, loss), the logged scalars and the wall time. `before_fit(loop)` runs
+    just before the fit."""
     from slowtv_monodepth_tpu_torch.core import MonoDepthLoop
     log = RunLog()
-    loop = log.loop = MonoDepthLoop(
-        cfg, ckpt_dir, writer=log,
-        train_dl=SceneLoader(scenes, n_batches, RUN_SRC_SHAPE, seed=RUN_SEED),
-        val_dl=SceneLoader(scenes, 1, (384, 640), seed=RUN_SEED + 1) if val else None)
+    if loaders is None:
+        loaders = (SceneLoader(scenes, n_batches, RUN_SRC_SHAPE, seed=RUN_SEED),
+                   SceneLoader(scenes, 1, (384, 640), seed=RUN_SEED + 1) if val else None)
+    n_batches = len(loaders[0])
+    loop = log.loop = MonoDepthLoop(cfg, ckpt_dir, writer=log, train_dl=loaders[0],
+                                    val_dl=loaders[1])
     loop.sync_timers = True  # each stage of the epoch waits for the device: a true split
+    if before_fit is not None:
+        before_fit(loop)
     _reset_counts()
     t0 = time.perf_counter()
     loop.fit()
@@ -1413,7 +1536,7 @@ def _run_loop(cfg: dict, ckpt_dir: Path, scenes, val: bool, tag: str,
     steps = [row[1:] for row in logged]
     start = {'epoch': loop.start_epoch, 'step': logged[0][0] - 1}
     stats = {'counts': _read_counts(), 'steps': steps, 'wall_ms': wall, 'start': start,
-             'split': loop.timer.total_elapsed()}
+             'split': loop.timer.total_elapsed(), 'rows': log.rows, 'val': log.val}
     losses = [l for _, _, l in steps]
     if not (losses and all(np.isfinite(losses))) or int(loop.trainer.bad_step) != -1:
         fail(f'run {tag}: losses {losses}, bad_step {loop.trainer.bad_step}')
@@ -1442,15 +1565,16 @@ def _run_loop(cfg: dict, ckpt_dir: Path, scenes, val: bool, tag: str,
     return loop, stats
 
 
-def _expected_run_counts(n: int, v: int, warp_bf16: bool = False) -> dict:
-    """Launches of `n` training micro-steps on 720x1280 sources (every batch is
-    resampled, 4 tensors each: x and y, imgs and supp_imgs) and `v` validation steps."""
+def _expected_run_counts(n: int, v: int, warp_bf16: bool = False, depth_batches: int = 0) -> dict:
+    """Launches of `n` training micro-steps on sources off the reference shape (every
+    batch is resampled, 4 tensors each: x and y, imgs and supp_imgs, and the depth of
+    `depth_batches` of them one more) and `v` validation steps."""
     step_warp = {'warp_packed' if warp_bf16 else 'warp': n + v}
     counts = {'dwconv': 108 * n + 54 * v, 'decoder_stage': 2 * (n + v), 'decoder_stage_bwd': 2 * n,
               'dwconv_dw': 54 * n, 'warp': 0, 'warp_packed': 0, 'photo_fwd': 2 * (n + v),
               'photo_bwd': n, 'convnext_block': 0, 'convnext_block_bwd': 0}
     counts.update(step_warp)
-    counts['warp'] += 4 * n
+    counts['warp'] += 4 * n + depth_batches
     return counts
 
 
@@ -1532,6 +1656,105 @@ def phase_run(scenes) -> dict:
         fail('run: float32 matmul precision is not back at highest')
     print("run: float32 matmul precision back at 'highest', cudnn.benchmark off")
     return launches
+
+
+def np_train_metrics(pred: np.ndarray, target: np.ndarray, min_depth: float,
+                     max_depth: float) -> dict:
+    """`core.train_metrics.compute_train_metrics` restated in float64 numpy, row by row:
+    `numpy.median` over the valid entries, the legacy `Acc` denominator (the sum of
+    the ratios over the valid pixels, not their count)."""
+    rows = []
+    for p, t in zip(pred.reshape(len(pred), -1).astype(np.float64),
+                    target.reshape(len(target), -1).astype(np.float64)):
+        p = np.clip(p, min_depth, max_depth)
+        valid = (t > min_depth) & (t < max_depth)
+        r = np.median(t[valid]) / np.median(p[valid]) if valid.any() else 1.0
+        p, t = np.clip(p * r, min_depth, max_depth)[valid], np.clip(t, min_depth, max_depth)[valid]
+        n = max(int(valid.sum()), 1)
+        err, log_err = p - t, np.log(p) - np.log(t)
+        thresh = np.maximum(t / p, p / t)
+        rows.append((np.abs(err).sum() / n, np.sqrt((err ** 2).sum() / n),
+                     np.sqrt(max((log_err ** 2).sum() / n - (log_err.sum() / n) ** 2, 0.0)),
+                     (np.abs(err) / t).sum() / n, (thresh < 1.25).sum() / max(thresh.sum(), 1.0)))
+    mae, rmse, log_si, abs_rel, acc = np.mean(rows, axis=0)
+    return {'MAE': mae, 'RMSE': rmse, 'LogSI': 100 * log_si, 'AbsRel': 100 * abs_rel,
+            'Acc': 100 * acc}
+
+
+def phase_recipe(scenes) -> None:
+    """`cfg/kbr/default.yaml` as it stands: one epoch of `MonoDepthLoop` over a
+    `ConcatDataLoader` of the recipe's three pack datasets, in its key order, at their
+    published shapes (`PackLoader`s): 6 micro-steps (3 updates) with aspect-ratio
+    augmentation, KITTI's sparse depth resampled with its images, and the train
+    metrics against it; then a validation batch of each dataset."""
+    from slowtv_monodepth_tpu_torch.core.train_metrics import METRIC_NAMES
+    from slowtv_monodepth_tpu_torch.data import ConcatDataLoader
+    from slowtv_monodepth_tpu_torch.ops import resize_like
+
+    def loaders(train: bool):
+        return ConcatDataLoader([
+            PackLoader(scenes, name, RECIPE_TRAIN_BATCHES if train else 1,
+                       src if train else val, train, seed=RUN_SEED + 10 * i + 5 * (not train))
+            for i, (name, (src, val)) in enumerate(RECIPE_DATASETS.items())])
+
+    captured = []
+
+    def record_first_metrics(loop):
+        """Keep the finest depth, the target and the metrics of the first micro-step
+        with a depth target (the first KITTI batch)."""
+        scalars = loop.trainer.scalars
+
+        def recording(loss, loss_dict, fwd, y):
+            out = scalars(loss, loss_dict, fwd, y)
+            if 'depth' in y and not captured:
+                pred = resize_like(fwd['depth_up'][min(fwd['depth_up'])], y['depth'])
+                captured.append((pred.detach().double().cpu().numpy(), y['depth'].double().cpu().numpy(),
+                                 {k: float(out[k]) for k in METRIC_NAMES}))
+            return out
+
+        loop.trainer.scalars = recording
+
+    t0 = time.perf_counter()
+    n = len(RECIPE_DATASETS) * RECIPE_TRAIN_BATCHES
+    with tempfile.TemporaryDirectory() as tmp:
+        loop, st = _run_loop(RUN_CFG, Path(tmp) / 'run', scenes, val=True, tag='recipe',
+                             loaders=(loaders(True), loaders(False)), before_fit=record_first_metrics)
+    want = _expected_run_counts(n, len(RECIPE_DATASETS), depth_batches=RECIPE_TRAIN_BATCHES)
+    if st['counts'] != want:
+        fail(f'recipe: launch counts {st["counts"]}, expected {want}')
+    names = list(RECIPE_DATASETS) * RECIPE_TRAIN_BATCHES  # the round robin: depth on 0 and 3
+    for (step, row), (shape, ms, loss), name in zip(sorted(st['rows'].items()), st['steps'], names):
+        metrics = {k: row[k] for k in METRIC_NAMES if k in row}
+        print(f'recipe micro-step {step} ({name}, source {RECIPE_DATASETS[name][0][0]}x'
+              f'{RECIPE_DATASETS[name][0][1]}): bucket {shape[0]}x{shape[1]}, {ms:.0f} ms, loss '
+              f'{loss:.4f}' + ''.join(f', {k} {v:.4g}' for k, v in metrics.items()))
+        if bool(metrics) != (name == 'kitti_lmdb') or not all(np.isfinite(list(metrics.values()))) \
+                or (metrics and len(metrics) != len(METRIC_NAMES)):
+            fail(f'recipe micro-step {step} ({name}): train metrics {metrics}, expected them '
+                 'on the KITTI batches (0 and 3) only')
+    if kitti_bucket()[1] not in {shape for shape, _, _ in st['steps']} or loop.opt.updates != n // 2:
+        fail(f'recipe: buckets {[shape for shape, _, _ in st["steps"]]}, updates {loop.opt.updates}')
+    val = {k: st['val'].get(k) for k in ('loss',) + METRIC_NAMES}
+    if not all(v is not None and np.isfinite(v) for v in val.values()):
+        fail(f'recipe: validation scalars {val}')
+    print(f'recipe: launches {st["counts"]} (as expected: the depth of each KITTI batch is one '
+          f'more kernel 5 launch at C = 1); validation over one batch each (KITTI at 192x640 with '
+          f'its depth): ' + ', '.join(f'{k} {v:.4g}' for k, v in val.items()))
+
+    pred, target, got = captured[0]
+    ref = np_train_metrics(pred, target, *(RUN_CFG['trainer'][k] for k in ('min_depth', 'max_depth')))
+    rel = {k: abs(got[k] - ref[k]) / abs(ref[k]) for k in METRIC_NAMES}
+    line = (f'recipe: train metrics of the first KITTI micro-step (pred {pred.shape}, '
+            f'{int((target > 0).sum())} valid depths) against float64 numpy: ' + ', '.join(
+                f'{k} {got[k]:.6g} vs {ref[k]:.6g} (rel {rel[k]:.1e})' for k in METRIC_NAMES)
+            + f' (tol {METRICS_RTOL:.0e})')
+    print(line)
+    if not all(r <= METRICS_RTOL for r in rel.values()):
+        fail(line)
+    torch.backends.cudnn.benchmark = False
+    if torch.get_float32_matmul_precision() != 'highest':
+        fail('recipe: float32 matmul precision is not at highest')
+    print(f'recipe: phase wall {time.perf_counter() - t0:.1f} s (the loop built, fit, checked)')
 
 
 def profile_train(out: Path = ROOT / 'build' / 'train_profile.txt',
@@ -1635,6 +1858,7 @@ def main() -> None:
     fused_launches, _ = phase_train(scenes, fused_blocks=True)
     torch.cuda.empty_cache()
     run_launches = phase_run(scenes)
+    phase_recipe(scenes)
     sources = {'dwconv': ('dwconv.cu', 'pallas_dwconv.py:59'),
                'decoder_stage': ('decoder_stage.cu', 'pallas_decoder.py:249'),
                'decoder_stage_bwd': ('decoder_stage_bwd.cu', 'pallas_decoder.py:268'),

@@ -11,7 +11,7 @@ the optimizer from `parsers.make_optimizer`:
 
 Batches are NHWC, as in the JAX package:
     x = {imgs (b, h, w, 3), supp_imgs (n, b, h, w, 3)}
-    y = {imgs, supp_imgs, K (b, 4, 4), [T_stereo (b, 4, 4)]}
+    y = {imgs, supp_imgs, K (b, 4, 4), [T_stereo (b, 4, 4)], [depth (b, h', w', 1)]}
 Ported losses: `img_recon` and `disp_smooth` (the KBR recipe); every other
 key raises `NotImplementedError` (ROADMAP queue A item 9).
 
@@ -31,6 +31,7 @@ from ..models.encoders.pretrained import load_pretrained_encoder
 from ..ops import T_from_AAt, resize_K, resize_like, to_inv, to_scaled
 from . import handlers as h
 from .handlers import rigid_inverse
+from .train_metrics import compute_train_metrics
 
 __all__ = ['MonoDepthTrainer']
 
@@ -160,10 +161,8 @@ class MonoDepthTrainer:
 
     @torch.no_grad()
     def scalars(self, loss: torch.Tensor, loss_dict: dict, fwd: dict, y: dict) -> dict:
-        """Scalar summaries, as device tensors (no host sync)."""
-        if 'depth' in y:
-            raise NotImplementedError('Train metrics against a depth target are not '
-                                      'ported yet (ROADMAP A7).')
+        """Scalar summaries, as device tensors (no host sync); with a depth
+        target in `y` also the median-aligned train metrics of the finest depth."""
         out = {'loss': loss.detach()}
         out.update({k: v.detach() for k, v in loss_dict.items()
                     if k.startswith('loss_') and v.dim() == 0})
@@ -177,6 +176,10 @@ class MonoDepthTrainer:
         if 'fs' in fwd:
             out['fx'], out['fy'] = fwd['fs'][..., 0].mean(), fwd['fs'][..., 1].mean()
             out['cx'], out['cy'] = fwd['cs'][..., 0].mean(), fwd['cs'][..., 1].mean()
+        if 'depth' in y:
+            pred = resize_like(fwd['depth_up'][min(fwd['depth_up'])], y['depth'])
+            out.update(compute_train_metrics(pred.detach(), y['depth'],
+                                             self.min_depth or 0.1, self.max_depth or 100))
         return out
 
     # ------------------------------------------------------------------- step

@@ -42,7 +42,14 @@ DATA_ROOTS = _build_roots('DATA_ROOTS', _DEFAULT_DATA_ROOTS)
 
 
 # Dataset key -> on-disk directory name, for the ported datasets (ref `src/paths.py:68-89`).
-DATASET_NAMES = {'slow_tv': 'slow_tv'}
+DATASET_NAMES = {
+    'kitti_raw': 'kitti_raw_sync',
+    'kitti_raw_lmdb': 'kitti_raw_sync_lmdb',
+    'mannequin': 'MannequinChallenge',
+    'mannequin_lmdb': 'MannequinChallenge_lmdb',
+    'slow_tv': 'slow_tv',
+    'slow_tv_lmdb': 'slow_tv_lmdb',
+}
 
 
 class _LazyPaths(dict):

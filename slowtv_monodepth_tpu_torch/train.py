@@ -41,9 +41,16 @@ class WandbWriter:
 
 def make_writer(kind: Optional[str], log_dir: Path, name: Optional[str] = None):
     """The scalar writer of `trainer.logger`: {tensorboard, wandb, none}. Either
-    package is imported here, when asked for."""
+    package is imported here, when asked for; without wandb installed, 'wandb'
+    warns and writes to tensorboard, as the JAX package's entry point does."""
     if kind in (None, 'none'):
         return None
+    if kind == 'wandb':
+        try:
+            import wandb  # noqa: F401
+        except ImportError:
+            LOGGER.warning('wandb unavailable; falling back to tensorboard.')
+            kind = 'tensorboard'
     if kind == 'tensorboard':
         try:
             from tensorboardX import SummaryWriter

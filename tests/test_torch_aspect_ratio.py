@@ -22,6 +22,7 @@ import torch
 
 from slowtv_monodepth_tpu.core import aspect_ratio as jar
 from slowtv_monodepth_tpu_torch.core import aspect_ratio as tar
+from torch_threads import two_torch_threads  # noqa: F401
 
 ATOL = 2e-5
 

@@ -28,6 +28,7 @@ import torch
 from slowtv_monodepth_tpu.models.encoders.convnext import ConvNeXtBlock as JaxBlock
 from slowtv_monodepth_tpu.ops import pallas_convnext as pc
 from slowtv_monodepth_tpu_torch.ops import convnext_block as tb
+from torch_threads import two_torch_threads  # noqa: F401
 
 FWD_RTOL = 1e-5
 GRAD_RTOL = 1e-4

@@ -16,6 +16,7 @@ are fan-in scaled, as a trained net's are, so the sigmoid sees O(1) inputs.
 import numpy as np
 import pytest
 import torch
+from torch_threads import two_torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 ATOL = 1e-5

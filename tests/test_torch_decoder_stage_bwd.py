@@ -27,6 +27,7 @@ from jax import lax
 
 from slowtv_monodepth_tpu.ops.pallas_decoder import fused_upconv_stage
 from slowtv_monodepth_tpu_torch.ops import decoder_stage as tds
+from torch_threads import two_torch_threads  # noqa: F401
 
 NAMES = ('dx', 'dwa', 'dba', 'dwb', 'dbb', 'dwo', 'dbo')
 SHAPES = [(2, 32, 24, 6, 5), (1, 48, 40, 8, 4)]  # tests/test_pallas_decoder.py:46

@@ -15,6 +15,7 @@ import torch
 
 from slowtv_monodepth_tpu.ops import pallas_dwconv as pd
 from slowtv_monodepth_tpu_torch.ops import dwconv as td
+from torch_threads import two_torch_threads  # noqa: F401
 
 SHAPES = [  # tests/test_pallas_dwconv.py:34-39
     (2, 16, 24, 96, 7),

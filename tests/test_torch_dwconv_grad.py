@@ -20,6 +20,7 @@ import torch
 
 from slowtv_monodepth_tpu.ops import pallas_dwconv as pd
 from slowtv_monodepth_tpu_torch.ops import dwconv as td
+from torch_threads import two_torch_threads  # noqa: F401
 
 SHAPES = [(2, 16, 24, 96, 7), (1, 9, 13, 40, 3), (2, 11, 19, 70, 7), (1, 12, 20, 33, 3)]
 

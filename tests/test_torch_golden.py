@@ -18,6 +18,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch_threads import two_torch_threads  # noqa: F401
 
 FIXTURE = Path(__file__).parent / 'fixtures' / 'torch_port_golden.npz'
 SEED = 0

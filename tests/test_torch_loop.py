@@ -32,24 +32,13 @@ import torch
 from slowtv_monodepth_tpu_torch import paths
 from slowtv_monodepth_tpu_torch.core import (BenchmarkPredictor, MonoDepthLoop, load_checkpoint,
                                              train_state_from_jax)
+from torch_threads import two_torch_threads  # noqa: F401
 
 NET = {'depth': {'enc_name': 'convnext_atto', 'pretrained': False, 'dec_name': 'monodepth',
                  'out_scales': [0, 1]},
        'pose': {'enc_name': 'convnext_atto', 'pretrained': False, 'learn_K': True}}
 LOSS = {'img_recon': {'weight': 1, 'use_min': True, 'use_automask': True},
         'disp_smooth': {'weight': 0.001, 'use_edges': True}}
-
-
-@pytest.fixture(autouse=True, scope='module')
-def two_torch_threads():
-    """The loops here train small nets for many steps on the CPU. Beside other
-    test processes, a full-width OpenMP team per process oversubscribes the
-    cores and each step slows down tenfold; two threads keep the file's time
-    the same whatever runs next to it."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

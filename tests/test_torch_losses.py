@@ -31,6 +31,7 @@ from slowtv_monodepth_tpu.losses import SmoothReg as JaxSmooth
 from slowtv_monodepth_tpu_torch import ops as tops
 from slowtv_monodepth_tpu_torch.core import handlers as th
 from slowtv_monodepth_tpu_torch.losses import PhotoError, ReconstructionLoss, SmoothReg
+from torch_threads import two_torch_threads  # noqa: F401
 
 B, H, W = 2, 16, 24
 GRAD_RTOL = 1e-4

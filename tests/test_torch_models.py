@@ -25,6 +25,7 @@ from slowtv_monodepth_tpu.models import DepthNet as JaxDepthNet
 from slowtv_monodepth_tpu.models.import_reference import convert_reference_ckpt
 from slowtv_monodepth_tpu_torch.models import (DepthNet, depth_state_dict_from_jax,
                                                seeded_state_dict)
+from torch_threads import two_torch_threads  # noqa: F401
 
 ENC = 'convnext_atto'
 SHAPE = (2, 64, 96, 3)

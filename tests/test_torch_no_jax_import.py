@@ -3,7 +3,9 @@
 Two checks: every import statement of every module of
 `slowtv_monodepth_tpu_torch/` and of `chip_smoke.py`, read with `ast`
 (imports inside functions included), and the modules a fresh interpreter
-holds after importing the whole port.
+holds after importing the whole port. The card's machine has no PIL, cv2,
+scipy, yaml or matplotlib either, so no module imports those at its top
+level (only inside the functions that use them).
 """
 import ast
 import subprocess
@@ -11,6 +13,7 @@ import sys
 from pathlib import Path
 
 import pytest
+from torch_threads import two_torch_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / 'slowtv_monodepth_tpu_torch'
@@ -69,3 +72,25 @@ def test_importing_the_whole_port_loads_no_jax():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().splitlines()[-1] == 'LOADED []'
+
+
+HOST_ONLY = ('PIL', 'cv2', 'scipy', 'yaml', 'matplotlib')
+
+
+def top_level_imports(source: str) -> list[str]:
+    """Top-level packages imported by `source` outside any function."""
+    found = []
+    for node in ast.parse(source).body:
+        if isinstance(node, ast.Import):
+            found += [a.name.split('.')[0] for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            found.append((node.module or '').split('.')[0])
+    return found
+
+
+def test_no_module_imports_a_host_only_package_at_its_top():
+    bad = {f.relative_to(ROOT).as_posix(): hits for f in FILES
+           if (hits := sorted(set(top_level_imports(f.read_text())) & set(HOST_ONLY)))}
+    assert bad == {}
+    assert top_level_imports('import cv2\nfrom PIL import Image\ndef f():\n    import scipy') == [
+        'cv2', 'PIL']

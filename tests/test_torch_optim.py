@@ -26,6 +26,7 @@ import torch.nn as nn
 
 from slowtv_monodepth_tpu import parsers as jparsers
 from slowtv_monodepth_tpu_torch import parsers
+from torch_threads import two_torch_threads  # noqa: F401
 
 SHAPES = {'depth.encoder.conv': (8, 4, 3, 3), 'depth.encoder.norm': (8,),
           'depth.decoder.conv': (4, 8, 3, 3), 'depth.decoder.bias': (4,),

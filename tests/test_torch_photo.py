@@ -20,6 +20,7 @@ import torch
 
 from slowtv_monodepth_tpu.ops.pallas_photo import photo_err_ssim as jax_photo
 from slowtv_monodepth_tpu_torch.ops import photo as tp
+from torch_threads import two_torch_threads  # noqa: F401
 
 SHAPES = [  # tests/test_pallas_photo.py:15-20
     (3, 16, 24, 3),

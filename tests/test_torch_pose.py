@@ -18,6 +18,7 @@ import torch
 from slowtv_monodepth_tpu.models import PoseNet as JaxPoseNet
 from slowtv_monodepth_tpu.models.import_reference import convert_reference_ckpt
 from slowtv_monodepth_tpu_torch.models import PoseNet, pose_state_dict_from_jax, seeded_state_dict
+from torch_threads import two_torch_threads  # noqa: F401
 
 CFG = {'enc_name': 'convnext_atto', 'learn_K': True}
 ATOL = 1e-5

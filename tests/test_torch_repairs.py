@@ -1,5 +1,5 @@
 """Faults of the port against the JAX package, each held by a test that the
-unrepaired port fails (ROADMAP queue C items 1, 2, 3, 5 and 7).
+unrepaired port fails (ROADMAP queue C items 1, 2, 3, 5, 7 and 9).
 
 1. Initial weights: flax's `lecun_normal` kernels and zero biases, LayerNorm
    1 / 0, layer scale 1e-6, compared parameter by parameter with the JAX
@@ -17,9 +17,13 @@ unrepaired port fails (ROADMAP queue C items 1, 2, 3, 5 and 7).
    file has it and starts the step count from 0.
 5. `dec_phase_up` / `enc_remat` (exact transforms) are accepted and change
    nothing.
-7. An unported dataset's message names ROADMAP A7.
+7. An unported dataset's message names the ROADMAP item that holds it (A8
+   for the evaluation datasets; A7 ported the KBR recipe's own).
+9. `trainer.logger: 'wandb'` without wandb installed warns and logs to
+   tensorboard, as the JAX package's entry point does (`api/train/train.py:64-72`).
 """
 import logging
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -34,6 +38,7 @@ from slowtv_monodepth_tpu_torch.core.trainer import MonoDepthTrainer
 from slowtv_monodepth_tpu_torch.models import (DepthNet, PoseNet, depth_state_dict_from_jax,
                                                pose_state_dict_from_jax)
 from slowtv_monodepth_tpu_torch.models.init import TRUNC_STD
+from torch_threads import two_torch_threads  # noqa: F401
 
 NET = {'depth': {'enc_name': 'convnext_atto', 'pretrained': False, 'dec_name': 'monodepth',
                  'out_scales': [0, 1, 2, 3]},
@@ -213,5 +218,18 @@ def test_a_tpu_recipe_depth_cfg_builds_and_serves_the_same_maps():
 
 # --------------------------------------------------------------------- 7. message
 def test_an_unported_dataset_names_roadmap_item_a7():
-    with pytest.raises(NotImplementedError, match='queue A item 7'):
-        parsers.get_ds({'kitti_lmdb': {'split': 'eigen'}})
+    """A7 ported the recipe's datasets; an evaluation dataset now names A8."""
+    with pytest.raises(NotImplementedError, match='queue A item 8 for the evaluation datasets'):
+        parsers.get_ds({'syns_patches': {'split': 'val'}})
+
+
+# --------------------------------------------------------------------- 9. logger
+def test_wandb_without_the_package_warns_and_logs_to_tensorboard(tmp_path, monkeypatch, caplog):
+    from slowtv_monodepth_tpu_torch.train import make_writer
+    monkeypatch.setitem(sys.modules, 'wandb', None)  # `import wandb` raises ImportError
+    with caplog.at_level(logging.WARNING):
+        writer = make_writer('wandb', tmp_path / 'logs', name='run_000')
+    assert 'wandb unavailable; falling back to tensorboard.' in caplog.text
+    writer.add_scalar('train_losses/loss', 0.5, 1)
+    writer.close()
+    assert list((tmp_path / 'logs').glob('events.out.tfevents.*'))

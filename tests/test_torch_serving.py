@@ -27,6 +27,7 @@ from slowtv_monodepth_tpu_torch.core import (BenchmarkPredictor, load_checkpoint
 
 sys.path.insert(0, str(Path(__file__).parent))
 from test_torch_models import depth_cfg, seeded_pair  # noqa: E402
+from torch_threads import two_torch_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 ATOL = 1e-5

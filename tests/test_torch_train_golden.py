@@ -16,6 +16,7 @@ import pytest
 if __name__ == '__main__':  # run as a script from the repo root
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from slowtv_monodepth_tpu_torch import train_golden as tg  # noqa: E402
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope='module')

@@ -45,6 +45,7 @@ from slowtv_monodepth_tpu_torch import parsers
 from slowtv_monodepth_tpu_torch.core.trainer import MonoDepthTrainer
 from slowtv_monodepth_tpu_torch.models import (depth_state_dict_from_jax,
                                                pose_state_dict_from_jax, seeded_state_dict)
+from torch_threads import two_torch_threads  # noqa: F401
 
 B, H, W = 2, 64, 96
 SUPP = (-1, 1)

@@ -24,6 +24,7 @@ import torch
 from slowtv_monodepth_tpu.ops.pallas_warp import warp_bilinear_pallas
 from slowtv_monodepth_tpu.ops.sample import grid_sample as jax_grid_sample
 from slowtv_monodepth_tpu_torch.ops import sample as ts
+from torch_threads import two_torch_threads  # noqa: F401
 
 ATOL = 2e-5
 GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
