@@ -100,6 +100,24 @@ Phases, in order; any failure exits non-zero and prints no result:
    prints each micro-step's bucket, ms and loss. Kernels 3, 4, 5 (KITTI's images and
    its depth from 376x1242) and 7, 8 are also held to their plain versions at the
    bucket of its second KITTI batch (phases 3 and 6).
+12. published run: the run phase's loop as `slowtv-train-torch` runs it, twice (synchronous
+   then asynchronous checkpoints, `trainer.async_ckpt`), 2 epochs of 4 batches and a
+   validation batch each: both encoders from seeded files in timm's layout under a
+   temporary model root placed first in `paths.MODEL_ROOTS` (`convnext_base.npz`,
+   `convnext_tiny.pth`, `head.*` included; every depth-encoder tensor must be the file's
+   bitwise, the pose stem the 6-channel adaptation, every other pose tensor the file's),
+   the image logger (`HeavyLogger(6, 2)`) after each epoch (its tags for the KBR cfg,
+   every grid (1, 3, H, W) finite in [0, 1], the launches of its rerun: dwconv 54,
+   decoder_stage 2, warp 1, photo_fwd 2), epoch 0's `last.ckpt`, written while epoch 1
+   trains, bitwise the state at its save (optimizer moments included); prints the
+   graft's time, the logger's seconds, the Checkpoint timer, fit wall and peak device
+   memory of both runs.
+13. optimizers: one update (two micro-steps) of the KBR step at B=4, 384x640 with each of
+   adam, sgd, lamb, adabelief and rmsprop: a finite loss, every parameter moved (SGD:
+   where lr times the gradient reaches half an ulp, as on the CPU), the card's update
+   equal to the same optimizer's on CPU copies with the same gradients (1e-6 of each
+   tensor's largest magnitude).
+14. train_dev: `train_dev.DevLoop` (`slowtv-train-dev-torch`), 1 epoch x 2 batches.
 Every time is a device time (`cuda_ms`: the calls captured into one CUDA
 graph, CUDA events around one replay) with the eager time beside it. The last
 two lines are a JSON object per kernel and the contract line
@@ -110,6 +128,7 @@ Usage: python3 chip_smoke.py   (from the repo root, one CUDA card)
 from __future__ import annotations
 
 import contextlib
+import gc
 import importlib.util
 import json
 import subprocess
@@ -184,6 +203,26 @@ RECIPE_TRAIN_BATCHES = 2   # per dataset: 6 micro-steps in the round robin, 3 up
 # The centre crop of the recipe phase's second KITTI batch (seed 42, epoch 0): kernels 3, 4,
 # 5 (on KITTI's images and its depth), 7 and 8 are also held at the shapes its bucket gives.
 RECIPE_KITTI_CROP = (220, 342)   # -> bucket 320x544
+# The published run (pretrained encoders, image logger, asynchronous saves): epochs of
+# A7B_BATCHES micro-steps (2 updates) and a validation batch each.
+A7B_EPOCHS, A7B_BATCHES = 2, 4
+# The image logger's rerun of the KBR loss on the epoch's last batch: one eval forward of
+# both nets (36 + 18 blocks), the two fused decoder stages, the batched warp and the
+# photometric error on the warped and the static stacks; no backward.
+RERUN_LAUNCHES = {'dwconv': 54, 'decoder_stage': 2, 'warp': 1, 'photo_fwd': 2}
+# Its grids for the KBR cfg on batches without a depth target (prefixed `train_`).
+HEAVY_TAGS = {'imgs_aug/target', 'imgs_aug/supp_-1', 'imgs_aug/supp_1', 'imgs/target',
+              'imgs/supp_-1', 'imgs/supp_1', 'pred/disp', 'pred/feats', 'loss/warp_-1',
+              'loss/warp_1', 'loss/automask', 'loss/disp_grad', 'loss/image_grad'}
+# The other optimizers the JAX package builds (optax's options), one update each; the
+# card's update against the same optimizer on CPU copies, relative to each tensor's
+# largest magnitude (a float32 ulp there is 6e-8; foreach kernels round alike).
+OPTIMIZER_CFGS = {'adam': {'type': 'adam', 'lr': 1e-4},
+                  'sgd': {'type': 'sgd', 'lr': 1e-2, 'momentum': 0.9, 'nesterov': True},
+                  'lamb': {'type': 'lamb', 'lr': 1e-4, 'weight_decay': 1e-3},
+                  'adabelief': {'type': 'adabelief', 'lr': 1e-4},
+                  'rmsprop': {'type': 'rmsprop', 'lr': 1e-4, 'centered': True, 'momentum': 0.9}}
+OPT_RTOL = 1e-6
 # The recipe phase's train metrics on a KITTI micro-step against a float64 numpy restatement.
 METRICS_RTOL = 1e-5
 PEAK_F32_FLOPS = 67e12
@@ -1480,14 +1519,54 @@ class PackLoader(SceneLoader):
             yield x, y, m
 
 
+def timm_state_dict(enc_name: str, seed: int) -> dict:
+    """A seeded ConvNeXt state dict in timm's layout, as `api/data/export_timm.py`
+    writes one: the encoder's keys at 3 input channels, and timm's classifier head
+    (`head.*`), which a graft must ignore. float32, N(0, 0.02)."""
+    from slowtv_monodepth_tpu_torch.models.encoders import create_encoder
+    with torch.device('meta'):
+        enc = create_encoder(enc_name)[0]
+    rng = np.random.default_rng(seed)
+    sd = {k: 0.02 * rng.standard_normal(v.shape, dtype=np.float32)
+          for k, v in enc.state_dict().items()}
+    c = sd['stem.1.weight'].shape[0] * 8  # the last stage's width
+    sd.update({'head.norm.weight': np.ones(c, np.float32), 'head.norm.bias': np.zeros(c, np.float32),
+               'head.fc.weight': 0.02 * rng.standard_normal((1000, c), dtype=np.float32),
+               'head.fc.bias': np.zeros(1000, np.float32)})
+    return sd
+
+
+def write_timm_file(root: Path, enc_name: str, suffix: str, sd: dict) -> Path:
+    """`sd` -> `<root>/timm/<enc_name><suffix>`: `.npz` by numpy, `.pth` / `.pt` by
+    `torch.save` (a `.pth` wrapped in {'state_dict': ...}, as checkpoints often are)."""
+    path = root / 'timm' / f'{enc_name}{suffix}'
+    path.parent.mkdir(parents=True, exist_ok=True)
+    if suffix == '.npz':
+        np.savez(path, **sd)
+    else:
+        tensors = {k: torch.from_numpy(v) for k, v in sd.items()}
+        torch.save({'state_dict': tensors} if suffix == '.pth' else tensors, path)
+    return path
+
+
 class RunLog:
-    """Scalar writer for `MonoDepthLoop` at `log_every_n_steps: 1`: per training
+    """Writer for `MonoDepthLoop` at `log_every_n_steps: 1`: per training
     micro-step its scalars (loss, bucket shape, train metrics) as the loop logs them,
     and the time the loop's own `Step` timer gained since the step before; the
-    validation scalars last logged."""
+    validation scalars last logged; the image logger's grids (tag -> per epoch its
+    shape, min, max and whether all finite) and text."""
 
     def __init__(self):
         self.loop, self.rows, self.val, self._seen = None, {}, {}, 0.0
+        self.images, self.texts = {}, {}
+
+    def add_images(self, tag: str, imgs, global_step: int) -> None:
+        imgs = np.asarray(imgs)
+        self.images.setdefault(global_step, {})[tag] = (
+            imgs.shape, float(imgs.min()), float(imgs.max()), bool(np.isfinite(imgs).all()))
+
+    def add_text(self, tag: str, text: str, global_step: int) -> None:
+        self.texts.setdefault(global_step, {})[tag] = text
 
     def add_scalar(self, tag: str, val: float, step: int) -> None:
         if tag.startswith('val_'):
@@ -1506,11 +1585,11 @@ class RunLog:
 
 
 def _run_loop(cfg: dict, ckpt_dir: Path, scenes, val: bool, tag: str,
-              n_batches: int = RUN_BATCHES, loaders=None, before_fit=None):
+              n_batches: int = RUN_BATCHES, loaders=None, before_fit=None, heavy_logger=None):
     """One `MonoDepthLoop.fit()` over `SceneLoader`s (or over `loaders`, a (train,
     val) pair) -> (loop, stats): the launch counts of the fit, each micro-step's
-    (bucket, ms, loss), the logged scalars and the wall time. `before_fit(loop)` runs
-    just before the fit."""
+    (bucket, ms, loss), the logged scalars and images and the wall time.
+    `before_fit(loop)` runs just before the fit."""
     from slowtv_monodepth_tpu_torch.core import MonoDepthLoop
     log = RunLog()
     if loaders is None:
@@ -1518,7 +1597,7 @@ def _run_loop(cfg: dict, ckpt_dir: Path, scenes, val: bool, tag: str,
                    SceneLoader(scenes, 1, (384, 640), seed=RUN_SEED + 1) if val else None)
     n_batches = len(loaders[0])
     loop = log.loop = MonoDepthLoop(cfg, ckpt_dir, writer=log, train_dl=loaders[0],
-                                    val_dl=loaders[1])
+                                    val_dl=loaders[1], heavy_logger=heavy_logger)
     loop.sync_timers = True  # each stage of the epoch waits for the device: a true split
     if before_fit is not None:
         before_fit(loop)
@@ -1536,7 +1615,8 @@ def _run_loop(cfg: dict, ckpt_dir: Path, scenes, val: bool, tag: str,
     steps = [row[1:] for row in logged]
     start = {'epoch': loop.start_epoch, 'step': logged[0][0] - 1}
     stats = {'counts': _read_counts(), 'steps': steps, 'wall_ms': wall, 'start': start,
-             'split': loop.timer.total_elapsed(), 'rows': log.rows, 'val': log.val}
+             'split': loop.timer.total_elapsed(), 'rows': log.rows, 'val': log.val,
+             'images': log.images, 'texts': log.texts}
     losses = [l for _, _, l in steps]
     if not (losses and all(np.isfinite(losses))) or int(loop.trainer.bad_step) != -1:
         fail(f'run {tag}: losses {losses}, bad_step {loop.trainer.bad_step}')
@@ -1757,6 +1837,292 @@ def phase_recipe(scenes) -> None:
     print(f'recipe: phase wall {time.perf_counter() - t0:.1f} s (the loop built, fit, checked)')
 
 
+def _flat_tensors(tree, pre: str = '') -> dict:
+    """Every tensor of a nested dict / list by its path."""
+    if isinstance(tree, torch.Tensor):
+        return {pre: tree}
+    items = tree.items() if isinstance(tree, dict) else \
+        enumerate(tree) if isinstance(tree, (list, tuple)) else ()
+    out = {}
+    for k, v in items:
+        out.update(_flat_tensors(v, f'{pre}.{k}'))
+    return out
+
+
+def _host_state(loop) -> dict:
+    """A host copy of every tensor of the loop's training state: nets and optimizer."""
+    nets = {k: net.state_dict() for k, net in loop.trainer.nets.items()}
+    return {k: v.detach().cpu().clone() for k, v in
+            _flat_tensors({'state_dict': nets, 'optimizer': loop.opt.state_dict()}).items()}
+
+
+def _file_state(path: Path) -> dict:
+    """The same paths for a training checkpoint file (nets under `nets.<name>.`)."""
+    ckpt = torch.load(path, map_location='cpu', weights_only=False)
+    nets = {}
+    for k, v in ckpt['state_dict'].items():
+        name, key = k[len('nets.'):].split('.', 1)
+        nets.setdefault(name, {})[key] = v
+    return _flat_tensors({'state_dict': nets, 'optimizer': ckpt['optimizer']})
+
+
+def _published_fit(scenes, run: Path, sds: dict, async_ckpt: bool) -> dict:
+    """`MonoDepthLoop` on the KBR cfg from the pretrained files, with the image
+    logger, `A7B_EPOCHS` epochs of `A7B_BATCHES` -> what `phase_published_run` checks."""
+    from slowtv_monodepth_tpu_torch.core import HeavyLogger
+
+    class CountingLogger(HeavyLogger):
+        """The image logger, with each call's seconds and kernel launches."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.runs = []
+
+        def log_step(self, *args, **kwargs):
+            before, t0 = _read_counts(), time.perf_counter()
+            super().log_step(*args, **kwargs)
+            torch.cuda.synchronize()
+            after = _read_counts()
+            self.runs.append({'s': time.perf_counter() - t0,
+                              'counts': {k: after[k] - before[k] for k in after}})
+
+    logger = CountingLogger(n_imgs=6, n_cols=2)
+    out = {'graft_faults': [], 'file_faults': None}
+    tag = 'async' if async_ckpt else 'sync'
+
+    def before_fit(loop):
+        for key, sd in sds.items():  # the grafted weights, before any update
+            got = {k: v.cpu() for k, v in loop.trainer.nets[key].encoder.state_dict().items()}
+            want = {k: torch.from_numpy(v) for k, v in sd.items() if not k.startswith('head.')}
+            if key == 'pose':  # the 6-channel stem: tiled, scaled by 3 / 6
+                w = sd['stem.0.weight']
+                want['stem.0.weight'] = torch.from_numpy(np.concatenate([w, w], 1) * np.float32(0.5))
+            if sorted(got) != sorted(want):
+                out['graft_faults'].append(f'{key}: keys differ')
+            out['graft_faults'] += [f'{key}.{k}' for k in want if k in got and not torch.equal(got[k], want[k])]
+        save, train_epoch = loop.ckpt.step, loop.train_epoch
+
+        def checked_save(nets, opt, cfg, epoch, step, metrics):
+            if epoch == 1:  # epoch 0's last.ckpt, written while epoch 1 trained
+                loop.ckpt.finalize()
+                on_disk = _file_state(run / 'last.ckpt')
+                out['file_faults'] = ([k for k, v in out['at_save'].items()
+                                       if not (k in on_disk and torch.equal(on_disk[k], v))]
+                                      + sorted(set(on_disk) - set(out['at_save'])))
+                out['n_tensors'] = len(on_disk)
+            if epoch == 0:
+                out['at_save'] = _host_state(loop)
+            before = torch.cuda.memory_allocated()
+            save(nets, opt, cfg, epoch, step, metrics)
+            out.setdefault('held', []).append(torch.cuda.memory_allocated() - before)
+
+        def watched_epoch(epoch):
+            saver = loop.ckpt.saver
+            out.setdefault('in_flight', []).append(
+                saver is not None and saver._thread is not None and saver._thread.is_alive())
+            if epoch == 1:  # the peak from here on: epoch 1 trains beside epoch 0's write
+                out['peak_epoch0'] = torch.cuda.max_memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            train_epoch(epoch)
+
+        loop.ckpt.step, loop.train_epoch = checked_save, watched_epoch
+
+    # cuDNN's autotuner off: its workspaces for new buckets would hide the snapshot's
+    # memory in the peaks (the first of the two runs meets the buckets first).
+    cfg = {**RUN_CFG, 'trainer': {**RUN_CFG['trainer'], 'max_epochs': A7B_EPOCHS,
+                                  'async_ckpt': async_ckpt, 'benchmark': False}}
+    gc.collect()  # earlier phases' garbage off the card: the peaks are this fit's
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    loop, st = _run_loop(cfg, run, scenes, val=True, tag=f'published ({tag} checkpoints)',
+                         n_batches=A7B_BATCHES, before_fit=before_fit, heavy_logger=logger)
+    out.update(st=st, runs=logger.runs, peak_epoch1=torch.cuda.max_memory_allocated(),
+               updates=loop.opt.updates)
+    out['peak'] = max(out['peak_epoch0'], out['peak_epoch1'])
+    del loop
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_published_run(scenes) -> None:
+    """The published recipe's run as the JAX package's entry point runs it: both
+    encoders from pretrained files, the image logger at each epoch's end, and
+    `last` / `best` saved in the background (`trainer.async_ckpt`)."""
+    from slowtv_monodepth_tpu_torch import paths
+    from slowtv_monodepth_tpu_torch.core import trainer as trainer_mod
+    t_phase = time.perf_counter()
+    encs = {k: KBR_TRAIN_CFG['net'][k]['enc_name'] for k in ('depth', 'pose')}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / 'models'
+        t0 = time.perf_counter()
+        sds = {key: timm_state_dict(encs[key], seed=7 + i) for i, key in enumerate(encs)}
+        for key, suffix in (('depth', '.npz'), ('pose', '.pth')):
+            write_timm_file(root, encs[key], suffix, sds[key])
+        size = sum(f.stat().st_size for f in (root / 'timm').iterdir())
+        print(f'published run: seeded timm-layout files {sorted(p.name for p in (root / "timm").iterdir())}'
+              f' ({size / 2**20:.0f} MiB, head.* included) written in {time.perf_counter() - t0:.1f} s')
+        roots, load = paths.MODEL_ROOTS, trainer_mod.load_pretrained_encoder
+        graft_s = []
+
+        def timed_load(*args, **kwargs):
+            t = time.perf_counter()
+            found = load(*args, **kwargs)
+            graft_s.append(time.perf_counter() - t)
+            return found
+
+        paths.MODEL_ROOTS, trainer_mod.load_pretrained_encoder = [root] + list(roots), timed_load
+        try:
+            fits = {mode: _published_fit(scenes, Path(tmp) / mode, sds, mode == 'async')
+                    for mode in ('sync', 'async')}
+        finally:
+            paths.MODEL_ROOTS, trainer_mod.load_pretrained_encoder = roots, load
+    del sds
+    print(f'published run: pretrained graft at init (depth, pose) per loop: '
+          f'{", ".join(f"{t * 1e3:.0f} ms" for t in graft_s)}')
+
+    n = A7B_BATCHES * A7B_EPOCHS
+    want = _expected_run_counts(n, A7B_EPOCHS)
+    want = {k: v + A7B_EPOCHS * RERUN_LAUNCHES.get(k, 0) for k, v in want.items()}
+    for mode, fit in fits.items():
+        st = fit['st']
+        if fit['graft_faults']:
+            fail(f'published run ({mode}): encoder tensors not the files\': {fit["graft_faults"][:5]}')
+        if st['counts'] != want or fit['updates'] != n // 2:
+            fail(f'published run ({mode}): launch counts {st["counts"]}, expected {want}; '
+                 f'updates {fit["updates"]}')
+        for run in fit['runs']:
+            if {k: v for k, v in run['counts'].items() if v} != RERUN_LAUNCHES:
+                fail(f'published run ({mode}): the image logger launched {run["counts"]}, '
+                     f'expected {RERUN_LAUNCHES}')
+        if sorted(st['images']) != list(range(A7B_EPOCHS)) or len(fit['runs']) != A7B_EPOCHS:
+            fail(f'published run ({mode}): images logged at steps {sorted(st["images"])}')
+        for epoch, grids in st['images'].items():
+            tags = {t[len('train_'):] for t in grids}
+            if tags != HEAVY_TAGS or 'train_items' not in st['texts'].get(epoch, {}):
+                fail(f'published run ({mode}), epoch {epoch}: image tags {sorted(tags)}, expected '
+                     f'{sorted(HEAVY_TAGS)}; texts {sorted(st["texts"].get(epoch, {}))}')
+            bad = [t for t, (shape, lo, hi, finite) in grids.items()
+                   if not (len(shape) == 4 and shape[:2] == (1, 3) and finite and 0 <= lo and hi <= 1)]
+            if bad:
+                fail(f'published run ({mode}), epoch {epoch}: grids not (1, 3, H, W) finite in [0, 1]: '
+                     f'{bad}')
+        print(f'published run ({mode}): graft held (every depth-encoder tensor the .npz\'s, the pose '
+              f'stem the 6-channel adaptation, every other pose tensor the .pth\'s); launches {st["counts"]} '
+              f'(as expected, with the image logger\'s rerun); image logger per epoch: '
+              + ', '.join(f'{r["s"]:.2f} s' for r in fit['runs'])
+              + f', launches {RERUN_LAUNCHES}, {len(HEAVY_TAGS)} grids, e.g. pred/disp '
+              f'{st["images"][0]["train_pred/disp"][0]}; peak device memory '
+              f'{fit["peak"] / 2**30:.2f} GiB')
+    for mode, fit in fits.items():
+        if fit['file_faults'] is None or fit['file_faults']:
+            fail(f'published run ({mode}): epoch 0\'s last.ckpt differs from the state at its save: '
+                 f'{(fit["file_faults"] or [None])[:5]}')
+    a = fits['async']
+    print(f'published run (async): epoch 0\'s last.ckpt ({a["n_tensors"]} tensors, optimizer moments '
+          f'included) equals bitwise the host copy taken at its save; a save in flight at the start '
+          f'of epochs {a["in_flight"]}')
+    split = {mode: fit['st']['split'] for mode, fit in fits.items()}
+    print('published run: Checkpoint timer (ms, both epochs) sync '
+          f'{split["sync"]["Checkpoint"]:.1f} async {split["async"]["Checkpoint"]:.1f}; fit wall (ms) '
+          f'sync {fits["sync"]["st"]["wall_ms"]:.1f} async {fits["async"]["st"]["wall_ms"]:.1f}; '
+          'device memory held on return from each epoch\'s save (MiB) sync '
+          f'{[round(b / 2**20, 1) for b in fits["sync"]["held"]]} async '
+          f'{[round(b / 2**20, 1) for b in fits["async"]["held"]]}; peak device memory (GiB) over '
+          f'epoch 1 (beside epoch 0\'s write when async) sync {fits["sync"]["peak_epoch1"] / 2**30:.3f} '
+          f'async {fits["async"]["peak_epoch1"] / 2**30:.3f}, over the fit sync '
+          f'{fits["sync"]["peak"] / 2**30:.3f} async {fits["async"]["peak"] / 2**30:.3f}; epoch 1\'s '
+          'micro-steps (ms) sync ' + ', '.join(f'{ms:.0f}' for _, ms, _ in fits['sync']['st']['steps'][A7B_BATCHES:])
+          + ' async ' + ', '.join(f'{ms:.0f}' for _, ms, _ in fits['async']['st']['steps'][A7B_BATCHES:]))
+    print(f'published run: phase wall {time.perf_counter() - t_phase:.1f} s')
+
+
+def phase_optimizers(scenes) -> None:
+    """One update (two micro-steps) of the KBR step at full width with each optimizer
+    the JAX package builds besides AdamW: a finite loss, every parameter moved, and
+    the card's update equal to the same optimizer's on CPU copies with the same
+    averaged gradients (to OPT_RTOL of each tensor's largest magnitude)."""
+    from slowtv_monodepth_tpu_torch import parsers
+    from slowtv_monodepth_tpu_torch.core.trainer import MonoDepthTrainer
+    from slowtv_monodepth_tpu_torch.models import seeded_state_dict
+    t_phase = time.perf_counter()
+    trainer = MonoDepthTrainer({**KBR_TRAIN_CFG, 'net': {
+        k: {**v, 'pretrained': False} for k, v in KBR_TRAIN_CFG['net'].items()}})
+    weights = {k: {kk: torch.from_numpy(v) for kk, v in seeded_state_dict(net, 0).items()}
+               for k, net in trainer.nets.items()}
+    trainer.to('cuda')
+    x, y = _train_batch(scenes)
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    for name, ocfg in OPTIMIZER_CFGS.items():
+        for key, sd in weights.items():
+            trainer.nets[key].load_state_dict(sd)
+        trainer.step_count = trainer.bad_step = None
+        opt = parsers.make_optimizer({**KBR_TRAIN_CFG, 'optimizer': ocfg}, trainer.nets,
+                                     steps_per_epoch=1000, accumulate=2)
+        seen, inner = {}, opt.opt.step
+
+        def recording_step(opt=opt, inner=inner, seen=seen):
+            groups = opt.opt.param_groups
+            seen['groups'] = [{k: v for k, v in g.items() if k != 'params'} for g in groups]
+            seen['p0'] = [[p.detach().cpu().clone() for p in g['params']] for g in groups]
+            seen['g'] = [[p.grad.detach().cpu().clone() for p in g['params']] for g in groups]
+            return inner()
+
+        opt.opt.step = recording_step
+        step = trainer.make_step_fn(SUPP_IDXS, opt)
+        losses = [step(x, y, gen)['loss'].item() for _ in range(2)]
+        card = [[p.detach().cpu() for p in g['params']] for g in opt.opt.param_groups]
+        cpu_groups = [{**g, 'params': [torch.nn.Parameter(p.clone()) for p in p0]}
+                      for g, p0 in zip(seen['groups'], seen['p0'])]
+        for g, grads in zip(cpu_groups, seen['g']):
+            for p, grad in zip(g['params'], grads):
+                p.grad = grad
+        t0 = time.perf_counter()
+        type(opt.opt)(cpu_groups, lr=seen['groups'][0]['lr']).step()
+        cpu_s = time.perf_counter() - t0
+        worst, unmoved, n, still = 0.0, 0, 0, []
+        for g, p0s, ps in zip(cpu_groups, seen['p0'], card):
+            for want, p0, got in zip(g['params'], p0s, ps):
+                want = want.detach()
+                worst = max(worst, float((got - want).abs().max() / want.abs().max()))
+                unmoved += bool(torch.equal(got, p0))
+                if torch.equal(want, p0):  # an update under half an ulp of every element
+                    still.append(round(float(p0.abs().min()), 4))
+                n += 1
+        line = (f'optimizer {name} {ocfg}: KBR step B={TRAIN_B}, 384x640, 1 update: losses '
+                f'{[round(v, 5) for v in losses]}; {n - unmoved} of {n} parameters moved on the '
+                f'card, {n - len(still)} on the CPU (min |p| of those that stayed: {still}); '
+                f'card vs CPU update max err {worst:.2e} of each '
+                f'tensor\'s largest magnitude (tol {OPT_RTOL:.0e}); CPU reference update {cpu_s:.1f} s')
+        print(line)
+        # SGD's update is lr times the gradient: where that is under half an ulp of every
+        # element (LayerNorm scales near 1), float32 keeps the parameter on both sides.
+        if not (all(np.isfinite(losses)) and opt.updates == 1 and worst <= OPT_RTOL
+                and unmoved == len(still) and (unmoved == 0 or name == 'sgd')):
+            fail(line)
+    del trainer
+    torch.cuda.empty_cache()
+    print(f'optimizers: phase wall {time.perf_counter() - t_phase:.1f} s')
+
+
+def phase_train_dev(scenes) -> None:
+    """`train_dev.DevLoop` (`slowtv-train-dev-torch`) at full width: 1 epoch x 2 batches."""
+    from slowtv_monodepth_tpu_torch.train_dev import DevLoop
+    cfg = {**RUN_CFG, 'trainer': {**RUN_CFG['trainer'], 'max_epochs': 1, 'resume_training': False}}
+    with tempfile.TemporaryDirectory() as tmp:
+        loop = DevLoop(cfg, Path(tmp) / 'dev', use_markers=False, limit_batches=2,
+                       train_dl=SceneLoader(scenes, 4, RUN_SRC_SHAPE, seed=RUN_SEED))
+        _reset_counts()
+        t0 = time.perf_counter()
+        loop.fit()
+        wall = time.perf_counter() - t0
+        ok = loop.global_step == 2 and (Path(tmp) / 'dev' / 'last.ckpt').is_file()
+    counts, want = _read_counts(), _expected_run_counts(2, 0)
+    print(f'train_dev: DevLoop 1 epoch x 2 batches (of 4), losses checked every step: '
+          f'{loop.global_step} micro-steps, launches {counts}, {wall:.1f} s')
+    if not ok or counts != want:
+        fail(f'train_dev: micro-steps {loop.global_step}, launches {counts}, expected {want}')
+
+
 def profile_train(out: Path = ROOT / 'build' / 'train_profile.txt',
                   matmul: str = 'highest', fused_blocks: bool = False) -> None:
     """Where the KBR micro-step's device time goes (not part of `main`).
@@ -1859,6 +2225,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     run_launches = phase_run(scenes)
     phase_recipe(scenes)
+    phase_published_run(scenes)
+    phase_optimizers(scenes)
+    phase_train_dev(scenes)
     sources = {'dwconv': ('dwconv.cu', 'pallas_dwconv.py:59'),
                'decoder_stage': ('decoder_stage.cu', 'pallas_decoder.py:249'),
                'decoder_stage_bwd': ('decoder_stage_bwd.cu', 'pallas_decoder.py:268'),

@@ -16,14 +16,24 @@ accumulated between two updates), `epoch`, `global_step` and `monitor`.
 Counterpart of `slowtv_monodepth_tpu/core/checkpoint.py` for the policy:
 `<ckpt_dir>/last.ckpt` every epoch, `<ckpt_dir>/best.ckpt` when the monitored
 value improves (max-mode iff the name contains 'Acc'), each with a
-`<name>.json` beside it holding {epoch, step, monitor}. Saves are
-synchronous `torch.save`s.
+`<name>.json` beside it holding {epoch, step, monitor}.
+
+Asynchronous saves (`CheckpointManager(async_save=True)`, the loop's
+`trainer.async_ckpt`): the save snapshots the whole state on its device
+(clones of every net and optimizer tensor; `state_dict()` returns LIVE
+tensors, which the next `opt.step()` overwrites in place), records a CUDA
+event after the clones and returns; an `AsyncSaver` thread waits for the
+event, copies the snapshot to the host and writes the files while training
+goes on. One save is in flight at most: the next one joins it first, and a
+failure in the thread raises at the next save or at `finalize()`. The files
+are the synchronous save's, tensors on the host.
 """
 from __future__ import annotations
 
 import json
+import threading
 from pathlib import Path
-from typing import Mapping, Optional
+from typing import Callable, Mapping, Optional
 
 import numpy as np
 import torch
@@ -31,7 +41,41 @@ import torch
 from .. import LOGGER
 
 __all__ = ['save_checkpoint', 'load_checkpoint', 'net_state_dict', 'restore_checkpoint',
-           'get_latest_ckpt', 'CheckpointManager', 'train_state_from_jax']
+           'get_latest_ckpt', 'CheckpointManager', 'AsyncSaver', 'train_state_from_jax']
+
+
+def _checkpoint(nets: Mapping[str, Mapping[str, torch.Tensor]], cfg: dict, opt=None,
+                epoch: int = 0, step: int = 0, monitor: Optional[float] = None) -> dict:
+    """The file's contents; net tensors detached where they are, optimizer
+    state as `opt.state_dict()` gives it (live tensors)."""
+    ckpt = {'state_dict': {f'nets.{name}.{k}': v.detach()
+                           for name, net_sd in nets.items() for k, v in net_sd.items()},
+            'hyper_parameters': {'cfg': cfg}}
+    if opt is not None:
+        ckpt.update(optimizer=opt.state_dict(), epoch=int(epoch), global_step=int(step),
+                    monitor=None if monitor is None else float(monitor))
+    return ckpt
+
+
+def _write(path, ckpt: dict) -> None:
+    """`ckpt` (net tensors on the host) -> `path`, and a training checkpoint's
+    {epoch, step, monitor} -> `<path stem>.json`."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    if 'optimizer' in ckpt:
+        meta = {'epoch': ckpt['epoch'], 'step': ckpt['global_step'], 'monitor': ckpt['monitor']}
+        path.with_suffix('.json').write_text(json.dumps(meta))
+    torch.save(ckpt, path)
+
+
+def _map_tensors(tree, fn):
+    """`tree` (dicts, lists, tuples) with `fn` applied to every tensor, every
+    container rebuilt."""
+    if isinstance(tree, dict):
+        return {k: _map_tensors(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tensors(v, fn) for v in tree)
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
 
 
 def save_checkpoint(path, nets: Mapping[str, Mapping[str, torch.Tensor]], cfg: dict,
@@ -42,18 +86,72 @@ def save_checkpoint(path, nets: Mapping[str, Mapping[str, torch.Tensor]], cfg: d
         also carries the optimizer state, `epoch`, `global_step` and `monitor`,
         and `<path stem>.json` repeats the three numbers.
     """
-    sd = {f'nets.{name}.{k}': v.detach().cpu()
-          for name, net_sd in nets.items() for k, v in net_sd.items()}
-    path = Path(path)
-    path.parent.mkdir(parents=True, exist_ok=True)
-    ckpt = {'state_dict': sd, 'hyper_parameters': {'cfg': cfg}}
-    if opt is not None:
-        meta = {'epoch': int(epoch), 'step': int(step),
-                'monitor': None if monitor is None else float(monitor)}
-        ckpt.update(optimizer=opt.state_dict(), epoch=meta['epoch'], global_step=meta['step'],
-                    monitor=meta['monitor'])
-        path.with_suffix('.json').write_text(json.dumps(meta))
-    torch.save(ckpt, path)
+    ckpt = _checkpoint(nets, cfg, opt, epoch, step, monitor)
+    ckpt['state_dict'] = {k: v.cpu() for k, v in ckpt['state_dict'].items()}
+    _write(path, ckpt)
+
+
+class AsyncSaver:
+    """One-slot background writer: at most one save in flight; `submit` joins
+    the previous save first, `wait` re-raises a failure of the background save."""
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._exc: Optional[BaseException] = None
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._exc is not None:
+            exc, self._exc = self._exc, None
+            raise exc
+
+    def submit(self, fn: Callable[[], None]) -> None:
+        self.wait()
+
+        def run():
+            try:
+                fn()
+            except BaseException as e:  # noqa: BLE001 - raised by the next wait()
+                self._exc = e
+
+        self._thread = threading.Thread(target=run, daemon=True, name='ckpt-saver')
+        self._thread.start()
+
+
+def snapshot(ckpt: dict):
+    """-> (copy of `ckpt` with every tensor cloned on its device, the CUDA
+    event after the clones or None). The clones are the state at this point of
+    the stream, whatever runs after."""
+    snap = _map_tensors(ckpt, lambda t: t.detach().clone())
+    device = _cuda_device(snap)
+    event = None
+    if device is not None:
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(device))
+    return snap, event
+
+
+def _cuda_device(tree) -> Optional[torch.device]:
+    """The device of the first CUDA tensor of `tree`, if it holds one."""
+    tensors = []
+    _map_tensors(tree, tensors.append)
+    return next((t.device for t in tensors if t.is_cuda), None)
+
+
+def write_snapshot(files: list, snap: dict, event: Optional[torch.cuda.Event]) -> None:
+    """The background half: wait for the clones, copy them to the host on a
+    stream of this thread's own, write `snap` to each of `files`."""
+    if event is not None:
+        event.synchronize()
+        with torch.cuda.stream(torch.cuda.Stream(_cuda_device(snap))):
+            snap = _map_tensors(snap, lambda t: t.cpu())
+    for path, monitor in files:
+        ckpt = dict(snap)
+        if 'optimizer' in ckpt:
+            ckpt['monitor'] = monitor
+        _write(path, ckpt)
 
 
 def load_checkpoint(path) -> tuple[dict[str, torch.Tensor], dict]:
@@ -97,14 +195,18 @@ class CheckpointManager:
     :param ckpt_dir: run checkpoint directory.
     :param monitor: metric name to track for `best` (e.g. 'AbsRel', 'loss').
     :param mode: 'min'/'max'/None; None infers max iff 'Acc' is in the name.
+    :param async_save: snapshot on the device and write in the background
+        (`AsyncSaver`); `finalize()` waits for the last write.
     """
 
-    def __init__(self, ckpt_dir, monitor: str = 'loss', mode: Optional[str] = None):
+    def __init__(self, ckpt_dir, monitor: str = 'loss', mode: Optional[str] = None,
+                 async_save: bool = False):
         self.ckpt_dir = Path(ckpt_dir)
         self.ckpt_dir.mkdir(parents=True, exist_ok=True)
         self.monitor = monitor
         self.mode = mode or ('max' if 'Acc' in monitor else 'min')
         self.best: Optional[float] = None
+        self.saver = AsyncSaver() if async_save else None
 
     def is_better(self, value: float) -> bool:
         if self.best is None:
@@ -113,14 +215,27 @@ class CheckpointManager:
 
     def step(self, nets: Mapping[str, torch.nn.Module], opt, cfg: dict, epoch: int,
              step: int, metrics: dict) -> None:
-        """End-of-epoch hook: always refresh `last`, update `best` on improvement."""
+        """End-of-epoch hook: always refresh `last`, update `best` on improvement.
+        Asynchronous: both files from one snapshot, written by one background save."""
         sds = {k: net.state_dict() for k, net in nets.items()}
         value = metrics.get(self.monitor)
-        save_checkpoint(self.ckpt_dir / 'last.ckpt', sds, cfg, opt, epoch, step, value)
+        files = [(self.ckpt_dir / 'last.ckpt', value)]
         if value is not None and self.is_better(float(value)):
             self.best = float(value)
             LOGGER.info(f'New best {self.monitor}={self.best:.4f} @ epoch {epoch}')
-            save_checkpoint(self.ckpt_dir / 'best.ckpt', sds, cfg, opt, epoch, step, self.best)
+            files.append((self.ckpt_dir / 'best.ckpt', self.best))
+        if self.saver is None:
+            for path, monitor in files:
+                save_checkpoint(path, sds, cfg, opt, epoch, step, monitor)
+            return
+        self.saver.wait()  # the previous write first: one snapshot on the device at a time
+        snap, event = snapshot(_checkpoint(sds, cfg, opt, epoch, step, value))
+        self.saver.submit(lambda: write_snapshot(files, snap, event))
+
+    def finalize(self) -> None:
+        """Wait for the save in flight; raise its failure, if it failed."""
+        if self.saver is not None:
+            self.saver.wait()
 
     def restore_best_value(self) -> None:
         """Recover the tracked best value after a resume."""

@@ -13,13 +13,16 @@ Counterpart of `slowtv_monodepth_tpu/core/loop.py` on one device:
 - `TrainingManager` marker files (training_<epoch>_<host> / finished) so runs
   can't double-start and eval scripts can trust completed checkpoints,
 - LR scaling by the gradient accumulation (`auto_scale_lr`), SWA and early
-  stopping.
+  stopping,
+- the image logger (`heavy_logger`) on the epoch's last training batch, when
+  the writer takes images,
+- asynchronous checkpoint saves (`trainer.async_ckpt`: the save snapshots the
+  state on the device and writes it while the next epoch trains).
 
 Not ported, each raising `NotImplementedError`: device meshes, ZeRO and
-spatial sharding (ROADMAP A11), the heavy image logger and asynchronous
-checkpoint saves (`trainer.async_ckpt`, A7), profiler traces
-(`trainer.profile_dir`, A12). `trainer.precompile_buckets` is accepted and
-does nothing: eager PyTorch has no compile step to front-load.
+spatial sharding (ROADMAP A11), profiler traces (`trainer.profile_dir`,
+A12). `trainer.precompile_buckets` is accepted and does nothing: eager
+PyTorch has no compile step to front-load.
 """
 from __future__ import annotations
 
@@ -90,8 +93,9 @@ class MonoDepthLoop:
     :param train_dl, val_dl: loaders to use instead of `parsers.get_dl` on the
         cfg's `dataset` and `loader` sections (which then need not be there):
         iterables of (x, y, m) host batches with `__len__` and `set_epoch`.
-    :param mesh, heavy_logger: the JAX loop's device mesh and image logger;
-        not ported, anything but None raises.
+    :param mesh: the JAX loop's device mesh; not ported, anything but None raises.
+    :param heavy_logger: a `core.HeavyLogger`, called after each training
+        epoch on its last batch when the writer has `add_images`.
     """
 
     def __init__(self, cfg: dict, ckpt_dir, device='cuda', writer=None,
@@ -105,8 +109,6 @@ class MonoDepthLoop:
         tcfg = cfg.get('trainer', {})
         for name, given, item in (
                 ('mesh', mesh, 'A11'), ('trainer.zero', tcfg.get('zero'), 'A11'),
-                ('heavy_logger', heavy_logger, 'A7'),
-                ('trainer.async_ckpt', tcfg.get('async_ckpt'), 'A7'),
                 ('trainer.profile_dir', tcfg.get('profile_dir'), 'A12')):
             if given:
                 raise NotImplementedError(f'{name} is not ported yet (ROADMAP queue A item '
@@ -161,7 +163,10 @@ class MonoDepthLoop:
             cfg, self.trainer.nets, steps_per_epoch=steps_per_epoch, lr_scale=lr_scale,
             grad_clip=self.grad_clip, accumulate=self.accumulate)
 
-        self.ckpt = CheckpointManager(self.ckpt_dir, monitor=self.monitor)
+        self.ckpt = CheckpointManager(self.ckpt_dir, monitor=self.monitor,
+                                      async_save=bool(tcfg.get('async_ckpt', False)))
+        self.heavy_logger = heavy_logger
+        self.last_batch: Optional[tuple] = None  # the image logger's: ((x, y, m), supp_idxs)
         self.manager = TrainingManager(self.ckpt_dir) if use_markers else None
 
         self._steps: dict = {}  # (supp_idxs, train) -> step fn.
@@ -251,9 +256,14 @@ class MonoDepthLoop:
                     LOGGER.info(f'Early stopping at epoch {epoch}.')
                     break
             self._swa_finalize()
+            self.ckpt.finalize()  # the last asynchronous save is on the disk
             if self.manager:
                 self.manager.on_fit_end()
         except BaseException:
+            try:
+                self.ckpt.finalize()
+            except Exception:  # noqa: BLE001 - the first error is the one raised
+                LOGGER.exception('Asynchronous checkpoint save failed during cleanup.')
             if self.manager:
                 self.manager.cleanup()
             raise
@@ -286,6 +296,7 @@ class MonoDepthLoop:
             with self.timer('Step'):
                 scalars = step(xb, yb, **self.step_randomness(int(rng.integers(2 ** 31))))
             last_scalars = scalars
+            self.last_batch = ((xb, yb, m), supp_idxs)
             self.global_step += 1
 
             if self.global_step % self.log_every_n == 0:
@@ -297,6 +308,12 @@ class MonoDepthLoop:
         if last_scalars is not None:
             float(last_scalars['loss'])  # Sync before reading the flag.
             self._check_anomaly()
+
+        if self.heavy_logger is not None and self.last_batch is not None:
+            batch, supp_idxs = self.last_batch
+            with self.timer('HeavyLogger'):
+                self.heavy_logger.log_step(self.trainer, batch, supp_idxs, self.writer, epoch,
+                                           mode='train')
 
     def val_epoch(self, epoch: int) -> dict:
         if self.val_dl is None:

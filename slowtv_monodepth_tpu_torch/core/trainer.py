@@ -50,9 +50,9 @@ class MonoDepthTrainer:
         self.cfg = cfg
         self.kernels = kernels
         self.nets = parsers.get_net(cfg['net'], kernels=kernels)
-        for net in self.nets.values():  # the JAX package's `init_state` does this
+        for key, net in self.nets.items():  # after the initial draw, as the JAX `init_state`
             if net.pretrained:
-                load_pretrained_encoder(net.enc_name)
+                load_pretrained_encoder(net, net.enc_name, in_chans=6 if key == 'pose' else 3)
         self.losses, self.weights = parsers.get_loss(cfg['loss'], kernels=kernels)
 
         tcfg = cfg.get('trainer', {})

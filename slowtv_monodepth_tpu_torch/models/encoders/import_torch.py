@@ -1,0 +1,54 @@
+"""Pretrained timm state dicts -> the port's encoder state dicts.
+
+Counterpart of `slowtv_monodepth_tpu/models/encoders/import_torch.py` for the
+ConvNeXt family (its own copy: the port imports nothing of the JAX package).
+The port's `ConvNeXtEncoder` carries timm's module names, so a timm state
+dict needs no layout change: `convert_convnext` picks exactly the encoder
+keys the JAX converter reads, drops everything else a timm export holds
+(`head.*`), and adapts the stem to `in_chans` inputs in torch's OIHW layout,
+as timm adapts input convs (tile along the input axis, scale by
+3 / in_chans). A missing key raises `KeyError` naming it.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+__all__ = ['load_state_dict_file', 'adapt_input_conv', 'convert_convnext']
+
+
+def load_state_dict_file(path) -> dict[str, np.ndarray]:
+    """Load a state dict from .npz (preferred) or torch .pth/.pt file."""
+    path = str(path)
+    if path.endswith('.npz'):
+        with np.load(path) as f:
+            return {k: f[k] for k in f.files}
+    import torch
+    sd = torch.load(path, map_location='cpu', weights_only=True)
+    if 'state_dict' in sd:
+        sd = sd['state_dict']
+    return {k: v.numpy() for k, v in sd.items()}
+
+
+def adapt_input_conv(w_oihw: np.ndarray, in_chans: int) -> np.ndarray:
+    """Adapt a 3-channel stem conv kernel (OIHW) to `in_chans` inputs (timm-style)."""
+    c_in = w_oihw.shape[1]
+    if c_in == in_chans:
+        return w_oihw
+    reps = int(np.ceil(in_chans / c_in))
+    w = np.tile(w_oihw, (1, reps, 1, 1))[:, :in_chans]
+    return w * (c_in / in_chans)
+
+
+def convert_convnext(sd: dict[str, np.ndarray], depths, in_chans: int = 3) -> dict[str, np.ndarray]:
+    """timm ConvNeXt state dict -> the port's `ConvNeXtEncoder` state dict."""
+    out = {'stem.0.weight': adapt_input_conv(sd['stem.0.weight'], in_chans)}
+    keys = ['stem.0.bias', 'stem.1.weight', 'stem.1.bias']
+    for stage, n_blocks in enumerate(depths):
+        if stage > 0:
+            keys += [f'stages.{stage}.downsample.{i}.{p}' for i in (0, 1) for p in ('weight', 'bias')]
+        for i in range(n_blocks):
+            pre = f'stages.{stage}.blocks.{i}'
+            keys += [f'{pre}.{m}.{p}' for m in ('conv_dw', 'norm', 'mlp.fc1', 'mlp.fc2')
+                     for p in ('weight', 'bias')] + [f'{pre}.gamma']
+    out.update({k: sd[k] for k in keys})
+    return out

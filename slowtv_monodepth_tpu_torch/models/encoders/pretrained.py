@@ -1,18 +1,28 @@
-"""Pretrained encoder weights: where they are looked for.
+"""Pretrained encoder weights: where they are looked for, and their graft.
 
 Counterpart of `slowtv_monodepth_tpu/models/encoders/pretrained.py`: with
-`pretrained: True` the JAX package's `init_state` grafts
-`<model_root>/timm/<enc_name>.npz|.pth|.pt` into the encoder when the file is
-there and warns when it is not. The port looks in the same places and warns
-with the same words; loading a file it finds is ROADMAP queue A item 7, so
-until then a found file raises rather than being skipped.
+`pretrained: True` the trainer grafts `<model_root>/timm/<enc_name>.npz|.pth|.pt`
+(written by `api/data/export_timm.py` on a machine with timm) into the net's
+encoder when the file is there, and warns and keeps the initial weights when it
+is not. The ConvNeXt family is ported; the other encoder families are ROADMAP
+queue A item 10, and their constructors raise before a file is looked for.
+
+The weights are copied into the encoder's existing parameters
+(`load_state_dict`), so the optimizer's parameter groups and every other
+reference to a parameter stay valid. A file that does not hold every encoder
+key raises.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import torch
+import torch.nn as nn
+
 from ... import paths
 from ...utils import get_logger
+from .convnext import CONVNEXT_SPECS
+from .import_torch import convert_convnext, load_state_dict_file
 
 __all__ = ['find_weights_file', 'load_pretrained_encoder']
 
@@ -29,14 +39,24 @@ def find_weights_file(enc_name: str) -> Optional[str]:
     return None
 
 
-def load_pretrained_encoder(enc_name: str) -> None:
-    """Warn and keep the initial weights when no file is found; raise when one is."""
+def load_pretrained_encoder(net: nn.Module, enc_name: str, in_chans: int = 3) -> bool:
+    """Graft the pretrained weights of `enc_name` into `net.encoder`.
+
+    :param in_chans: the encoder's input channels (6 for the pose net's image
+        pairs: the 3-channel stem is adapted).
+    :return: whether a file was found and loaded.
+    """
     file = find_weights_file(enc_name)
     if file is None:
         LOGGER.warning(
             f'No pretrained weights for "{enc_name}" under <model_root>/timm/; '
             'using random init. Export with api/data/export_timm.py.')
-        return
-    raise NotImplementedError(
-        f'Found pretrained weights for "{enc_name}" at {file}, but loading them is not '
-        'ported yet (ROADMAP queue A item 7).')
+        return False
+    if enc_name not in CONVNEXT_SPECS:
+        raise NotImplementedError(f'No converter for encoder "{enc_name}" in the port: only '
+                                  'ConvNeXt is ported (ROADMAP queue A item 10).')
+    LOGGER.info(f'Loading pretrained encoder weights from {file}...')
+    sd = convert_convnext(load_state_dict_file(file), CONVNEXT_SPECS[enc_name]['depths'],
+                          in_chans=in_chans)
+    net.encoder.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+    return True

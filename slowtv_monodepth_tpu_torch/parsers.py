@@ -8,8 +8,9 @@ Counterpart of `slowtv_monodepth_tpu/parsers.py` for the ported keys:
   (`SmoothReg`), with their static weights;
 - `get_sched`: the product of the configured epoch factors, evaluated at
   `update // steps_per_epoch`;
-- `get_opt` / `make_optimizer`: AdamW as an `Optimizer` that is stepped
-  once per micro-step and averages the gradients over `accumulate`
+- `get_opt` / `make_optimizer`: AdamW, Adam, SGD, LAMB, AdaBelief or
+  RMSprop (optax's definitions, `optim.py`) as an `Optimizer` that is
+  stepped once per micro-step and averages the gradients over `accumulate`
   micro-steps, with the schedule counting optimizer updates
   (`optax.MultiSteps` semantics), optional clipping of the averaged
   gradient by its global norm and the loop's LR scale.
@@ -27,6 +28,7 @@ import torch.nn as nn
 from .core.schedules import SCHEDULES
 from .losses import ReconstructionLoss, SmoothReg
 from .models import DepthNet, PoseNet
+from .optim import OPTIMIZERS
 
 __all__ = ['get_net', 'get_loss', 'get_ds', 'get_dl', 'get_sched', 'get_opt',
            'make_optimizer', 'Optimizer']
@@ -137,16 +139,17 @@ class Optimizer:
     Every `accumulate`-th call of `step` averages the gradients the
     micro-steps' backward passes summed into `.grad`, sets each group's LR
     to its base LR times the schedule at the update count, applies the group's
-    decoupled weight decay (`p -= lr * wd * p`, as optax's `adamw`; torch's
-    AdamW multiplies by `1 - lr * wd` rounded to float32, which is 1% off at
-    lr * wd = 1e-6), steps the inner optimizer and clears the gradients.
+    decoupled weight decay (`decay`, AdamW only: `p -= lr * wd * p`, as
+    optax's `adamw`; torch's AdamW multiplies by `1 - lr * wd` rounded to
+    float32, which is 1% off at lr * wd = 1e-6), steps the inner optimizer
+    and clears the gradients.
     Other calls leave the parameters as they are, as `optax.MultiSteps`
     emits zero updates. `grad_clip` scales the averaged gradient down to
     that global norm first (`optax.clip_by_global_norm` inside MultiSteps).
 
-    `state_dict` / `load_state_dict` carry Adam's moments and step counts, the
-    update and micro-step counters and, between two updates, the gradients
-    accumulated so far.
+    `state_dict` / `load_state_dict` carry the inner optimizer's state (Adam's
+    moments and step counts, ...), the update and micro-step counters and,
+    between two updates, the gradients accumulated so far.
     """
 
     def __init__(self, opt: torch.optim.Optimizer, sched: Callable[[int], float],
@@ -178,7 +181,7 @@ class Optimizer:
             torch._foreach_mul_(grads, self.grad_clip / torch.clamp(norm, min=self.grad_clip))
         for group, lr in zip(self.opt.param_groups, self.lrs()):
             group['lr'] = lr
-            if group['decay']:
+            if group.get('decay'):  # AdamW's decoupled decay
                 torch._foreach_add_(group['params'], group['params'], alpha=-lr * group['decay'])
         self.opt.step()
         self.opt.zero_grad(set_to_none=True)
@@ -206,13 +209,27 @@ def _has(name: str, key: str) -> bool:
     return any(key in part for part in name.split('.'))
 
 
+# optax's options of each optimizer (the cfg passes them through by name).
+_OPT_OPTIONS = {'adamw': ('b1', 'b2', 'eps', 'weight_decay'),
+                'adam': ('b1', 'b2', 'eps', 'eps_root', 'nesterov'),
+                'sgd': ('momentum', 'nesterov'),
+                'lamb': ('b1', 'b2', 'eps', 'eps_root', 'weight_decay'),
+                'adabelief': ('b1', 'b2', 'eps', 'eps_root', 'nesterov'),
+                'rmsprop': ('decay', 'eps', 'initial_scale', 'eps_in_sqrt', 'centered',
+                            'momentum', 'nesterov', 'bias_correction')}
+
+
 def get_opt(cfg: dict, nets: nn.Module, steps_per_epoch: int = 1,
             sched_cfg: Optional[dict] = None, accumulate: int = 1, lr_scale: float = 1.0,
             grad_clip: Optional[float] = None) -> Optimizer:
-    """The AdamW of the cfg `optimizer` section over `nets`' parameters.
+    """The optimizer of the cfg `optimizer` section over `nets`' parameters:
+    `type` one of adamw, adam, sgd, lamb, adabelief, rmsprop, with optax's
+    option names and defaults.
 
-    - One LR, `weight_decay` set: decay only parameters with ndim > 1
-      (timm's `filter_bias_and_bn`, which the JAX package mirrors).
+    - adamw and lamb with one LR and `weight_decay` set: decay only
+      parameters with ndim > 1 (timm's `filter_bias_and_bn`, which the JAX
+      package mirrors). adamw without `weight_decay` decays everything by
+      optax's default 1e-4; lamb's default is 0.
     - `backbone_lr`: parameters under an `encoder` take it, the rest `lr`,
       and the decay applies to all of them (no filter, as the reference).
     - `lr_scale` multiplies both LRs (the loop's `auto_scale_lr`).
@@ -221,36 +238,50 @@ def get_opt(cfg: dict, nets: nn.Module, steps_per_epoch: int = 1,
     name = cfg.pop('type', cfg.pop('opt', None))
     if name is None:
         raise KeyError('Must provide an optimizer `type`.')
-    if name != 'adamw':
-        raise NotImplementedError(f'Optimizer "{name}" is not ported yet (have adamw); '
-                                  'ROADMAP queue A item 7.')
+    if name not in _OPT_OPTIONS:
+        raise KeyError(f'Unknown optimizer "{name}". ({sorted(_OPT_OPTIONS)})')
     if cfg.pop('frozen_bn', False) or cfg.pop('flatten', False):
         raise NotImplementedError('frozen_bn (BatchNorm nets, ROADMAP A10) and flatten '
                                   '(a TPU option) are not ported.')
+    for key in ('mu_dtype', 'accumulator_dtype'):
+        if cfg.pop(key, None) is not None:
+            raise NotImplementedError(f'{key} (optimizer state in another dtype) is not ported '
+                                      '(ROADMAP queue A item 14).')
     lr = float(cfg.pop('lr', 1e-3)) * lr_scale
     blr = cfg.pop('backbone_lr', None)
-    kw = {'betas': (cfg.pop('b1', 0.9), cfg.pop('b2', 0.999)), 'eps': cfg.pop('eps', 1e-8)}
-    wd_cfg = cfg.pop('weight_decay', None)
+    kw = {k: cfg.pop(k) for k in _OPT_OPTIONS[name] if k in cfg}
     if cfg:
-        raise KeyError(f'Unknown optimizer options {sorted(cfg)}')
+        raise KeyError(f'Unknown optimizer options {sorted(cfg)} for "{name}" '
+                       f'(optax: {_OPT_OPTIONS[name]})')
+    wd_cfg = kw.pop('weight_decay', None)
     # optax.adamw's default decay applies when the cfg gives none (unmasked).
-    wd = 1e-4 if wd_cfg is None else float(wd_cfg)
+    wd = (1e-4 if name == 'adamw' else 0.0) if wd_cfg is None else float(wd_cfg)
+    # The group key of the decay: AdamW's is `Optimizer.step`'s (decoupled), LAMB's
+    # its own update's (before the trust ratio); the others take none.
+    decay_key = {'adamw': 'decay', 'lamb': 'weight_decay'}.get(name)
     named = [(n, p) for n, p in nets.named_parameters() if p.requires_grad]
+
+    def group(params: list, decay: float, **kw) -> dict:
+        return {'params': params, **kw, **({decay_key: decay} if decay_key else {})}
 
     if blr:
         blr = float(blr) * lr_scale
         if blr == lr:
             raise ValueError('Backbone LR must be different from the main LR')
-        groups = [{'params': [p for n, p in named if _has(n, 'encoder')], 'lr': blr},
-                  {'params': [p for n, p in named if not _has(n, 'encoder')], 'lr': lr}]
-        groups = [dict(g, decay=wd) for g in groups if g['params']]
+        groups = [group([p for n, p in named if _has(n, 'encoder')], wd, lr=blr),
+                  group([p for n, p in named if not _has(n, 'encoder')], wd, lr=lr)]
+        groups = [g for g in groups if g['params']]
     elif wd_cfg:
-        groups = [{'params': [p for _, p in named if p.ndim > 1], 'decay': wd},
-                  {'params': [p for _, p in named if p.ndim <= 1], 'decay': 0.0}]
+        groups = [group([p for _, p in named if p.ndim > 1], wd),
+                  group([p for _, p in named if p.ndim <= 1], 0.0)]
     else:
-        groups = [{'params': [p for _, p in named], 'decay': wd}]
-    # Adam's moments from torch; the decoupled decay is `Optimizer.step`'s.
-    opt = torch.optim.Adam(groups, lr=lr, weight_decay=0.0, **kw)
+        groups = [group([p for _, p in named], wd)]
+    if name == 'adamw':  # Adam's moments from torch
+        opt = torch.optim.Adam(groups, lr=lr, weight_decay=0.0,
+                               betas=(kw.get('b1', 0.9), kw.get('b2', 0.999)),
+                               eps=kw.get('eps', 1e-8))
+    else:
+        opt = OPTIMIZERS[name](groups, lr=lr, **kw)
     return Optimizer(opt, get_sched(sched_cfg, steps_per_epoch), accumulate, grad_clip)
 
 

@@ -1,3 +1,3 @@
-from .viz import apply_cmap, rgb_from_disp
+from .viz import apply_cmap, rgb_from_disp, rgb_from_feat
 
-__all__ = ['apply_cmap', 'rgb_from_disp']
+__all__ = ['apply_cmap', 'rgb_from_disp', 'rgb_from_feat']

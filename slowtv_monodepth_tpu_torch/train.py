@@ -1,8 +1,9 @@
 """Full training entry point (PyTorch port).
 
 Counterpart of `api/train/train.py` on one device: merged YAML cfg chain,
-optional tensorboard/wandb scalar logging, best/last checkpoints with
-monitor-based selection, run markers, resume/warm-start.
+optional tensorboard/wandb logging (scalars, and the image logger's grids
+and text at each epoch's end), best/last checkpoints with monitor-based
+selection, run markers, resume/warm-start.
 
 Usage:
     slowtv-train-torch -c cfg/kbr/default.yaml cfg/kbr/base.yaml -n kbr/base -v 42
@@ -19,12 +20,14 @@ import numpy as np
 
 from . import LOGGER
 from .config import load_merge_yaml
+from .core.heavy_logger import HeavyLogger
 from .core.loop import MonoDepthLoop
 from .paths import MODEL_ROOTS
 
 
 class WandbWriter:
-    """SummaryWriter-shaped adapter over `wandb.log`: the `add_scalar` the loop drives."""
+    """SummaryWriter-shaped adapter over `wandb.log`: the `add_scalar` the loop
+    drives, `add_images` (NCHW grids) and `add_text` the image logger drives."""
 
     def __init__(self, log_dir: Path, project: str = 'slowtv_monodepth_torch',
                  name: Optional[str] = None):
@@ -34,6 +37,14 @@ class WandbWriter:
 
     def add_scalar(self, tag, value, global_step=None):
         self._wandb.log({tag: float(value)}, step=global_step)
+
+    def add_images(self, tag, imgs, global_step=None):
+        imgs = np.asarray(imgs)  # (b, c, h, w) -> HWC wandb Images
+        ims = [self._wandb.Image(np.transpose(im, (1, 2, 0))) for im in imgs]
+        self._wandb.log({tag: ims}, step=global_step)
+
+    def add_text(self, tag, text, global_step=None):
+        self._wandb.log({tag: str(text)}, step=global_step)
 
     def close(self):
         self._wandb.finish()
@@ -87,7 +98,8 @@ def main(argv=None) -> None:
 
     writer = make_writer(cfg.get('trainer', {}).get('logger', 'tensorboard'),
                          save_dir / 'logs', name=f'{args.name}_{version}')
-    loop = MonoDepthLoop(cfg, ckpt_dir=save_dir / 'models', device=args.device, writer=writer)
+    loop = MonoDepthLoop(cfg, ckpt_dir=save_dir / 'models', device=args.device, writer=writer,
+                         heavy_logger=HeavyLogger(n_imgs=6, n_cols=2))
     loop.fit()
 
 

@@ -173,15 +173,68 @@ def test_a_failed_epoch_removes_its_marker(slowtv_root, tmp_path):
     assert not (tmp_path / 'run' / 'finished').exists()
 
 
+class _ImageWriter(_Writer):
+    def __init__(self):
+        super().__init__()
+        self.images, self.texts = {}, {}
+
+    def add_images(self, tag, v, global_step):
+        self.images[tag] = (v.shape, global_step)
+
+    def add_text(self, tag, v, global_step):
+        self.texts[tag] = v
+
+
 @pytest.mark.parametrize('kw,item', [
-    ({'mesh': object()}, 'item 11'), ({'heavy_logger': object()}, 'item 7'),
+    ({'mesh': object()}, 'item 11'), ({'heavy_logger': 'accepted'}, None),
     ({'trainer': {'zero': 1}}, 'item 11'), ({'trainer': {'profile_dir': 'x'}}, 'item 12'),
     ({'trainer': {'precision': 16}}, 'Recipe'), ({'trainer': {'remat': True}}, 'Recipe')])
 def test_unported_options_raise(slowtv_root, tmp_path, kw, item):
+    """Each unported option raises naming its ROADMAP item; the image logger
+    (ported in A7b) is accepted and logs each epoch's last batch."""
     kw = dict(kw)
     cfg = make_cfg(**kw.pop('trainer', {}))
+    if item is None:
+        from slowtv_monodepth_tpu_torch.core import HeavyLogger
+        writer = _ImageWriter()
+        MonoDepthLoop(make_cfg(max_epochs=1), tmp_path / 'run', device='cpu', writer=writer,
+                      heavy_logger=HeavyLogger(n_imgs=2, n_cols=2)).fit()
+        assert writer.images['train_pred/disp'] == ((1, 3, 64, 192), 0)
+        assert {'train_imgs_aug/target', 'train_loss/warp_1', 'train_loss/automask'} <= set(writer.images)
+        assert 'train_items' in writer.texts
+        return
     with pytest.raises(NotImplementedError, match=item):
         MonoDepthLoop(cfg, tmp_path / 'run', device='cpu', **kw)
+
+
+def test_train_dev_runs_epochs_of_a_few_batches(slowtv_root, tmp_path, monkeypatch, caplog):
+    """`slowtv-train-dev-torch` (`train_dev.main`): 2 epochs x 2 batches from a
+    cfg file, the loss read at every step, into a fresh temporary directory."""
+    import logging
+    import tempfile
+
+    import yaml
+    from slowtv_monodepth_tpu_torch import train_dev
+    cfg_file = tmp_path / 'dev.yaml'
+    cfg_file.write_text(yaml.safe_dump(make_cfg(use_aug=False)))
+    monkeypatch.setattr(tempfile, 'tempdir', str(tmp_path))
+    with caplog.at_level(logging.INFO):
+        train_dev.main(['-c', str(cfg_file), '--epochs', '2', '--batches', '2', '--device', 'cpu'])
+    steps = [r.getMessage() for r in caplog.records if ': loss=' in r.getMessage()
+             and r.getMessage().startswith('epoch')]
+    assert [m.split(':')[0] for m in steps] == ['epoch 0 step 0', 'epoch 0 step 1',
+                                                'epoch 1 step 0', 'epoch 1 step 1']
+    assert len(list(tmp_path.glob('slowtv_dev_*/last.ckpt'))) == 1
+
+
+def test_train_dev_raises_on_a_non_finite_loss(slowtv_root, tmp_path):
+    from slowtv_monodepth_tpu_torch.train_dev import DevLoop
+    loop = DevLoop(make_cfg(), tmp_path / 'dev', device='cpu', use_markers=False, limit_batches=2)
+    loop.trainer.nets['depth'].decoders['disp'].get_parameter('decoder.0.conv.weight').data.fill_(
+        float('nan'))
+    with pytest.raises(ValueError, match='NaN/Infinite loss'):
+        loop.fit()
+    assert loop.global_step == 1  # raised at the step that made it
 
 
 def test_early_stopping_and_swa(slowtv_root, tmp_path):

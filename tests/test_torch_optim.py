@@ -16,6 +16,15 @@ travel up to ~0.3, float32 rounds each update to their ulp (up to ~3e-8)
 in another order on the two sides, and 300 updates drift apart by up to
 1.3e-6 (measured). With zero gradients (decay only) atol 1e-8. LRs rtol
 1e-6.
+
+The other five optimizers (`adam`, `sgd`, `lamb`, `adabelief`, `rmsprop`,
+optax's definitions in the port's `optim.py`) run 5 updates of 2
+accumulated micro-steps under the schedule at `steps_per_epoch=1` (the LR
+moves every update), with and without `backbone_lr` and `grad_clip`: the
+parameters within 1e-6 of each tensor's largest magnitude (a float32 ulp
+there is 6e-8 of it; an update of lr = 1e-3 moves a parameter by ~2% of
+it, so an update off by 1e-4 of itself shows). `torch.optim.RMSprop` in
+place of the port's fails.
 """
 import jax
 import jax.numpy as jnp
@@ -71,14 +80,16 @@ class Params(nn.Module):
         return {k.replace('__', '.'): p.detach().numpy() for k, p in self.p.items()}
 
 
-def _run(opt_cfg: dict, zero_grads: bool = False):
+def _run(opt_cfg: dict, zero_grads: bool = False, updates: int = UPDATES,
+         steps_per_epoch: int = STEPS_PER_EPOCH, grad_clip=None):
     rs = np.random.RandomState(0)
     init = {k: (0.05 * rs.standard_normal(s)).astype(np.float32) for k, s in SHAPES.items()}
     grads = [{k: (0 if zero_grads else 1) * rs.standard_normal(s).astype(np.float32)
-              for k, s in SHAPES.items()} for _ in range(UPDATES * ACCUMULATE)]
+              for k, s in SHAPES.items()} for _ in range(updates * ACCUMULATE)]
     cfg = {'optimizer': opt_cfg, 'scheduler': SCHED}
 
-    tx = jparsers.make_optimizer(cfg, steps_per_epoch=STEPS_PER_EPOCH, accumulate=ACCUMULATE)
+    tx = jparsers.make_optimizer(cfg, steps_per_epoch=steps_per_epoch, accumulate=ACCUMULATE,
+                                 grad_clip=grad_clip)
     params = jax.tree.map(jnp.asarray, _tree(init))
     state = tx.init(params)
     update = jax.jit(tx.update)
@@ -87,8 +98,8 @@ def _run(opt_cfg: dict, zero_grads: bool = False):
         params = jax.tree.map(lambda p, u: p + u, params, upd)
 
     module = Params(init)
-    opt = parsers.make_optimizer(cfg, module, steps_per_epoch=STEPS_PER_EPOCH,
-                                 accumulate=ACCUMULATE)
+    opt = parsers.make_optimizer(cfg, module, steps_per_epoch=steps_per_epoch,
+                                 accumulate=ACCUMULATE, grad_clip=grad_clip)
     lrs = []
     for g in grads:
         for k, p in module.named_parameters():
@@ -96,7 +107,7 @@ def _run(opt_cfg: dict, zero_grads: bool = False):
         if opt.micro == ACCUMULATE - 1:
             lrs.append(opt.lrs())
         opt.step()
-    assert opt.updates == UPDATES
+    assert opt.updates == updates
     return _flat(params), module.flat(), init, lrs
 
 
@@ -136,9 +147,80 @@ def test_differential_has_teeth(monkeypatch):
 
 def test_unported_options_raise():
     module = Params({'a': np.zeros(2, np.float32)})
-    with pytest.raises(NotImplementedError):
-        parsers.get_opt({'type': 'lamb'}, module)
+    with pytest.raises(KeyError, match='Unknown optimizer "nadam"'):
+        parsers.get_opt({'type': 'nadam'}, module)
     with pytest.raises(NotImplementedError):
         parsers.get_opt({'type': 'adamw', 'frozen_bn': True}, module)
     with pytest.raises(NotImplementedError):
         parsers.get_loss({'feat_recon': {}})
+
+
+# ------------------------------------------------------------- the other five optimizers
+OPTAX_CASES = {
+    'adam': {'type': 'adam', 'lr': 1e-3},
+    'adam_nesterov_backbone': {'type': 'adam', 'lr': 1e-3, 'nesterov': True, 'eps_root': 1e-8,
+                               'backbone_lr': 1e-4},
+    'sgd_nesterov': {'type': 'sgd', 'lr': 1e-2, 'momentum': 0.9, 'nesterov': True},
+    'sgd_backbone': {'type': 'sgd', 'lr': 1e-2, 'backbone_lr': 1e-3},
+    'lamb_masked': {'type': 'lamb', 'lr': 1e-3, 'weight_decay': 1e-2},
+    'lamb_backbone': {'type': 'lamb', 'lr': 1e-3, 'weight_decay': 1e-2, 'backbone_lr': 1e-4},
+    'adabelief': {'type': 'adabelief', 'lr': 1e-3},
+    'adabelief_nesterov_backbone': {'type': 'adabelief', 'lr': 1e-3, 'nesterov': True,
+                                    'backbone_lr': 1e-4},
+    'rmsprop': {'type': 'rmsprop', 'lr': 1e-3},
+    'rmsprop_centered_momentum': {'type': 'rmsprop', 'lr': 1e-3, 'centered': True,
+                                  'momentum': 0.9, 'nesterov': True, 'backbone_lr': 1e-4},
+    'rmsprop_eps_outside': {'type': 'rmsprop', 'lr': 1e-3, 'eps_in_sqrt': False,
+                            'initial_scale': 0.1, 'bias_correction': True, 'momentum': 0.5},
+}
+OPTAX_UPDATES = 5
+OPTAX_RTOL = 1e-6
+
+
+def _optax_faults(opt_cfg: dict, grad_clip) -> list:
+    want, got, init, _ = _run(opt_cfg, updates=OPTAX_UPDATES, steps_per_epoch=1,
+                              grad_clip=grad_clip)
+    bad = []
+    for k in SHAPES:
+        assert not np.array_equal(want[k], init[k]), k  # every tensor moved
+        err, scale = np.abs(got[k] - want[k]).max(), np.abs(want[k]).max()
+        if not err <= OPTAX_RTOL * scale:
+            bad.append(f'{k}: {err:.3g} > {OPTAX_RTOL:.0e} x {scale:.3g}')
+    return bad
+
+
+@pytest.mark.parametrize('grad_clip', [None, 1.0], ids=['noclip', 'clip'])
+@pytest.mark.parametrize('case', sorted(OPTAX_CASES))
+def test_optimizers_match_optax(case, grad_clip):
+    assert _optax_faults(OPTAX_CASES[case], grad_clip) == []
+
+
+def test_lamb_decay_mask_matches_optax():
+    """Zero gradients: LAMB's update is -lr p on the decayed tensors (trust
+    ratio 1 / wd) and nothing elsewhere (a zero update)."""
+    want, got, init, _ = _run({'type': 'lamb', 'lr': 1e-3, 'weight_decay': 1e-2},
+                              zero_grads=True, updates=OPTAX_UPDATES)
+    for k, shape in SHAPES.items():
+        assert (not np.array_equal(want[k], init[k])) == (len(shape) > 1), k
+        np.testing.assert_allclose(got[k], want[k], atol=1e-8, err_msg=k)
+
+
+def test_optax_differential_has_teeth(monkeypatch):
+    """torch's RMSprop (alpha 0.99, eps outside the root) in place of optax's fails."""
+    from slowtv_monodepth_tpu_torch import optim
+
+    def torch_rmsprop(groups, lr, decay=0.9, eps=1e-8, **kw):
+        return torch.optim.RMSprop(groups, lr=lr, eps=eps)
+
+    monkeypatch.setitem(optim.OPTIMIZERS, 'rmsprop', torch_rmsprop)
+    assert _optax_faults(OPTAX_CASES['rmsprop'], None)
+
+
+def test_dtype_options_raise():
+    module = Params({'a': np.zeros(2, np.float32)})
+    for cfg in ({'type': 'adam', 'mu_dtype': 'bfloat16'},
+                {'type': 'sgd', 'momentum': 0.9, 'accumulator_dtype': 'bfloat16'}):
+        with pytest.raises(NotImplementedError, match='queue A item 14'):
+            parsers.get_opt(cfg, module)
+    with pytest.raises(KeyError, match='Unknown optimizer options'):
+        parsers.get_opt({'type': 'adam', 'weight_decay': 1e-2}, module)

@@ -11,8 +11,10 @@ unrepaired port fails (ROADMAP queue C items 1, 2, 3, 5, 7 and 9).
    tensor has 144 values), every value inside flax's truncation at twice the
    deviation, and biases, LayerNorm and layer scale exactly equal. PyTorch's
    own defaults (kaiming-uniform, uniform biases) fail it.
-2. `pretrained: True`: a warning when `<model_root>/timm/` holds no file, an
-   error naming ROADMAP A7 when it holds one (loading is A7's work).
+2. `pretrained: True`: a warning when `<model_root>/timm/` holds no file;
+   when it holds one (`.npz` or `.pth`), its weights in the encoder (A7b
+   ported the graft; `tests/test_torch_pretrained.py` holds it to the JAX
+   package's loader). The test keeps its name from when a file raised.
 3. A warm start (`trainer.load_ckpt`) restores the optimizer state when the
    file has it and starts the step count from 0.
 5. `dec_phase_up` / `enc_remat` (exact transforms) are accepted and change
@@ -33,7 +35,7 @@ import torch
 
 from slowtv_monodepth_tpu.core.trainer import MonoDepthTrainer as JaxTrainer
 from slowtv_monodepth_tpu_torch import parsers, paths
-from slowtv_monodepth_tpu_torch.core import MonoDepthLoop, save_checkpoint
+from slowtv_monodepth_tpu_torch.core import MonoDepthLoop, load_checkpoint, save_checkpoint
 from slowtv_monodepth_tpu_torch.core.trainer import MonoDepthTrainer
 from slowtv_monodepth_tpu_torch.models import (DepthNet, PoseNet, depth_state_dict_from_jax,
                                                pose_state_dict_from_jax)
@@ -118,13 +120,21 @@ def test_pretrained_without_a_file_warns_and_goes_on(net, tmp_path, monkeypatch,
 
 @pytest.mark.parametrize('suffix', ['.npz', '.pth'])
 def test_pretrained_with_a_file_raises_naming_the_roadmap_item(suffix, tmp_path, monkeypatch):
+    """A file in the second model root is found and loaded into the depth
+    encoder; the pose net (`pretrained: False`) keeps its initial draw."""
+    import chip_smoke
     monkeypatch.setattr(paths, 'MODEL_ROOTS', [tmp_path / 'empty', tmp_path])
-    (tmp_path / 'timm').mkdir()
-    (tmp_path / 'timm' / f'convnext_atto{suffix}').write_bytes(b'')
+    sd = chip_smoke.timm_state_dict('convnext_atto', seed=1)
+    chip_smoke.write_timm_file(tmp_path, 'convnext_atto', suffix, sd)
     cfg = {'net': {**NET, 'depth': {**NET['depth'], 'pretrained': True}}, 'loss': LOSS}
-    with pytest.raises(NotImplementedError, match='queue A item 7'):
-        MonoDepthTrainer(cfg)
-    MonoDepthTrainer({'net': NET, 'loss': LOSS})  # pretrained: False never looks
+    nets = MonoDepthTrainer(cfg).nets
+    got = nets['depth'].encoder.state_dict()
+    assert all(np.array_equal(v.numpy(), sd[k]) for k, v in got.items())
+    assert not np.array_equal(nets['pose'].encoder.state_dict()['stages.0.blocks.0.gamma'],
+                              sd['stages.0.blocks.0.gamma'])
+    blank = MonoDepthTrainer({'net': NET, 'loss': LOSS}).nets  # pretrained: False never looks
+    assert not np.array_equal(blank['depth'].encoder.state_dict()['stem.0.weight'],
+                              sd['stem.0.weight'])
 
 
 # ------------------------------------------------------------------ 3. warm start
@@ -191,15 +201,20 @@ def test_resume_refuses_a_last_checkpoint_without_optimizer_state(tmp_path):
 
 @pytest.mark.parametrize('async_ckpt', [True, False, None], ids=['on', 'off', 'absent'])
 def test_async_checkpoints_raise_naming_the_roadmap_item(tmp_path, async_ckpt):
-    """`trainer.async_ckpt` (the JAX loop's asynchronous saves) is not ported:
-    asked for, it raises as every other key the port lacks does; off or absent,
-    the loop builds."""
+    """`trainer.async_ckpt` (the JAX loop's asynchronous saves, ported in A7b;
+    the test keeps its name from when it raised): on, the loop builds with a
+    background saver; off or absent, without one. Either way an epoch's save
+    writes `last` and `best` holding the nets' weights once `finalize` returns."""
     trainer = {} if async_ckpt is None else {'async_ckpt': async_ckpt}
-    if async_ckpt:
-        with pytest.raises(NotImplementedError, match='trainer.async_ckpt .*queue A item 7'):
-            _loop(tmp_path, 'run', **trainer)
-    else:
-        _loop(tmp_path, 'run', **trainer)
+    loop = _loop(tmp_path, 'run', **trainer)
+    assert (loop.ckpt.saver is not None) == bool(async_ckpt)
+    loop.ckpt.step(loop.trainer.nets, loop.opt, loop.cfg, 0, 0, {loop.monitor: 1.0})
+    loop.ckpt.finalize()
+    for name in ('last', 'best'):
+        sd, _ = load_checkpoint(tmp_path / 'run' / f'{name}.ckpt')
+        want = loop.trainer.nets['depth'].state_dict()
+        assert all(torch.equal(sd[f'nets.depth.{k}'], v) for k, v in want.items())
+        (tmp_path / 'run' / f'{name}.ckpt').unlink()
 
 
 # ---------------------------------------------------------- 5. TPU recipe options
