@@ -118,6 +118,23 @@ Phases, in order; any failure exits non-zero and prints no result:
    equal to the same optimizer's on CPU copies with the same gradients (1e-6 of each
    tensor's largest magnitude).
 14. train_dev: `train_dev.DevLoop` (`slowtv-train-dev-torch`), 1 epoch x 2 batches.
+15. eval: the evaluation chain as `slowtv-export-preds-torch` and
+   `slowtv-eval-depth-torch` run it, on in-memory stand-ins of SYNS-Patches,
+   KITTI and MannequinChallenge (`EvalStandIn`, 24 items each, at the
+   predictor's shapes 192x640 and 384x640; targets at the sources' full size,
+   376x1242, KITTI's drive sizes as an object array, 720x1280; held to the
+   real datasets' layouts by `tests/test_torch_eval_api.py`): a seeded KBR
+   checkpoint refused without its `finished` marker, then
+   `export_preds.compute_preds` in batches of 12 (36 dwconv + 2 decoder_stage
+   launches per forward) and a partial batch of 5, every map within
+   GOLDEN_ATOL of the plain path; the SYNS stand-in through a `fused_blocks`
+   checkpoint (36 convnext_block per forward); images/s and device ms per
+   batch of 12. Then `MonoDepthEvaluator` with the args of `syns_test`,
+   `kitti_eigen`, `kitti_eigen_benchmark` and `mc` in this process (which
+   holds CUDA): a Pool of 4, equal item by item to nproc=0 on the first items;
+   the kernel and plain predictions' metrics; a perfect prediction (AbsRel <
+   1e-6, F-Score (10) 100 less its 1e-5 guard); seconds per item of each
+   metric family.
 Every time is a device time (`cuda_ms`: the calls captured into one CUDA
 graph, CUDA events around one replay) with the eager time beside it. The last
 two lines are a JSON object per kernel and the contract line
@@ -130,6 +147,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import importlib.util
+import io
 import json
 import subprocess
 import tempfile
@@ -265,6 +283,28 @@ BF16_LOSS_RTOL = 5e-3  # first-step loss, bfloat16 warp sources (8 mantissa bits
 # twice the plain version's own float32 error against float64, plus:
 PHOTO_ATOL = 1e-5      # of the error map (in [0, 1])
 PHOTO_BWD_RTOL = 1e-5  # of the largest |gradient|
+EVAL_ITEMS = 24         # per evaluation stand-in
+EVAL_BATCH = 12         # `export_preds`' batch size
+EVAL_PARTIAL = 17       # one more SYNS export: a batch of 12 and a partial one of 5
+EVAL_NPROC = 4          # the evaluator's Pool
+EVAL_SERIAL_ITEMS = 1   # nproc=0 over the first item, held to the Pool's metrics of it
+EVAL_PLAIN_ITEMS = 4    # items also evaluated from the plain path's predictions
+EVAL_THRESHOLDED = ('delta', 'F-Score', 'IoU', 'Dir')  # step functions of the pixels
+EVAL_SETS = {  # stand-in -> (source shapes, cycled over the items; target densities per cfg)
+    'syns_patches': (((376, 1242),), {'syns_test': 0.7}),
+    'kitti': (((375, 1242), (370, 1224), (374, 1238), (376, 1241)),  # KITTI's drive sizes
+              {'kitti_eigen': 0.04, 'kitti_eigen_benchmark': 0.15}),  # raw velodyne, benchmark
+    'mannequin': (((720, 1280),), {'mc': 0.5})}
+EVAL_ARGS = {  # cfg/eval/<name>.yaml `args` (no yaml on the card)
+    'syns_test': {'min': 0.001, 'max': 100, 'use_eigen_crop': False,
+                  'metrics': ['eigen', 'benchmark', 'pointcloud', 'ibims']},
+    'kitti_eigen': {'min': 0.001, 'max': 80, 'use_eigen_crop': True,
+                    'metrics': ['eigen', 'pointcloud']},
+    'kitti_eigen_benchmark': {'min': 0.001, 'max': 100, 'use_eigen_crop': False,
+                              'metrics': ['eigen', 'benchmark', 'pointcloud']},
+    'mc': {'min': 0.001, 'max': 100, 'use_eigen_crop': False,
+           'metrics': ['eigen', 'benchmark', 'pointcloud']}}
+EVAL_ALIGN = 'lsqr'     # `slowtv-eval-depth-torch`'s default
 # Kernel 7's map at the KBR step's two photometric shapes on
 # `tools/photo_bench.digest_inputs`, as its parent checkout (f3a8e85) gave it on an
 # H100: separating kernel 8 out of csrc/photo.cu left kernel 7's bits alone.
@@ -2123,6 +2163,245 @@ def phase_train_dev(scenes) -> None:
         fail(f'train_dev: micro-steps {loop.global_step}, launches {counts}, expected {want}')
 
 
+# ------------------------------------------------------------------ evaluation
+def eval_targets(cfg_name: str, n: int, shapes, density: float, seed: int) -> dict:
+    """Synthetic targets of an eval cfg as `export_gt` writes them (`targets_test.npz`),
+    at the sources' full size: depth (a ground plane rising to the horizon, objects,
+    `density` of the pixels measured, the rest 0) and K; SYNS-Patches also its edge
+    maps and categories; KITTI's depths an object array (the drives' sizes differ)."""
+    rs = np.random.RandomState(seed)
+    depths, Ks, edges = [], [], []
+    for i in range(n):
+        h, w = shapes[i % len(shapes)]
+        v = np.linspace(1, 0, h)[:, None]
+        depth = 1.5 + 60 * v ** 2 + 40 * (np.arange(w)[None] % (97 + 13 * i) < 20) * v
+        depth = (depth * (1 + 0.02 * rs.rand(h, w))).astype(np.float32)
+        depth[rs.rand(h, w) >= density] = 0
+        depths.append(depth)
+        if cfg_name.startswith('kitti'):
+            Ks.append(np.array([[721.5377, 0, 609.5593], [0, 721.5377, 172.854], [0, 0, 1]],
+                               np.float32))
+        else:
+            Ks.append(np.array([[0.58 * w, 0, 0.5 * w, 0], [0, 1.92 * h, 0.5 * h, 0],
+                                [0, 0, 1, 0], [0, 0, 0, 1]], np.float32))
+        if cfg_name == 'syns_test':
+            edge = np.zeros((h, w), bool)
+            edge[:, np.arange(w) % (97 + 13 * i) == 20] = True
+            edge[h // 2] = True
+            edges.append(edge)
+    data = {'depth': (np.array(depths, dtype=object) if len({d.shape for d in depths}) > 1
+                      else np.stack(depths)), 'K': np.stack(Ks)}
+    if edges:
+        data.update(edge=np.stack(edges),
+                    cat=np.array([('Natural', 'Urban')[i % 2] for i in range(n)]),
+                    subcat=np.array([('Woodland', 'Park')[i % 2] for i in range(n)]))
+    return data
+
+
+class EvalStandIn:
+    """In-memory stand-in for an evaluation dataset as `export_preds.make_dataset`
+    builds it (datum 'image', at the predictor's input shape; the card's machine has
+    no PIL to decode the files): items (x, y, m) with x the standardized image, y
+    the raw one, m the dataset's metadata keys, collated as the dataset collates;
+    and `targets[cfg]`, the exported targets of each eval cfg it serves.
+    `tests/test_torch_eval_api.py` holds both layouts to the real datasets'."""
+
+    META = {'syns_patches': {'cat': 'Natural', 'subcat': 'Woodland'},
+            'kitti': {'stem': '2011_09_26/2011_09_26_drive_0002_sync/image_02/0000000069'},
+            'mannequin': {'seq': '00c2a6b1bcb0fb9e'}}
+
+    def __init__(self, scenes, name: str, n: int = EVAL_ITEMS, seed: int = 0):
+        from slowtv_monodepth_tpu_torch.core import BenchmarkPredictor
+        from slowtv_monodepth_tpu_torch.data import IMAGENET_MEAN, IMAGENET_STD
+        from slowtv_monodepth_tpu_torch.utils.resize import resize
+        self.name, self.n = name, n
+        self.h, self.w = BenchmarkPredictor.get_img_shape(name)
+        base = [np.stack([resize(sc[..., c], (self.h, self.w)) for c in range(3)], -1)
+                for sc in scenes]
+        self.imgs = [np.roll(base[i % len(base)], 37 * i, axis=1) for i in range(n)]
+        self.mean, self.std = IMAGENET_MEAN, IMAGENET_STD
+        shapes, densities = EVAL_SETS[name]
+        self.targets = {cfg: eval_targets(cfg, n, shapes, d, seed + 7 * j)
+                        for j, (cfg, d) in enumerate(densities.items())}
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, i: int):
+        img = self.imgs[i]
+        return {'imgs': (img - self.mean) / self.std}, {'imgs': img.copy()}, \
+            {'items': str(i), **self.META[self.name], 'errors': ''}
+
+    @staticmethod
+    def collate_fn(items):
+        from slowtv_monodepth_tpu_torch.data import collate_items
+        return collate_items(items)
+
+
+def _sigmoid_err(a: np.ndarray, b: np.ndarray) -> float:
+    """max |a - b| of two exported maps in the units of the network's sigmoid:
+    `export_preds` maps it onto [1 / max_depth, 1 / min_depth]."""
+    span = 1 / KBR_TRAINER_CFG['min_depth'] - 1 / KBR_TRAINER_CFG['max_depth']
+    return float(np.abs(a.astype(np.float64) - b).max() / span)
+
+
+def phase_eval(sd, scenes, smi: str) -> None:
+    """The evaluation chain as `slowtv-export-preds-torch` and `slowtv-eval-depth-torch`
+    run it, on in-memory stand-ins of SYNS-Patches, KITTI and MannequinChallenge
+    (`EvalStandIn`, `EVAL_ITEMS` each): a seeded full-width KBR checkpoint and its
+    `finished` marker; `export_preds.compute_preds` in batches of 12 (and a partial
+    one), every map against the plain path; the fused blocks through a second
+    checkpoint; `MonoDepthEvaluator` with each cfg's args in a Pool of
+    `EVAL_NPROC` and in process, a perfect prediction, and the seconds per item of
+    each metric family at the targets' full size. `smi` is the card's name and power
+    limit, printed beside the times."""
+    from slowtv_monodepth_tpu_torch.core import save_checkpoint
+    from slowtv_monodepth_tpu_torch.eval import MonoDepthEvaluator
+    from slowtv_monodepth_tpu_torch.eval_depth import evaluate as evaluate_depth
+    from slowtv_monodepth_tpu_torch.export_preds import compute_preds, load_predictor, predict
+    from slowtv_monodepth_tpu_torch.models import DepthNet
+    t_phase = time.perf_counter()
+    print(f'eval: on {smi}')
+    n_blocks = sum(CONVNEXT_B_BLOCKS)
+    sets = {name: EvalStandIn(scenes, name, seed=RUN_SEED + i) for i, name in enumerate(EVAL_SETS)}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpts = {}
+        for tag, depth_cfg in (('kernel', KBR_DEPTH_CFG),
+                               ('fused', {**KBR_DEPTH_CFG, 'fused_blocks': True})):
+            ckpts[tag] = Path(tmp) / tag / 'models' / 'last.ckpt'
+            save_checkpoint(ckpts[tag], {'depth': sd}, {'net': {'depth': depth_cfg},
+                                                        'trainer': KBR_TRAINER_CFG})
+        try:
+            compute_preds(None, str(ckpts['kernel']), ds=sets['syns_patches'])
+            fail('eval: export_preds accepted a run without its `finished` marker')
+        except SystemExit:
+            print('eval: export_preds refused the unfinished run (no `finished` marker)')
+        for path in ckpts.values():
+            (path.parent / 'finished').touch()
+
+        def export(tag: str, ds) -> tuple[np.ndarray, dict, float]:
+            _reset_counts()
+            t0 = time.perf_counter()
+            preds = compute_preds(None, str(ckpts[tag]), ds=ds)
+            torch.cuda.synchronize()
+            return preds, _read_counts(), time.perf_counter() - t0
+
+        predictor, net = load_predictor(str(ckpts['kernel']))
+        plain = DepthNet(**KBR_DEPTH_CFG, kernels=False)
+        plain.load_state_dict(net.state_dict())
+        plain = plain.cuda().eval()
+        preds, plains = {}, {}
+        for name, ds in sets.items():
+            preds[name], counts, wall = export('kernel', ds)
+            batches = -(-len(ds) // EVAL_BATCH)
+            want = {**dict.fromkeys(counts, 0), 'dwconv': n_blocks * batches,
+                    'decoder_stage': 2 * batches}
+            if counts != want:
+                fail(f'eval {name}: launches {counts}, expected {want}')
+            plains[name] = predict(predictor, plain, ds, num_workers=0)
+            err = _sigmoid_err(preds[name], plains[name])
+            t0 = time.perf_counter()
+            predict(predictor, net, ds)
+            torch.cuda.synchronize()
+            warm = time.perf_counter() - t0
+            x = np.stack([ds[i][0]['imgs'] for i in range(min(EVAL_BATCH, len(ds)))])
+            x = torch.from_numpy(x).cuda().permute(0, 3, 1, 2).contiguous()
+            with torch.no_grad():
+                t = cuda_ms(lambda: net(x)['disp'][0], iters=3, warmup=1)
+                tp = cuda_ms(lambda: plain(x)['disp'][0], iters=3, warmup=1)
+            ok = (preds[name].shape == (len(ds), ds.h, ds.w) and np.isfinite(preds[name]).all()
+                  and preds[name].std() > 1e-4)
+            print(f'eval export {name}: {len(ds)} items {ds.h}x{ds.w} in {batches} batches of '
+                  f'{EVAL_BATCH}, launches {counts}; first export {wall:.2f} s (checkpoint load '
+                  f'included), warm {len(ds) / warm:.1f} images/s; device ms per batch of '
+                  f'{EVAL_BATCH} (eager): kernel {t.ms:.2f} ({t.eager_ms:.2f}), plain {tp.ms:.2f} '
+                  f'({tp.eager_ms:.2f}); max|kernel - plain| {err:.2e} of the sigmoid '
+                  f'(tol {GOLDEN_ATOL:.0e}); maps {"ok" if ok else "BAD"}')
+            if not ok or not err <= GOLDEN_ATOL:
+                fail(f'eval {name}: maps {preds[name].shape}, off the plain path by {err}')
+            del x
+
+        # A partial last batch (12 + 5) at 192x640, against the plain path.
+        part = EvalStandIn(scenes, 'syns_patches', n=EVAL_PARTIAL, seed=RUN_SEED)
+        got, counts, _ = export('kernel', part)
+        err = _sigmoid_err(got, plains['syns_patches'][:EVAL_PARTIAL])
+        print(f'eval export syns_patches, {EVAL_PARTIAL} items (batches of 12 and 5): launches '
+              f'{counts}; max|kernel - plain| {err:.2e} (tol {GOLDEN_ATOL:.0e})')
+        if (counts['dwconv'], counts['decoder_stage']) != (2 * n_blocks, 4) or not err <= GOLDEN_ATOL:
+            fail(f'eval: the partial batch: launches {counts}, off the plain path by {err}')
+
+        # The fused blocks (kernel 9) through a checkpoint whose cfg turns them on.
+        fused, counts, _ = export('fused', sets['syns_patches'])
+        want = {**dict.fromkeys(counts, 0), 'convnext_block': 2 * n_blocks, 'decoder_stage': 4}
+        err = _sigmoid_err(fused, preds['syns_patches'])
+        print(f'eval export syns_patches, fused blocks: launches {counts}; max|fused - unfused| '
+              f'{err:.2e} (tol {GOLDEN_ATOL:.0e})')
+        if counts != want or not err <= GOLDEN_ATOL:
+            fail(f'eval: fused blocks: launches {counts} (expected {want}), off by {err}')
+    del net, plain
+    torch.cuda.empty_cache()
+
+    # The evaluator, in the process that initialised CUDA: a Pool, then in process.
+    # (`run` prints each mean as a LaTeX table: kept out of this log.)
+    def evaluate(*args, **kw):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return evaluate_depth(*args, **kw)
+
+    for name, ds in sets.items():
+        for cfg, data in ds.targets.items():
+            args = EVAL_ARGS[cfg]
+            t0 = time.perf_counter()
+            mean, items = evaluate(preds[name], data, args, EVAL_ALIGN, nproc=EVAL_NPROC)
+            wall = time.perf_counter() - t0
+            _, serial = evaluate(preds[name], data, args, EVAL_ALIGN, nproc=0,
+                                 max_items=EVAL_SERIAL_ITEMS)
+            if serial != items[:EVAL_SERIAL_ITEMS] or len(items) != len(ds):
+                fail(f'eval {cfg}: nproc=0 gave {serial}, nproc={EVAL_NPROC} {items[:2]}')
+            if not all(np.isfinite(v) for v in mean.values()):
+                fail(f'eval {cfg}: metrics {mean}')
+            _, plain_items = evaluate(plains[name], data, args, EVAL_ALIGN, nproc=EVAL_NPROC,
+                                      max_items=EVAL_PLAIN_ITEMS)
+            cont, steps = (0.0, ''), (0.0, '')
+            for a, b in zip(items, plain_items):
+                for k, v in b.items():
+                    if not isinstance(v, float):
+                        continue
+                    if any(t in k for t in EVAL_THRESHOLDED):
+                        steps = max(steps, (abs(a[k] - v), k))
+                    else:
+                        cont = max(cont, (abs(a[k] - v) / max(abs(v), 1e-12), k))
+            # A perfect prediction: the target's own disparity at its shape (in double),
+            # median-aligned (exact here; lsqr's solve is good to ~1e-7 of the scale).
+            depth = data['depth'][0].astype(np.float32)
+            disp = np.where(depth > 0, 1 / np.maximum(depth.astype(np.float64), 1e-6), 0)
+            best, _ = evaluate(disp[None], {'depth': depth[None], 'K': data['K'][:1]},
+                               {**args, 'metrics': ['eigen', 'pointcloud']}, 'median', nproc=0)
+            ev = MonoDepthEvaluator(align_mode=EVAL_ALIGN, **{k: v for k, v in args.items()
+                                                              if k != 'metrics'})
+            secs = {}
+            for fam in args['metrics']:
+                t1 = time.perf_counter()
+                ev(preds[name][0], depth, [fam], data['K'][0],
+                   data['edge'][0] if fam == 'ibims' else None)
+                secs[fam] = time.perf_counter() - t1
+            ragged = 'object array, ' if data['depth'].dtype == object else ''
+            shown = [k for k in ('AbsRel', 'RMSE', 'F-Score (10)', 'Chamfer') if k in mean]
+            print(f'eval {cfg} ({name} stand-in, targets {depth.shape} ({ragged}'
+                  f'{100 * (depth > 0).mean():.0f}% valid), align {EVAL_ALIGN}): '
+                  f'{len(items)} items, nproc={EVAL_NPROC} {wall:.1f} s; nproc=0 on the first {EVAL_SERIAL_ITEMS} '
+                  f'items equal; ' + ', '.join(f'{k} {mean[k]:.4g}' for k in shown)
+                  + f'; kernel vs plain predictions over {EVAL_PLAIN_ITEMS} items: continuous '
+                  f'metrics {cont[0]:.2e} relative ({cont[1]}), thresholded {steps[0]:.4f} '
+                  f'points ({steps[1]}); perfect prediction (median) AbsRel {best["AbsRel"]:.2e}, '
+                  f'F-Score (10) {best["F-Score (10)"]:.4f}; '
+                  f'evaluator s/item at the target\'s full size: '
+                  + ', '.join(f'{k} {v:.3f}' for k, v in secs.items()))
+            if not best['AbsRel'] < 1e-6 or not abs(best['F-Score (10)'] - 100) < 1e-3:
+                fail(f'eval {cfg}: a perfect prediction scored {best}')
+    print(f'eval: phase wall {time.perf_counter() - t_phase:.1f} s')
+
+
 def profile_train(out: Path = ROOT / 'build' / 'train_profile.txt',
                   matmul: str = 'highest', fused_blocks: bool = False) -> None:
     """Where the KBR micro-step's device time goes (not part of `main`).
@@ -2208,7 +2487,7 @@ def profile_train(out: Path = ROOT / 'build' / 'train_profile.txt',
 
 def main() -> None:
     t0 = time.perf_counter()
-    phase_device()
+    smi = phase_device()
     phase_build()
     kern = phase_kernels()
     sd = phase_golden()
@@ -2228,6 +2507,7 @@ def main() -> None:
     phase_published_run(scenes)
     phase_optimizers(scenes)
     phase_train_dev(scenes)
+    phase_eval(sd, scenes, smi)
     sources = {'dwconv': ('dwconv.cu', 'pallas_dwconv.py:59'),
                'decoder_stage': ('decoder_stage.cu', 'pallas_decoder.py:249'),
                'decoder_stage_bwd': ('decoder_stage_bwd.cu', 'pallas_decoder.py:268'),

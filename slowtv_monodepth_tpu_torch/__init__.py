@@ -11,7 +11,9 @@ training step (`core.trainer.MonoDepthTrainer`, `parsers.make_optimizer`:
 depth and pose nets, view synthesis, the photometric and smoothness losses,
 AdamW with gradient accumulation) and the training run around it
 (`train` -> `core.loop.MonoDepthLoop`: loader, on-device input derivation,
-aspect-ratio augmentation, validation, last/best checkpoints, resume). Each
+aspect-ratio augmentation, validation, last/best checkpoints, resume) and
+evaluation (`export_gt` -> `export_preds` -> `eval_depth` ->
+`generate_tables`, with `eval.MonoDepthEvaluator` on numpy and scipy). Each
 TPU kernel on those paths has a hand-written Hopper kernel in `csrc/`, built
 with nvcc at first use (`_build.py`): the depthwise conv and its tap gradient
 (`ops.dwconv`), the fused decoder stage forward and backward

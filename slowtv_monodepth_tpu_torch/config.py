@@ -11,9 +11,10 @@ from __future__ import annotations
 
 import copy
 from pathlib import Path
-from typing import Union
+from typing import Any, Union
 
-__all__ = ['load_yaml', 'save_yaml', 'merge_dicts', 'load_merge_yaml']
+__all__ = ['load_yaml', 'save_yaml', 'merge_dicts', 'load_merge_yaml', 'strip_none_components',
+           'get_nested']
 
 PathLike = Union[str, Path]
 
@@ -53,3 +54,18 @@ def load_merge_yaml(*paths: PathLike) -> dict:
     for p in paths:
         cfg = merge_dicts(cfg, load_yaml(p))
     return cfg
+
+
+def strip_none_components(cfg: dict) -> dict:
+    """Drop top-level component entries set to None (the `~` deletion idiom)."""
+    return {k: v for k, v in cfg.items() if v is not None}
+
+
+def get_nested(cfg: dict, dotted: str, default: Any = None) -> Any:
+    """Fetch `a.b.c` style keys from a nested dict."""
+    cur: Any = cfg
+    for part in dotted.split('.'):
+        if not isinstance(cur, dict) or part not in cur:
+            return default
+        cur = cur[part]
+    return cur

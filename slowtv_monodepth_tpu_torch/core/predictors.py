@@ -1,14 +1,17 @@
-"""Dataset-level depth predictor for this framework's checkpoints (PyTorch).
+"""Dataset-level depth predictors (PyTorch).
 
-Counterpart of `slowtv_monodepth_tpu/core/predictors.py:MonoDepthPredictor`
-and `BenchmarkPredictor`, single device (no mesh): preprocess -> forward ->
-postprocess -> (optional flip-blend) per batch, with the all-zero
-prediction check. Batches arrive as NHWC
-numpy arrays (the data loaders' layout) and leave as NHWC numpy arrays;
-the network runs on NCHW tensors on `device`.
+Counterpart of `slowtv_monodepth_tpu/core/predictors.py`, single device (no
+mesh; the mesh paths are ROADMAP A11): preprocess -> forward -> postprocess ->
+(optional flip-blend) per batch, the per-dataset input-shape table, `apply`
+for per-batch consumers, the 4-D and all-zero prediction checks, and the
+predictor registry (`registry.PRED_REG`: 'ours'; 'midas' and 'newcrfs' are
+registered, but their networks are not ported). Batches arrive as NHWC
+numpy arrays (the data loaders' layout) and leave as NHWC numpy arrays; the
+network runs on NCHW tensors on `device`.
 """
 from __future__ import annotations
 
+from abc import ABC, abstractmethod
 from typing import Callable
 
 import numpy as np
@@ -16,20 +19,26 @@ import torch
 
 from ..models import DepthNet
 from ..ops import blend_stereo, to_scaled
+from ..registry import register
 from .checkpoint import load_checkpoint, net_state_dict
 
-__all__ = ['MonoDepthPredictor', 'BenchmarkPredictor']
+__all__ = ['MonoDepthPredictor', 'BenchmarkPredictor', 'MidasPredictor', 'NewcrfsPredictor']
 
 
-class MonoDepthPredictor:
+class MonoDepthPredictor(ABC):
     """Base predictor: preprocess -> forward -> postprocess over a loader."""
 
     def __init__(self, device='cuda'):
         self.device = torch.device(device)
 
+    @abstractmethod
     def load_model(self, *args, **kwargs) -> Callable:
         """Load a pretrained model; returns a callable imgs -> raw prediction."""
-        raise NotImplementedError
+
+    @staticmethod
+    def get_img_shape(data_type: str):
+        """Per-dataset input shape (None = native)."""
+        return None
 
     def preprocess(self, imgs: np.ndarray) -> np.ndarray:
         return imgs
@@ -53,6 +62,16 @@ class MonoDepthPredictor:
         pred = self.postprocess(pred, x['imgs'])
         return pred.permute(0, 2, 3, 1).cpu().numpy()
 
+    def apply(self, net: Callable, dl, func: Callable,
+              use_stereo_blend: bool = False, *args, **kwargs) -> None:
+        """Run over the loader, applying `func(batch, pred, ...)` per batch
+        (ref `predictors.py:88-114`)."""
+        for batch in dl:
+            pred = self.forward_batch(batch[0], net, use_stereo_blend)
+            if pred.ndim != 4:
+                raise ValueError(f'Prediction must be 4-D, got {pred.shape}!')
+            func(batch, pred, *args, **kwargs)
+
     def __call__(self, net: Callable, dl, use_stereo_blend: bool = False) -> np.ndarray:
         """Predict the whole dataset -> (n, h, w) array."""
         ds = dl.dataset
@@ -60,6 +79,8 @@ class MonoDepthPredictor:
         i = 0
         for x, *_ in dl:
             pred = self.forward_batch(x, net, use_stereo_blend)
+            if pred.ndim != 4:
+                raise ValueError(f'Prediction must be 4-D, got {pred.shape}!')
             preds[i:i + len(pred)] = pred
             i += len(pred)
         sanity = preds.reshape(len(preds), -1).sum(1)
@@ -68,8 +89,26 @@ class MonoDepthPredictor:
         return preds.squeeze(-1)
 
 
+@register('ours', type='pred')
 class BenchmarkPredictor(MonoDepthPredictor):
     """Predictor for this framework's (and the reference's) checkpoints."""
+
+    @staticmethod
+    def get_img_shape(data_type: str) -> tuple:
+        """Fixed width 640 (mapfree portrait 384), height per dataset."""
+        return {
+            'ddad': (416, 640),
+            'diode': (480, 640),
+            'kitti': (192, 640),
+            'kitti_lmdb': (192, 640),
+            'mannequin': (384, 640),
+            'mannequin_lmdb': (384, 640),
+            'mapfree': (512, 384),
+            'nyud': (480, 640),
+            'sintel': (288, 640),
+            'syns_patches': (192, 640),
+            'tum': (480, 640),
+        }[data_type]
 
     def load_model(self, ckpt_file, cfg_files=None) -> DepthNet:
         """Rebuild the depth net from a checkpoint's embedded cfg, on
@@ -93,3 +132,20 @@ class BenchmarkPredictor(MonoDepthPredictor):
         if self.min_depth or self.max_depth:
             pred = to_scaled(pred, min=0.1, max=100)[0]
         return pred
+
+
+@register('midas', type='pred')
+class MidasPredictor(MonoDepthPredictor):
+    """The MiDaS/DPT baseline (ref `:254-284`): its network is ROADMAP A10."""
+
+    def load_model(self, name: str) -> Callable:
+        raise NotImplementedError(f'MiDaS "{name}" is not ported yet; ROADMAP queue A item 10.')
+
+
+@register('newcrfs', type='pred')
+class NewcrfsPredictor(MonoDepthPredictor):
+    """The NeWCRFs baseline (ref `:212-249`): its network is ROADMAP A10."""
+
+    def load_model(self, scene_type: str) -> Callable:
+        raise NotImplementedError(f'NeWCRFs "{scene_type}" is not ported yet; '
+                                  'ROADMAP queue A item 10.')

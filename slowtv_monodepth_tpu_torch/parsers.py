@@ -86,8 +86,9 @@ def get_ds(cfg: dict, mode: Optional[str] = None) -> dict:
             raise TypeError(f"Expected dict of dicts. Got '{kw}'.")
         if t not in DATA_REG:
             raise NotImplementedError(f'Dataset "{t}" is not ported yet (have {sorted(DATA_REG)}); '
-                                      'ROADMAP queue A item 8 for the evaluation datasets, '
-                                      'item 9 for the rest.')
+                                      'ROADMAP queue A item 8b for the evaluation datasets '
+                                      '(ddad, diode, nyud, sintel, tum, mapfree), item 9 for '
+                                      'the rest.')
         c = {k: v for k, v in kw.items() if k not in _MODES}
         if mode:
             c.update(kw.get(mode, {}))

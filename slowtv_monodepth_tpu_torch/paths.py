@@ -3,14 +3,15 @@
 Equivalent to the reference's `src/paths.py:18-113`: optional user-provided
 roots in a repo-level `PATHS.yaml` take priority over the repo-relative
 defaults. Copy of what the port uses of `slowtv_monodepth_tpu/paths.py` (the
-roots and the lazy dataset paths); yaml is imported only when a `PATHS.yaml` exists.
+roots, the lazy dataset paths, `find_data_dir` and `find_model_file`); yaml is imported only when a `PATHS.yaml` exists.
 """
 from __future__ import annotations
 
 import os
 from pathlib import Path
 
-__all__ = ['REPO_ROOT', 'MODEL_ROOTS', 'DATA_ROOTS', 'DATA_PATHS']
+__all__ = ['REPO_ROOT', 'MODEL_ROOTS', 'DATA_ROOTS', 'DATA_PATHS', 'find_data_dir',
+           'find_model_file']
 
 REPO_ROOT = Path(__file__).resolve().parent.parent
 
@@ -49,6 +50,7 @@ DATASET_NAMES = {
     'mannequin_lmdb': 'MannequinChallenge_lmdb',
     'slow_tv': 'slow_tv',
     'slow_tv_lmdb': 'slow_tv_lmdb',
+    'syns_patches': 'syns_patches',
 }
 
 
@@ -86,3 +88,21 @@ class _LazyPaths(dict):
 
 
 DATA_PATHS = _LazyPaths(DATASET_NAMES, lambda: DATA_ROOTS)
+
+
+def find_data_dir(name: str) -> Path:
+    """Return the first existing `<root>/<name>` data directory."""
+    for root in DATA_ROOTS:
+        d = root / name
+        if d.is_dir():
+            return d
+    raise FileNotFoundError(f'Data dir "{name}" not found in any root: {DATA_ROOTS}')
+
+
+def find_model_file(name: str) -> Path:
+    """Return the first existing `<root>/<name>` model file or directory."""
+    for root in MODEL_ROOTS:
+        f = root / name
+        if f.exists():
+            return f
+    raise FileNotFoundError(f'Model "{name}" not found in any root: {MODEL_ROOTS}')

@@ -207,8 +207,8 @@ def test_threaded_loader_yields_the_same_items(slowtv_root):
 
 
 def test_unported_dataset_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match='ROADMAP queue A item 8'):
-        parsers.get_ds({'syns_patches': {'split': 'val'}}, 'train')
+    with pytest.raises(NotImplementedError, match='ROADMAP queue A item 8b'):
+        parsers.get_ds({'ddad': {'mode': 'val'}}, 'train')
 
 
 def test_config_copy_merges_like_the_original(tmp_path):

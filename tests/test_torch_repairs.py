@@ -233,9 +233,10 @@ def test_a_tpu_recipe_depth_cfg_builds_and_serves_the_same_maps():
 
 # --------------------------------------------------------------------- 7. message
 def test_an_unported_dataset_names_roadmap_item_a7():
-    """A7 ported the recipe's datasets; an evaluation dataset now names A8."""
-    with pytest.raises(NotImplementedError, match='queue A item 8 for the evaluation datasets'):
-        parsers.get_ds({'syns_patches': {'split': 'val'}})
+    """A7 ported the recipe's datasets and A8a SYNS-Patches; an evaluation
+    dataset still missing names A8b."""
+    with pytest.raises(NotImplementedError, match='queue A item 8b for the evaluation datasets'):
+        parsers.get_ds({'ddad': {'mode': 'val'}})
 
 
 # --------------------------------------------------------------------- 9. logger
