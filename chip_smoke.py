@@ -120,7 +120,7 @@ Phases, in order; any failure exits non-zero and prints no result:
 14. train_dev: `train_dev.DevLoop` (`slowtv-train-dev-torch`), 1 epoch x 2 batches.
 15. eval: the evaluation chain as `slowtv-export-preds-torch` and
    `slowtv-eval-depth-torch` run it, on in-memory stand-ins of SYNS-Patches,
-   KITTI and MannequinChallenge (`EvalStandIn`, 24 items each, at the
+   KITTI and MannequinChallenge (`EvalStandIn`, 12 items each, at the
    predictor's shapes 192x640 and 384x640; targets at the sources' full size,
    376x1242, KITTI's drive sizes as an object array, 720x1280; held to the
    real datasets' layouts by `tests/test_torch_eval_api.py`): a seeded KBR
@@ -135,6 +135,23 @@ Phases, in order; any failure exits non-zero and prints no result:
    the kernel and plain predictions' metrics; a perfect prediction (AbsRel <
    1e-6, F-Score (10) 100 less its 1e-5 guard); seconds per item of each
    metric family.
+16. eval zero-shot: the same chain on stand-ins of DDAD, DIODE, NYUD-v2, Sintel and
+   TUM-RGBD (12 items each, one batch of 12, at the predictor's shapes 416x640,
+   480x640 and 288x640: stage-4 maps of 13, 15 and 9 rows; targets at the sources'
+   full size, 1216x1936 at 5% valid, 768x1024, 480x640, 436x1024, 480x640): 36 dwconv
+   + 2 decoder_stage launches per forward, every map within GOLDEN_ATOL of the plain
+   path, the DDAD stand-in also through the `fused_blocks` checkpoint (36
+   convnext_block per forward); `MonoDepthEvaluator` with the args of `ddad`,
+   `diode_indoors`, `diode_outdoor`, `nyud` (its crop), `sintel` and `tum` in a Pool
+   of 4, the first item in process family by family (timed) equal to the Pool's, and
+   a median-aligned perfect prediction per cfg (AbsRel < 1e-6; F-Score (10) 100 where
+   the cfg has K). Then `mapfree_preds.compute_preds` on a MapFreeReloc stand-in (16
+   portrait 512x384 frames, one batch, the maps within GOLDEN_ATOL of the plain path;
+   720x540 DPT targets made from the kernel path's own maps, affine in disparity): the
+   PNGs it writes through `utils/png.py` into a temporary tree, read back here by a
+   numpy PNG decoder (CRCs, IHDR, 720x540 uint16), every depth positive, within 1 mm
+   of the host path on the same maps; their median relative error to the targets
+   printed. Device ms per batch, images/s and seconds per item of each metric family.
 Every time is a device time (`cuda_ms`: the calls captured into one CUDA
 graph, CUDA events around one replay) with the eager time beside it. The last
 two lines are a JSON object per kernel and the contract line
@@ -283,7 +300,7 @@ BF16_LOSS_RTOL = 5e-3  # first-step loss, bfloat16 warp sources (8 mantissa bits
 # twice the plain version's own float32 error against float64, plus:
 PHOTO_ATOL = 1e-5      # of the error map (in [0, 1])
 PHOTO_BWD_RTOL = 1e-5  # of the largest |gradient|
-EVAL_ITEMS = 24         # per evaluation stand-in
+EVAL_ITEMS = 12         # per evaluation stand-in: one batch; keeps the whole script near 600 s
 EVAL_BATCH = 12         # `export_preds`' batch size
 EVAL_PARTIAL = 17       # one more SYNS export: a batch of 12 and a partial one of 5
 EVAL_NPROC = 4          # the evaluator's Pool
@@ -294,7 +311,16 @@ EVAL_SETS = {  # stand-in -> (source shapes, cycled over the items; target densi
     'syns_patches': (((376, 1242),), {'syns_test': 0.7}),
     'kitti': (((375, 1242), (370, 1224), (374, 1238), (376, 1241)),  # KITTI's drive sizes
               {'kitti_eigen': 0.04, 'kitti_eigen_benchmark': 0.15}),  # raw velodyne, benchmark
-    'mannequin': (((720, 1280),), {'mc': 0.5})}
+    'mannequin': (((720, 1280),), {'mc': 0.5}),
+    # Phase 16 (zero-shot): each dataset's SHAPE; DDAD's LiDAR sparse, DIODE's valid mask
+    'ddad': (((1216, 1936),), {'ddad': 0.05}),
+    'diode': (((768, 1024),), {'diode_indoors': 0.9, 'diode_outdoor': 0.9}),
+    'nyud': (((480, 640),), {'nyud': 1.0}),
+    'sintel': (((436, 1024),), {'sintel': 1.0}),
+    'tum': (((480, 640),), {'tum': 0.8})}
+EVAL_A8A_SETS = ('syns_patches', 'kitti', 'mannequin')  # phase 15's
+ZERO_SHOT_SETS = ('ddad', 'diode', 'nyud', 'sintel', 'tum')  # phase 16's
+NO_K_CFGS = ('diode_indoors', 'diode_outdoor', 'nyud', 'tum')  # their datasets have no K
 EVAL_ARGS = {  # cfg/eval/<name>.yaml `args` (no yaml on the card)
     'syns_test': {'min': 0.001, 'max': 100, 'use_eigen_crop': False,
                   'metrics': ['eigen', 'benchmark', 'pointcloud', 'ibims']},
@@ -303,7 +329,19 @@ EVAL_ARGS = {  # cfg/eval/<name>.yaml `args` (no yaml on the card)
     'kitti_eigen_benchmark': {'min': 0.001, 'max': 100, 'use_eigen_crop': False,
                               'metrics': ['eigen', 'benchmark', 'pointcloud']},
     'mc': {'min': 0.001, 'max': 100, 'use_eigen_crop': False,
-           'metrics': ['eigen', 'benchmark', 'pointcloud']}}
+           'metrics': ['eigen', 'benchmark', 'pointcloud']},
+    'ddad': {'min': 0.001, 'max': 250, 'use_eigen_crop': False,
+             'metrics': ['eigen', 'benchmark', 'pointcloud']},
+    'diode_indoors': {'min': 0.001, 'max': 150, 'use_eigen_crop': False,
+                      'metrics': ['eigen', 'benchmark']},
+    'diode_outdoor': {'min': 0.001, 'max': 150, 'use_eigen_crop': False,
+                      'metrics': ['eigen', 'benchmark']},
+    'nyud': {'min': 0.001, 'max': 100, 'use_eigen_crop': False, 'use_nyud_crop': True,
+             'metrics': ['eigen', 'benchmark']},
+    'sintel': {'min': 0.001, 'max': 100, 'use_eigen_crop': False,
+               'metrics': ['eigen', 'benchmark', 'pointcloud']},
+    'tum': {'min': 0.001, 'max': 100, 'use_eigen_crop': False,
+            'metrics': ['eigen', 'benchmark']}}
 EVAL_ALIGN = 'lsqr'     # `slowtv-eval-depth-torch`'s default
 # Kernel 7's map at the KBR step's two photometric shapes on
 # `tools/photo_bench.digest_inputs`, as its parent checkout (f3a8e85) gave it on an
@@ -2167,8 +2205,9 @@ def phase_train_dev(scenes) -> None:
 def eval_targets(cfg_name: str, n: int, shapes, density: float, seed: int) -> dict:
     """Synthetic targets of an eval cfg as `export_gt` writes them (`targets_test.npz`),
     at the sources' full size: depth (a ground plane rising to the horizon, objects,
-    `density` of the pixels measured, the rest 0) and K; SYNS-Patches also its edge
-    maps and categories; KITTI's depths an object array (the drives' sizes differ)."""
+    `density` of the pixels measured, the rest 0) and K (not for the datasets without
+    intrinsics, `NO_K_CFGS`); SYNS-Patches also its edge maps
+    and categories; KITTI's depths an object array (the drives' sizes differ)."""
     rs = np.random.RandomState(seed)
     depths, Ks, edges = [], [], []
     for i in range(n):
@@ -2178,7 +2217,9 @@ def eval_targets(cfg_name: str, n: int, shapes, density: float, seed: int) -> di
         depth = (depth * (1 + 0.02 * rs.rand(h, w))).astype(np.float32)
         depth[rs.rand(h, w) >= density] = 0
         depths.append(depth)
-        if cfg_name.startswith('kitti'):
+        if cfg_name in NO_K_CFGS:
+            pass
+        elif cfg_name.startswith('kitti'):
             Ks.append(np.array([[721.5377, 0, 609.5593], [0, 721.5377, 172.854], [0, 0, 1]],
                                np.float32))
         else:
@@ -2190,7 +2231,9 @@ def eval_targets(cfg_name: str, n: int, shapes, density: float, seed: int) -> di
             edge[h // 2] = True
             edges.append(edge)
     data = {'depth': (np.array(depths, dtype=object) if len({d.shape for d in depths}) > 1
-                      else np.stack(depths)), 'K': np.stack(Ks)}
+                      else np.stack(depths))}
+    if Ks:
+        data['K'] = np.stack(Ks)
     if edges:
         data.update(edge=np.stack(edges),
                     cat=np.array([('Natural', 'Urban')[i % 2] for i in range(n)]),
@@ -2208,18 +2251,11 @@ class EvalStandIn:
 
     META = {'syns_patches': {'cat': 'Natural', 'subcat': 'Woodland'},
             'kitti': {'stem': '2011_09_26/2011_09_26_drive_0002_sync/image_02/0000000069'},
-            'mannequin': {'seq': '00c2a6b1bcb0fb9e'}}
+            'mannequin': {'seq': '00c2a6b1bcb0fb9e'},
+            'ddad': {}, 'diode': {}, 'nyud': {}, 'sintel': {}, 'tum': {}}
 
     def __init__(self, scenes, name: str, n: int = EVAL_ITEMS, seed: int = 0):
-        from slowtv_monodepth_tpu_torch.core import BenchmarkPredictor
-        from slowtv_monodepth_tpu_torch.data import IMAGENET_MEAN, IMAGENET_STD
-        from slowtv_monodepth_tpu_torch.utils.resize import resize
-        self.name, self.n = name, n
-        self.h, self.w = BenchmarkPredictor.get_img_shape(name)
-        base = [np.stack([resize(sc[..., c], (self.h, self.w)) for c in range(3)], -1)
-                for sc in scenes]
-        self.imgs = [np.roll(base[i % len(base)], 37 * i, axis=1) for i in range(n)]
-        self.mean, self.std = IMAGENET_MEAN, IMAGENET_STD
+        self._frames(scenes, name, n)
         shapes, densities = EVAL_SETS[name]
         self.targets = {cfg: eval_targets(cfg, n, shapes, d, seed + 7 * j)
                         for j, (cfg, d) in enumerate(densities.items())}
@@ -2232,10 +2268,59 @@ class EvalStandIn:
         return {'imgs': (img - self.mean) / self.std}, {'imgs': img.copy()}, \
             {'items': str(i), **self.META[self.name], 'errors': ''}
 
+    def _frames(self, scenes, name: str, n: int) -> None:
+        """`n` frames of `scenes` at the predictor's input shape for `name`."""
+        from slowtv_monodepth_tpu_torch.core import BenchmarkPredictor
+        from slowtv_monodepth_tpu_torch.data import IMAGENET_MEAN, IMAGENET_STD
+        from slowtv_monodepth_tpu_torch.utils.resize import resize
+        self.name, self.n = name, n
+        self.h, self.w = BenchmarkPredictor.get_img_shape(name)
+        base = [np.stack([resize(sc[..., c], (self.h, self.w)) for c in range(3)], -1)
+                for sc in scenes]
+        self.imgs = [np.roll(base[i % len(base)], 37 * i, axis=1) for i in range(n)]
+        self.mean, self.std = IMAGENET_MEAN, IMAGENET_STD
+
     @staticmethod
     def collate_fn(items):
         from slowtv_monodepth_tpu_torch.data import collate_items
         return collate_items(items)
+
+
+class MapFreeStandIn(EvalStandIn):
+    """In-memory stand-in for `MapFreeRelocDataset` as `mapfree_preds` builds it
+    (datum 'image depth', portrait 512x384), one batch of frames: in y the DPT depth
+    target of each frame at the dataset's SHAPE 720x540, once `fit_targets` has
+    made them; in m the frame's mode, scene, seq and stem (the PNG's path under
+    `paths.DATA_PATHS['mapfree']`). `tests/test_torch_mapfree.py` holds the layout
+    to the real dataset's."""
+
+    SHAPE = (720, 540)
+
+    def __init__(self, scenes):
+        from slowtv_monodepth_tpu_torch.mapfree_preds import BATCH_SIZE
+        self._frames(scenes, 'mapfree', BATCH_SIZE)
+        self.depths = None
+
+    def fit_targets(self, disp: np.ndarray) -> None:
+        """The targets from the maps `disp` predicted for these frames: each upsampled
+        to SHAPE and mapped affinely in disparity onto 1-80 m, so that the lsqr
+        alignment of `mapfree_preds` recovers them as far as a random net's nearly
+        flat maps let it (its 2 x 2 system is ill-conditioned)."""
+        from slowtv_monodepth_tpu_torch.utils.resize import resize
+        self.depths = []
+        for d in disp:
+            up = resize(d, self.SHAPE, 'bilinear').astype(np.float64)
+            u = (up - up.min()) / (up.max() - up.min())
+            self.depths.append((1 / (1 / 80 + u * (1 - 1 / 80))).astype(np.float32))
+
+    def __getitem__(self, i: int):
+        img = self.imgs[i]
+        y = {'imgs': img.copy()}
+        if self.depths is not None:  # predicting the maps for `fit_targets` needs none
+            y['depth'] = self.depths[i][..., None]
+        return {'imgs': (img - self.mean) / self.std}, y, \
+            {'items': str(i), 'mode': 'val', 'scene': f's{i // 8:05}', 'seq': 'seq0',
+             'stem': f'frame_{i % 8:05}', 'errors': ''}
 
 
 def _sigmoid_err(a: np.ndarray, b: np.ndarray) -> float:
@@ -2263,7 +2348,8 @@ def phase_eval(sd, scenes, smi: str) -> None:
     t_phase = time.perf_counter()
     print(f'eval: on {smi}')
     n_blocks = sum(CONVNEXT_B_BLOCKS)
-    sets = {name: EvalStandIn(scenes, name, seed=RUN_SEED + i) for i, name in enumerate(EVAL_SETS)}
+    sets = {name: EvalStandIn(scenes, name, seed=RUN_SEED + i)
+            for i, name in enumerate(EVAL_A8A_SETS)}
 
     with tempfile.TemporaryDirectory() as tmp:
         ckpts = {}
@@ -2325,7 +2411,7 @@ def phase_eval(sd, scenes, smi: str) -> None:
         # A partial last batch (12 + 5) at 192x640, against the plain path.
         part = EvalStandIn(scenes, 'syns_patches', n=EVAL_PARTIAL, seed=RUN_SEED)
         got, counts, _ = export('kernel', part)
-        err = _sigmoid_err(got, plains['syns_patches'][:EVAL_PARTIAL])
+        err = _sigmoid_err(got, predict(predictor, plain, part, num_workers=0))
         print(f'eval export syns_patches, {EVAL_PARTIAL} items (batches of 12 and 5): launches '
               f'{counts}; max|kernel - plain| {err:.2e} (tol {GOLDEN_ATOL:.0e})')
         if (counts['dwconv'], counts['decoder_stage']) != (2 * n_blocks, 4) or not err <= GOLDEN_ATOL:
@@ -2333,7 +2419,9 @@ def phase_eval(sd, scenes, smi: str) -> None:
 
         # The fused blocks (kernel 9) through a checkpoint whose cfg turns them on.
         fused, counts, _ = export('fused', sets['syns_patches'])
-        want = {**dict.fromkeys(counts, 0), 'convnext_block': 2 * n_blocks, 'decoder_stage': 4}
+        batches = -(-len(sets['syns_patches']) // EVAL_BATCH)
+        want = {**dict.fromkeys(counts, 0), 'convnext_block': n_blocks * batches,
+                'decoder_stage': 2 * batches}
         err = _sigmoid_err(fused, preds['syns_patches'])
         print(f'eval export syns_patches, fused blocks: launches {counts}; max|fused - unfused| '
               f'{err:.2e} (tol {GOLDEN_ATOL:.0e})')
@@ -2401,6 +2489,213 @@ def phase_eval(sd, scenes, smi: str) -> None:
                 fail(f'eval {cfg}: a perfect prediction scored {best}')
     print(f'eval: phase wall {time.perf_counter() - t_phase:.1f} s')
 
+
+
+def read_png16(path: Path) -> np.ndarray:
+    """A 16-bit greyscale PNG as `utils/png.py` writes it -> (h, w) uint16, decoded
+    here in numpy (no PIL or cv2 on the card's machine): the signature, every chunk's
+    CRC, IHDR (bit depth 16, colour type 0, no interlace), the IDAT stream inflated,
+    each row's filter byte (0: none)."""
+    import struct
+    import zlib
+    data = Path(path).read_bytes()
+    if data[:8] != b'\x89PNG\r\n\x1a\n':
+        fail(f'mapfree: {path} is not a PNG')
+    pos, chunks = 8, {}
+    while pos < len(data):
+        n, tag = struct.unpack('>I4s', data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if struct.unpack('>I', data[pos + 8 + n:pos + 12 + n])[0] != zlib.crc32(tag + body):
+            fail(f'mapfree: {path}: bad CRC of {tag}')
+        chunks.setdefault(tag, []).append(body)
+        pos += 12 + n
+    w, h, depth, colour, _, _, interlace = struct.unpack('>IIBBBBB', chunks[b'IHDR'][0])
+    if (depth, colour, interlace) != (16, 0, 0) or b'IEND' not in chunks:
+        fail(f'mapfree: {path}: IHDR {w}x{h} depth {depth} colour {colour}')
+    rows = np.frombuffer(zlib.decompress(b''.join(chunks[b'IDAT'])), np.uint8).reshape(h, -1)
+    if rows.shape[1] != 1 + 2 * w or rows[:, 0].any():
+        fail(f'mapfree: {path}: rows {rows.shape}, filters {np.unique(rows[:, 0])}')
+    return rows[:, 1:].copy().view('>u2').astype(np.uint16)
+
+
+def phase_eval_zero_shot(sd, scenes, smi: str) -> None:
+    """Zero-shot evaluation (phase 16) as `slowtv-export-preds-torch`,
+    `slowtv-eval-depth-torch` and `slowtv-mapfree-preds-torch` run it, on in-memory
+    stand-ins of DDAD, DIODE, NYUD-v2, Sintel and TUM-RGBD (`EVAL_ITEMS` each: one
+    batch of `export_preds`) and of MapFreeReloc (one batch of `mapfree_preds`): the
+    input shapes new to kernels 1, 3 and 9 (416x640, 480x640, 288x640, 512x384) at the
+    batches the entry points feed them, every map against the plain path,
+    the evaluator with each cfg's args and a perfect prediction, and the PNGs that
+    `mapfree_preds` writes read back. `smi` is the card's name and power limit,
+    printed beside the times."""
+    from slowtv_monodepth_tpu_torch import mapfree_preds, paths
+    from slowtv_monodepth_tpu_torch.core import save_checkpoint
+    from slowtv_monodepth_tpu_torch.eval import MonoDepthEvaluator
+    from slowtv_monodepth_tpu_torch.eval_depth import evaluate as evaluate_depth
+    from slowtv_monodepth_tpu_torch.export_preds import compute_preds, load_predictor, predict
+    from slowtv_monodepth_tpu_torch.models import DepthNet
+    t_phase = time.perf_counter()
+    print(f'eval zero-shot: on {smi}')
+    n_blocks = sum(CONVNEXT_B_BLOCKS)
+    sets = {name: EvalStandIn(scenes, name, seed=RUN_SEED + 10 + i)
+            for i, name in enumerate(ZERO_SHOT_SETS)}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpts = {}
+        for tag, depth_cfg in (('kernel', KBR_DEPTH_CFG),
+                               ('fused', {**KBR_DEPTH_CFG, 'fused_blocks': True})):
+            ckpts[tag] = Path(tmp) / tag / 'models' / 'last.ckpt'
+            save_checkpoint(ckpts[tag], {'depth': sd}, {'net': {'depth': depth_cfg},
+                                                        'trainer': KBR_TRAINER_CFG})
+            (ckpts[tag].parent / 'finished').touch()
+
+        def export(tag: str, ds) -> tuple[np.ndarray, dict]:
+            _reset_counts()
+            preds = compute_preds(None, str(ckpts[tag]), ds=ds)
+            torch.cuda.synchronize()
+            return preds, _read_counts()
+
+        def device_ms(ds, b: int) -> tuple[Timing, Timing]:
+            x = np.stack([ds[i][0]['imgs'] for i in range(b)])
+            x = torch.from_numpy(x).cuda().permute(0, 3, 1, 2).contiguous()
+            with torch.no_grad():
+                return (cuda_ms(lambda: net(x)['disp'][0], iters=3, warmup=1),
+                        cuda_ms(lambda: plain(x)['disp'][0], iters=3, warmup=1))
+
+        predictor, net = load_predictor(str(ckpts['kernel']))
+        plain = DepthNet(**KBR_DEPTH_CFG, kernels=False)
+        plain.load_state_dict(net.state_dict())
+        plain = plain.cuda().eval()
+        preds = {}
+        for name, ds in sets.items():
+            preds[name], counts = export('kernel', ds)
+            want = {**dict.fromkeys(counts, 0), 'dwconv': n_blocks, 'decoder_stage': 2}
+            if counts != want:
+                fail(f'eval zero-shot {name}: launches {counts}, expected {want}')
+            err = _sigmoid_err(preds[name], predict(predictor, plain, ds, num_workers=0))
+            t0 = time.perf_counter()
+            predict(predictor, net, ds)
+            torch.cuda.synchronize()
+            warm = time.perf_counter() - t0
+            t, tp = device_ms(ds, len(ds))
+            ok = (preds[name].shape == (len(ds), ds.h, ds.w) and np.isfinite(preds[name]).all()
+                  and preds[name].std() > 1e-4)
+            print(f'eval zero-shot export {name}: {len(ds)} items {ds.h}x{ds.w} (stage-4 map '
+                  f'{ds.h // 32}x{ds.w // 32}) in 1 batch, launches {counts}; warm '
+                  f'{len(ds) / warm:.1f} images/s; device ms per batch of {len(ds)} (eager): '
+                  f'kernel {t.ms:.2f} ({t.eager_ms:.2f}), plain {tp.ms:.2f} ({tp.eager_ms:.2f}); '
+                  f'max|kernel - plain| {err:.2e} of the sigmoid (tol {GOLDEN_ATOL:.0e}); maps '
+                  f'{"ok" if ok else "BAD"}')
+            if not ok or not err <= GOLDEN_ATOL:
+                fail(f'eval zero-shot {name}: maps {preds[name].shape}, off the plain path by '
+                     f'{err}')
+
+        # The fused blocks (kernel 9) at DDAD's 416x640: 13-row stage-4 maps.
+        fused, counts = export('fused', sets['ddad'])
+        want = {**dict.fromkeys(counts, 0), 'convnext_block': n_blocks, 'decoder_stage': 2}
+        err = _sigmoid_err(fused, preds['ddad'])
+        print(f'eval zero-shot export ddad, fused blocks: launches {counts}; max|fused - '
+              f'unfused| {err:.2e} (tol {GOLDEN_ATOL:.0e})')
+        if counts != want or not err <= GOLDEN_ATOL:
+            fail(f'eval zero-shot: fused blocks at 416x640: launches {counts} (expected '
+                 f'{want}), off by {err}')
+
+        # MapFree: `mapfree_preds` writes its PNGs next to each frame of the data root,
+        # aligned to DPT targets made from the kernel path's own maps.
+        mf = MapFreeStandIn(scenes)
+        disp = predict(predictor, net, mf, batch_size=len(mf), num_workers=0)
+        mf_err = _sigmoid_err(disp, predict(predictor, plain, mf, batch_size=len(mf),
+                                            num_workers=0))
+        mf.fit_targets(disp)
+        root = Path(tmp) / 'mapfree'
+        files = []
+        for i in range(len(mf)):
+            m = mf[i][2]
+            (root / m['mode'] / m['scene'] / m['seq']).mkdir(parents=True, exist_ok=True)
+            files.append(root / m['mode'] / m['scene'] / m['seq'] / f'{m["stem"]}.kbr.png')
+        paths.DATA_PATHS['mapfree'] = root
+        try:
+            _reset_counts()
+            t0 = time.perf_counter()
+            n = mapfree_preds.compute_preds('kbr', None, str(ckpts['kernel']), ds=mf)
+            wall = time.perf_counter() - t0
+            counts = _read_counts()
+        finally:
+            paths.DATA_PATHS.pop('mapfree', None)
+        want = {**dict.fromkeys(counts, 0), 'dwconv': n_blocks, 'decoder_stage': 2}
+        if counts != want or n != len(mf) or not mf_err <= GOLDEN_ATOL:
+            fail(f'mapfree: launches {counts} (expected {want}), {n} files written, maps off '
+                 f'the plain path by {mf_err}')
+        # The same millimetres as the host path on the same maps, and the targets'.
+        worst, rel, lo, hi = 0, [], np.inf, 0.0
+        for i, f in enumerate(files):
+            png = read_png16(f)
+            target = mf.depths[i]
+            depth = mapfree_preds.align(mapfree_preds.upsample(disp[i], target), target)
+            want_mm = (depth * 1000).astype(np.uint16)
+            if png.shape != target.shape:
+                fail(f'mapfree: {f.name} is {png.shape}, expected {target.shape}')
+            worst = max(worst, int(np.abs(png.astype(np.int64) - want_mm).max()))
+            rel.append(float(np.median(np.abs(png / 1000 - target) / target)))
+            lo, hi = min(lo, png.min() / 1000), max(hi, png.max() / 1000)
+        t, tp = device_ms(mf, len(mf))
+        print(f'eval zero-shot mapfree: {len(mf)} frames {mf.h}x{mf.w} (stage-4 map '
+              f'{mf.h // 32}x{mf.w // 32}) in 1 batch, launches {counts}; max|kernel - plain| '
+              f'{mf_err:.2e} of the sigmoid (tol {GOLDEN_ATOL:.0e}); '
+              f'{n} PNGs {target.shape[0]}x{target.shape[1]} uint16 mm read back (CRCs, IHDR), '
+              f'depths {lo:.3f}-{hi:.3f} m, max |PNG - host path| {worst} mm (tol 1), '
+              f'median |PNG - target| / target {np.median(rel):.2e}; '
+              f'{wall:.2f} s (checkpoint load and writes included), {len(mf) / wall:.1f} '
+              f'images/s; device ms per batch of {len(mf)} (eager): kernel {t.ms:.2f} '
+              f'({t.eager_ms:.2f}), plain {tp.ms:.2f} ({tp.eager_ms:.2f})')
+        if worst > 1 or not lo > 0:
+            fail(f'mapfree: PNGs off the host path by {worst} mm, depths {lo}-{hi} m')
+    del net, plain
+    torch.cuda.empty_cache()
+
+    def evaluate(*args, **kw):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return evaluate_depth(*args, **kw)
+
+    for name, ds in sets.items():
+        for cfg, data in ds.targets.items():
+            args = EVAL_ARGS[cfg]
+            t0 = time.perf_counter()
+            mean, items = evaluate(preds[name], data, args, EVAL_ALIGN, nproc=EVAL_NPROC)
+            wall = time.perf_counter() - t0
+            if len(items) != len(ds) or not all(np.isfinite(v) for v in mean.values()):
+                fail(f'eval zero-shot {cfg}: {len(items)} items, metrics {mean}')
+            # A perfect prediction, median-aligned: AbsRel 0 unless a crop or range is wrong.
+            depth = data['depth'][0].astype(np.float32)
+            disp = np.where(depth > 0, 1 / np.maximum(depth.astype(np.float64), 1e-6), 0)
+            fams = ['eigen'] + (['pointcloud'] if 'K' in data else [])
+            best, _ = evaluate(disp[None], {'depth': depth[None], **(
+                {'K': data['K'][:1]} if 'K' in data else {})}, {**args, 'metrics': fams},
+                'median', nproc=0)
+            ev = MonoDepthEvaluator(align_mode=EVAL_ALIGN, **{k: v for k, v in args.items()
+                                                              if k != 'metrics'})
+            # In process, family by family on the first item: timed, and together equal
+            # to the Pool's metrics of it.
+            secs, serial = {}, {}
+            for fam in args['metrics']:
+                t1 = time.perf_counter()
+                serial |= ev(preds[name][0], depth, [fam], data['K'][0] if 'K' in data else None)
+                secs[fam] = time.perf_counter() - t1
+            if serial != items[0]:
+                fail(f'eval zero-shot {cfg}: in process {serial}, Pool {items[0]}')
+            shown = [k for k in ('AbsRel', 'RMSE', 'F-Score (10)') if k in mean]
+            print(f'eval zero-shot {cfg} ({name} stand-in, targets {depth.shape} '
+                  f'({100 * (depth > 0).mean():.0f}% valid), align {EVAL_ALIGN}): {len(items)} '
+                  f'items, nproc={EVAL_NPROC} {wall:.1f} s, the first item equal in process; '
+                  + ', '.join(f'{k} {mean[k]:.4g}' for k in shown)
+                  + f'; perfect prediction (median) AbsRel {best["AbsRel"]:.2e}'
+                  + (f', F-Score (10) {best["F-Score (10)"]:.4f}' if 'K' in data else '')
+                  + '; evaluator s/item at the target\'s full size: '
+                  + ', '.join(f'{k} {v:.3f}' for k, v in secs.items()))
+            if not best['AbsRel'] < 1e-6 or ('K' in data
+                                              and not abs(best['F-Score (10)'] - 100) < 1e-3):
+                fail(f'eval zero-shot {cfg}: a perfect prediction scored {best}')
+    print(f'eval zero-shot: phase wall {time.perf_counter() - t_phase:.1f} s')
 
 def profile_train(out: Path = ROOT / 'build' / 'train_profile.txt',
                   matmul: str = 'highest', fused_blocks: bool = False) -> None:
@@ -2508,6 +2803,7 @@ def main() -> None:
     phase_optimizers(scenes)
     phase_train_dev(scenes)
     phase_eval(sd, scenes, smi)
+    phase_eval_zero_shot(sd, scenes, smi)
     sources = {'dwconv': ('dwconv.cu', 'pallas_dwconv.py:59'),
                'decoder_stage': ('decoder_stage.cu', 'pallas_decoder.py:249'),
                'decoder_stage_bwd': ('decoder_stage_bwd.cu', 'pallas_decoder.py:268'),

@@ -13,7 +13,10 @@ AdamW with gradient accumulation) and the training run around it
 (`train` -> `core.loop.MonoDepthLoop`: loader, on-device input derivation,
 aspect-ratio augmentation, validation, last/best checkpoints, resume) and
 evaluation (`export_gt` -> `export_preds` -> `eval_depth` ->
-`generate_tables`, with `eval.MonoDepthEvaluator` on numpy and scipy). Each
+`generate_tables`, with `eval.MonoDepthEvaluator` on numpy and scipy) on
+every dataset of the JAX package's registry, release validation
+(`validate_release`) and MapFreeReloc's challenge predictions
+(`mapfree_preds`). Each
 TPU kernel on those paths has a hand-written Hopper kernel in `csrc/`, built
 with nvcc at first use (`_build.py`): the depthwise conv and its tap gradient
 (`ops.dwconv`), the fused decoder stage forward and backward

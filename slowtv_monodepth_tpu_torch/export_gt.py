@@ -1,11 +1,18 @@
 """Export ground-truth evaluation targets -> `targets_<mode>.npz` (PyTorch port).
 
 Counterpart of `api/data/export_gt/from_dataset.py` (any registered dataset:
-{depth, K, [edge], [cat], [subcat]} next to its split file) and
+{depth, [K], [edge], [cat], [subcat]} next to its split file) and
 `api/data/export_gt/kitti.py` (KITTI: the Eigen split takes the raw velodyne
 depth, legacy on purpose as the published numbers do; the other splits the
 corrected benchmark depth; depths as an object array, because image sizes
 differ between drives). These are the files `eval_depth` reads.
+
+One repair of the JAX script, which reads every item's `K` and so cannot
+export DIODE, NYUD-v2 or TUM-RGBD (their datasets have no intrinsics): `K`
+is written when the dataset gives it (the evaluator needs it only for the
+pointcloud metrics, which those cfgs do not ask for), and DIODE's valid
+mask, where exported (`--datum "image depth mask"`), zeroes the depth it
+marks invalid.
 
 Usage:
     slowtv-export-gt-torch --type syns_patches --mode test --datum "image depth edge K"
@@ -42,8 +49,12 @@ def export(ds_type: str, mode: str, datum: str, save_stem: str,
     depths, Ks, edges, cats, subcats = [], [], [], [], []
     for i in range(len(ds)):
         _, y, m = ds[i]
-        depths.append(y['depth'][..., 0])
-        Ks.append(y['K'])
+        depth = y['depth'][..., 0]
+        if 'mask' in y:
+            depth = np.where(y['mask'][..., 0], depth, np.float32(0))
+        depths.append(depth)
+        if 'K' in y:
+            Ks.append(y['K'])
         if 'edges' in y:
             edges.append(y['edges'][..., 0])
         if 'cat' in m:
@@ -51,8 +62,9 @@ def export(ds_type: str, mode: str, datum: str, save_stem: str,
             subcats.append(m.get('subcat', ''))
 
     arrs = {'depth': np.array(depths) if len({d.shape for d in depths}) == 1
-            else np.array(depths, dtype=object),
-            'K': np.array(Ks)}
+            else np.array(depths, dtype=object)}
+    if Ks:
+        arrs['K'] = np.array(Ks)
     if edges:
         arrs['edge'] = np.array(edges)
     if cats:

@@ -2,7 +2,8 @@
 
 Counterpart of `slowtv_monodepth_tpu/parsers.py` for the ported keys:
 - `get_net`: `depth` (`DepthNet`) and `pose` (`PoseNet`);
-- `get_ds` / `get_dl`: the registered datasets (`data/`) behind the
+- `get_ds` / `get_dl`: the registered datasets (`data/`: every key of the
+  JAX package's registry; an unknown one raises `KeyError`) behind the
   prefetching loader, one loader per dataset, interleaved round-robin;
 - `get_loss`: `img_recon` (`ReconstructionLoss`) and `disp_smooth`
   (`SmoothReg`), with their static weights;
@@ -85,10 +86,7 @@ def get_ds(cfg: dict, mode: Optional[str] = None) -> dict:
         if not isinstance(kw, dict):
             raise TypeError(f"Expected dict of dicts. Got '{kw}'.")
         if t not in DATA_REG:
-            raise NotImplementedError(f'Dataset "{t}" is not ported yet (have {sorted(DATA_REG)}); '
-                                      'ROADMAP queue A item 8b for the evaluation datasets '
-                                      '(ddad, diode, nyud, sintel, tum, mapfree), item 9 for '
-                                      'the rest.')
+            raise KeyError(f'Unknown dataset "{t}". ({sorted(DATA_REG)})')
         c = {k: v for k, v in kw.items() if k not in _MODES}
         if mode:
             c.update(kw.get(mode, {}))

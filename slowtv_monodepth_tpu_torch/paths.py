@@ -44,13 +44,19 @@ DATA_ROOTS = _build_roots('DATA_ROOTS', _DEFAULT_DATA_ROOTS)
 
 # Dataset key -> on-disk directory name, for the ported datasets (ref `src/paths.py:68-89`).
 DATASET_NAMES = {
+    'ddad': 'DDAD',
+    'diode': 'Diode',
     'kitti_raw': 'kitti_raw_sync',
     'kitti_raw_lmdb': 'kitti_raw_sync_lmdb',
     'mannequin': 'MannequinChallenge',
     'mannequin_lmdb': 'MannequinChallenge_lmdb',
+    'mapfree': 'mapfree',
+    'nyud': 'NYUD_v2',
+    'sintel': 'Sintel',
     'slow_tv': 'slow_tv',
     'slow_tv_lmdb': 'slow_tv_lmdb',
     'syns_patches': 'syns_patches',
+    'tum': 'TUM_RGBD',
 }
 
 

@@ -206,9 +206,15 @@ def test_threaded_loader_yields_the_same_items(slowtv_root):
     _assert_identical(got, want)
 
 
-def test_unported_dataset_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match='ROADMAP queue A item 8b'):
-        parsers.get_ds({'ddad': {'mode': 'val'}}, 'train')
+def test_dataset_registry_matches_the_jax_package():
+    """Every dataset key of the JAX package's registry is registered in the port,
+    and no other."""
+    import slowtv_monodepth_tpu as jpkg
+    from slowtv_monodepth_tpu_torch.registry import DATA_REG, trigger_datasets
+    trigger_datasets()
+    jpkg.trigger_datasets()
+    assert sorted(DATA_REG) == sorted(jpkg.DATA_REG)
+    assert {'ddad', 'diode', 'nyud', 'sintel', 'tum', 'mapfree'} <= set(DATA_REG)
 
 
 def test_config_copy_merges_like_the_original(tmp_path):

@@ -296,8 +296,8 @@ def test_chip_smoke_eval_stand_ins_match_the_datasets(syns_root, kitti_root, mc_
                'kitti_eigen_benchmark': lambda: export_gt.export_kitti('eigen_benchmark',
                                                                        overwrite=True),
                'mc': lambda: export_gt.export('mannequin', 'test', 'image depth K', 'targets_test')}
-    for name, (_, cfgs) in chip_smoke.EVAL_SETS.items():
-        for cfg_name in cfgs:
+    for name in chip_smoke.EVAL_A8A_SETS:  # the zero-shot sets: test_torch_eval_datasets.py
+        for cfg_name in chip_smoke.EVAL_SETS[name][1]:
             cfg = load_yaml(ROOT / 'cfg' / 'eval' / f'{cfg_name}.yaml')
             assert cfg['args'] == chip_smoke.EVAL_ARGS[cfg_name]
             real = make_dataset(cfg['dataset'], BenchmarkPredictor('cpu'))

@@ -33,7 +33,8 @@ def test_every_port_package_is_listed(project):
 def test_every_port_console_script_resolves(project):
     scripts = {k: v for k, v in project['project']['scripts'].items() if k.endswith('-torch')}
     assert {'slowtv-export-gt-torch', 'slowtv-export-gt-kitti-torch', 'slowtv-export-preds-torch',
-            'slowtv-eval-depth-torch', 'slowtv-tables-torch'} <= set(scripts)
+            'slowtv-eval-depth-torch', 'slowtv-tables-torch', 'slowtv-validate-release-torch',
+            'slowtv-mapfree-preds-torch'} <= set(scripts)
     for name, target in scripts.items():
         module, func = target.split(':')
         file = ROOT / (module.replace('.', '/') + '.py')

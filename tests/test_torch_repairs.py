@@ -19,8 +19,8 @@ unrepaired port fails (ROADMAP queue C items 1, 2, 3, 5, 7 and 9).
    file has it and starts the step count from 0.
 5. `dec_phase_up` / `enc_remat` (exact transforms) are accepted and change
    nothing.
-7. An unported dataset's message names the ROADMAP item that holds it (A8
-   for the evaluation datasets; A7 ported the KBR recipe's own).
+7. An unknown dataset raises `KeyError` listing the registry, as the JAX
+   package's `get_ds` does (every dataset of the JAX registry is ported).
 9. `trainer.logger: 'wandb'` without wandb installed warns and logs to
    tensorboard, as the JAX package's entry point does (`api/train/train.py:64-72`).
 """
@@ -232,11 +232,16 @@ def test_a_tpu_recipe_depth_cfg_builds_and_serves_the_same_maps():
 
 
 # --------------------------------------------------------------------- 7. message
-def test_an_unported_dataset_names_roadmap_item_a7():
-    """A7 ported the recipe's datasets and A8a SYNS-Patches; an evaluation
-    dataset still missing names A8b."""
-    with pytest.raises(NotImplementedError, match='queue A item 8b for the evaluation datasets'):
-        parsers.get_ds({'ddad': {'mode': 'val'}})
+def test_an_unknown_dataset_raises_key_error_like_jax():
+    """Both packages' `get_ds` refuse a name that no dataset registered, with the
+    same `KeyError` naming it and listing the registry."""
+    from slowtv_monodepth_tpu import parsers as jparsers
+    errors = []
+    for get_ds in (parsers.get_ds, jparsers.get_ds):
+        with pytest.raises(KeyError, match='Unknown dataset "nope_ds"') as e:
+            get_ds({'nope_ds': {'mode': 'val'}})
+        errors.append(e.value.args[0])
+    assert errors[0] == errors[1] and "'ddad'" in errors[0] and "'tum'" in errors[0]
 
 
 # --------------------------------------------------------------------- 9. logger
