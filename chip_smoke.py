@@ -131,7 +131,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    checkpoint (36 convnext_block per forward); images/s and device ms per
    batch of 12. Then `MonoDepthEvaluator` with the args of `syns_test`,
    `kitti_eigen`, `kitti_eigen_benchmark` and `mc` in this process (which
-   holds CUDA): a Pool of 4, equal item by item to nproc=0 on the first items;
+   holds CUDA): a Pool of 8 (`EVAL_NPROC`), equal item by item to nproc=0 on the first items;
    the kernel and plain predictions' metrics; a perfect prediction (AbsRel <
    1e-6, F-Score (10) 100 less its 1e-5 guard); seconds per item of each
    metric family.
@@ -143,7 +143,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    path, the DDAD stand-in also through the `fused_blocks` checkpoint (36
    convnext_block per forward); `MonoDepthEvaluator` with the args of `ddad`,
    `diode_indoors`, `diode_outdoor`, `nyud` (its crop), `sintel` and `tum` in a Pool
-   of 4, the first item in process family by family (timed) equal to the Pool's, and
+   of 8, the first item in process family by family (timed) equal to the Pool's, and
    a median-aligned perfect prediction per cfg (AbsRel < 1e-6; F-Score (10) 100 where
    the cfg has K). Then `mapfree_preds.compute_preds` on a MapFreeReloc stand-in (16
    portrait 512x384 frames, one batch, the maps within GOLDEN_ATOL of the plain path;
@@ -152,6 +152,19 @@ Phases, in order; any failure exits non-zero and prints no result:
    numpy PNG decoder (CRCs, IHDR, 720x540 uint16), every depth positive, within 1 mm
    of the host path on the same maps; their median relative error to the targets
    printed. Device ms per batch, images/s and seconds per item of each metric family.
+17. families: DVSO as it stands (virtual stereo, no pose net, supports [0], `stereo_const`,
+   inverted-berHu hints, Laplacian smoothness, `disp_occ`), Depth-Hints-MS (log-l1 hints
+   behind the hint automask, supports [-1, 1, 0]), SfM-Learner (explainability masks,
+   `disp_mask`) and Klodt (uncertainty masks), as `cfg/benchmark/default.yaml` + the
+   family's file give them (`family_cfg`; the default's ResNet-18 pose net, ROADMAP A10,
+   overlaid to convnext_tiny), at ConvNeXt-B, 4 scales, B=8, 192x640, `T_stereo` of both
+   signs in a batch: one forward + backward each on the kernel path and on the plain path
+   from the same seeded weights and batch, the loss and every gradient held to the plain
+   path's (1e-5, 1e-3 of each tensor's largest; the gates' flips counted and bounded), the
+   launches of each kernel per micro-step (`FAMILY_LAUNCHES`), device ms per micro-step.
+   Then DVSO through `MonoDepthLoop`: 2 epochs of 2 batches over `StereoHintLoader`
+   (stereo frames, `T_stereo`, hints and KITTI's sparse depth), its launches, `last.ckpt`
+   (the 3-channel disparity head), a validation batch each epoch.
 Every time is a device time (`cuda_ms`: the calls captured into one CUDA
 graph, CUDA events around one replay) with the eager time beside it. The last
 two lines are a JSON object per kernel and the contract line
@@ -162,6 +175,7 @@ Usage: python3 chip_smoke.py   (from the repo root, one CUDA card)
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import importlib.util
 import io
@@ -303,7 +317,7 @@ PHOTO_BWD_RTOL = 1e-5  # of the largest |gradient|
 EVAL_ITEMS = 12         # per evaluation stand-in: one batch; keeps the whole script near 600 s
 EVAL_BATCH = 12         # `export_preds`' batch size
 EVAL_PARTIAL = 17       # one more SYNS export: a batch of 12 and a partial one of 5
-EVAL_NPROC = 4          # the evaluator's Pool
+EVAL_NPROC = 8          # the evaluator's Pool: one worker per core of the card's machine
 EVAL_SERIAL_ITEMS = 1   # nproc=0 over the first item, held to the Pool's metrics of it
 EVAL_PLAIN_ITEMS = 4    # items also evaluated from the plain path's predictions
 EVAL_THRESHOLDED = ('delta', 'F-Score', 'IoU', 'Dir')  # step functions of the pixels
@@ -343,6 +357,85 @@ EVAL_ARGS = {  # cfg/eval/<name>.yaml `args` (no yaml on the card)
     'tum': {'min': 0.001, 'max': 100, 'use_eigen_crop': False,
             'metrics': ['eigen', 'benchmark']}}
 EVAL_ALIGN = 'lsqr'     # `slowtv-eval-depth-torch`'s default
+# Phase 17: the recipe families beside KBR, as `cfg/benchmark/default.yaml` + the family's
+# file merge them (no yaml on the card; `tests/test_torch_families.py` holds these to the
+# files). The pose net of the default, ResNet-18, is ROADMAP A10: the families that keep it
+# run with its encoder overlaid to convnext_tiny (FAMILY_POSE_OVERLAY), stated where it prints.
+BENCH_DEFAULT_CFG = {
+    'net': {'depth': {'enc_name': 'convnext_base', 'pretrained': True, 'dec_name': 'monodepth',
+                      'out_scales': [0, 1, 2, 3], 'use_virtual_stereo': False, 'mask_name': None,
+                      'num_ch_mask': None, 'use_stereo_blend': False},
+            'pose': {'enc_name': 'resnet18', 'pretrained': True}},
+    'loss': {'img_recon': {'weight': 1, 'use_min': False, 'use_automask': False},
+             'disp_smooth': {'weight': 0.001, 'use_edges': True, 'use_laplacian': False,
+                             'use_blur': False}},
+    'dataset': {'kitti_lmdb': {
+        'split': 'eigen_zhou', 'shape': [192, 640],
+        'train': {'mode': 'train', 'datum': 'image support depth_velo K', 'use_aug': True},
+        'val': {'mode': 'test', 'datum': 'image support depth K', 'use_aug': False}}},
+    'loader': {'batch_size': 8, 'num_workers': 8, 'drop_last': True, 'train': {'shuffle': True},
+               'val': {'shuffle': False}},
+    'optimizer': {'type': 'adam', 'lr': 0.0001},
+    'scheduler': {'steplr': {'step_size': 15, 'gamma': 0.1}},
+    'trainer': {'max_epochs': 30, 'resume_training': True, 'load_ckpt': None,
+                'log_every_n_steps': 100, 'monitor': 'AbsRel', 'gradient_clip_val': None,
+                'accumulate_grad_batches': 1, 'logger': 'tensorboard'}}
+_HINT_DATUM = {'train': {'datum': 'image support depth_velo depth_hint K'},
+               'val': {'datum': 'image support depth depth_hint K'}}
+FAMILY_FILE_CFGS = {  # cfg/benchmark/<name>.yaml
+    'dvso': {'net': {'depth': {'use_virtual_stereo': True}, 'pose': None},
+             'loss': {'stereo_const': {'weight': 1, 'loss_name': 'l1'},
+                      'depth_regr': {'weight': 10, 'loss_name': 'berhu', 'use_automask': False,
+                                     'invert': True},
+                      'disp_smooth': {'use_laplacian': True}, 'disp_occ': {'weight': 0.01}},
+             'dataset': {'kitti_lmdb': {'supp_idxs': [0], **_HINT_DATUM}}},
+    'depth_hints_MS': {'loss': {'img_recon': {'use_min': True, 'use_automask': True},
+                                'depth_regr': {'weight': 1, 'loss_name': 'log_l1',
+                                               'use_automask': True}},
+                       'dataset': {'kitti_lmdb': {'supp_idxs': [-1, 1, 0], **_HINT_DATUM}}},
+    'sfm_learner': {'net': {'depth': {'mask_name': 'explainability', 'num_ch_mask': 2}},
+                    'loss': {'img_recon': {'mask_name': 'explainability'},
+                             'disp_mask': {'weight': 0.2}},
+                    'dataset': {'kitti_lmdb': {'supp_idxs': [-1, 1]}}},
+    'klodt': {'net': {'depth': {'mask_name': 'uncertainty', 'num_ch_mask': 2}},
+              'loss': {'img_recon': {'mask_name': 'uncertainty'}},
+              'dataset': {'kitti_lmdb': {'supp_idxs': [-1, 1]}}}}
+FAMILY_POSE_OVERLAY = 'convnext_tiny'
+FAMILY_B, FAMILY_SHAPE = 8, (192, 640)   # the cfgs' batch and KITTI shape
+# Kernel launches per micro-step (forward + backward) of each family at 4 scales:
+# - dwconv 2 per ConvNeXt block (forward, and dx with flipped taps), dwconv_dw 1: the 36
+#   blocks of ConvNeXt-B, and the 18 of the overlaid ConvNeXt-T where a pose net runs;
+# - decoder_stage / _bwd: the disparity decoder's two fused stages where it has one output
+#   channel; virtual stereo (3 channels) and the mask decoder (num_ch_mask) run unfused
+#   stages, as the JAX package's, so DVSO launches none and the mask families 2;
+# - warp: one batched view synthesis per handler call: DVSO the image reconstruction, its
+#   stereo view's and `stereo_const` (disparities, C = 1); Depth-Hints the reconstruction
+#   and the hint automask's two; the mask families the reconstruction;
+# - photo_fwd: each `compute_photo` (DVSO: both views; Depth-Hints: the reconstruction, its
+#   static automask error and the hint automask's two, those three under no_grad); photo_bwd:
+#   the reconstructions with a gradient.
+_FAMILY_ZERO = {'warp_packed': 0, 'convnext_block': 0, 'convnext_block_bwd': 0}
+FAMILY_LAUNCHES = {
+    'dvso': {'dwconv': 72, 'dwconv_dw': 36, 'decoder_stage': 0, 'decoder_stage_bwd': 0,
+             'warp': 3, 'photo_fwd': 2, 'photo_bwd': 2, **_FAMILY_ZERO},
+    'depth_hints_MS': {'dwconv': 108, 'dwconv_dw': 54, 'decoder_stage': 2, 'decoder_stage_bwd': 2,
+                       'warp': 3, 'photo_fwd': 4, 'photo_bwd': 1, **_FAMILY_ZERO},
+    'sfm_learner': {'dwconv': 108, 'dwconv_dw': 54, 'decoder_stage': 2, 'decoder_stage_bwd': 2,
+                    'warp': 1, 'photo_fwd': 1, 'photo_bwd': 1, **_FAMILY_ZERO}}
+FAMILY_LAUNCHES['klodt'] = FAMILY_LAUNCHES['sfm_learner']
+# DVSO's validation step: the forward and the loss under no_grad.
+FAMILY_VAL_LAUNCHES = {'dwconv': 36, 'warp': 3, 'photo_fwd': 2}
+# A binary gate with no tie-break (the Depth-Hints automask; the image automask's eps
+# tie-break): the kernel and plain paths compute the compared errors in another float32
+# order, so bits within that agreement of a tie may flip. At most this share of them;
+# where any flips, the family's `loss_depth_regr` and total are held at FAMILY_GATE_RTOL
+# (one flipped pixel moves the masked mean by ~1/valid pixels), the pose net's gradients at
+# FAMILY_GATE_POSE_RTOL of each tensor's largest magnitude and the depth net's gradient as
+# one vector at FAMILY_GATE_DEPTH_L2 relative L2 (the CPU test's measured flip effects:
+# 1.6e-3 and 3.3e-2, tests/test_torch_families_trajectory.py).
+FAMILY_GATE_SHARE = 1e-3
+FAMILY_GATE_RTOL, FAMILY_GATE_POSE_RTOL, FAMILY_GATE_DEPTH_L2 = 5e-3, 1e-2, 1e-1
+FAMILY_RUN_BATCHES, FAMILY_RUN_EPOCHS = 2, 2   # the DVSO loop: 2 epochs of 2 batches
 # Kernel 7's map at the KBR step's two photometric shapes on
 # `tools/photo_bench.digest_inputs`, as its parent checkout (f3a8e85) gave it on an
 # H100: separating kernel 8 out of csrc/photo.cu left kernel 7's bits alone.
@@ -1597,6 +1690,68 @@ class PackLoader(SceneLoader):
             yield x, y, m
 
 
+class StereoHintLoader(SceneLoader):
+    """In-memory stand-in for `parsers.get_dl` on `kitti_lmdb` with `dvso.yaml`'s
+    datum (the card's machine cannot decode a pack): batches (x, y, m) in the layout
+    the dataset yields (`tests/test_torch_families.py` holds them to the reader's): x the
+    standardized frames, `supp_idxs` [0] and the stereo frame; y the raw frames,
+    `T_stereo` (both signs in a batch, as the flip augmentation and the two cameras
+    give them; the stereo frame shifted the way its sign says), KITTI's sparse depth at
+    `RECIPE_DEPTH_SHAPE`, the proxy-depth hints at the frames' shape (~10% invalid) and K.
+    """
+
+    def __init__(self, scenes, n_batches: int, train: bool, seed: int = 0):
+        from slowtv_monodepth_tpu_torch.data import IMAGENET_MEAN, IMAGENET_STD
+        super().__init__(scenes, n_batches, FAMILY_SHAPE, batch=FAMILY_B, seed=seed)
+        self.train = train
+        self.std = (self.base - IMAGENET_MEAN) / IMAGENET_STD
+
+    def __iter__(self):
+        from slowtv_monodepth_tpu_torch.utils import MultiLevelTimer
+        for i in range(self.n):
+            timer = MultiLevelTimer(name='kitti_lmdb')
+            with timer('Total'):
+                rs = np.random.RandomState(self.seed + 1000 * self.epoch + i)
+                idx = rs.randint(0, len(self.base), self.batch)
+                x, y = family_batch(self, idx, (0,), hints=True, rs=rs)
+                y['depth'] = sparse_depth(rs, self.batch)
+                y = {k: y[k] for k in ('imgs', 'T_stereo', 'supp_imgs', 'depth', 'depth_hints', 'K')}
+                x = {'imgs': self.std[idx], 'supp_idxs': np.array([0]),
+                     'supp_imgs': family_shift(self.std[idx], y['T_stereo'])[None]}
+            m = {'items': [str(j) for j in idx]}
+            if self.train:
+                m['augs'] = [''] * self.batch
+            m.update(stem=[f'synthetic/image_02/{j:010}' for j in idx], supp=['1'] * self.batch,
+                     timer_data=[timer.copy() for _ in idx], errors=[''] * self.batch)
+            yield x, y, m
+
+
+def family_shift(imgs: np.ndarray, T: np.ndarray) -> np.ndarray:
+    """The stereo frame of each image: 5 px along W, the way its baseline's sign says."""
+    return np.stack([np.roll(im, 5 if t[0, 3] > 0 else -5, axis=1) for im, t in zip(imgs, T)])
+
+
+def family_batch(loader: SceneLoader, idx, supp: tuple, hints: bool, rs) -> tuple[dict, dict]:
+    """Frames `idx` of a loader's scenes with the supports `supp` (-1, 1: shifted 3 px along
+    W; 0: the stereo frame), K, `T_stereo` (+-0.1 m along x, both signs) and, with `hints`,
+    smooth proxy depth in [1, 80] m on 8 x 8 blocks with ~10% invalid pixels (numpy)."""
+    b = len(idx)
+    imgs = loader.base[idx]
+    T = np.ascontiguousarray(np.broadcast_to(np.eye(4, dtype=np.float32), (b, 4, 4)))
+    T[:, 0, 3] = np.where(np.arange(b) % 2 == 0, 0.1, -0.1)
+    supps = np.stack([family_shift(imgs, T) if i == 0 else np.roll(imgs, 3 * i, axis=2)
+                      for i in supp])
+    y = {'imgs': imgs, 'supp_imgs': supps,
+         'K': np.ascontiguousarray(np.broadcast_to(loader.K, (b, 4, 4)))}
+    if 0 in supp:
+        y['T_stereo'] = T
+    if hints:
+        h, w = imgs.shape[1:3]
+        d = np.kron(rs.uniform(1, 80, (b, h // 8, w // 8, 1)), np.ones((1, 8, 8, 1)))
+        y['depth_hints'] = np.where(rs.rand(*d.shape) < 0.1, 0, d).astype(np.float32)
+    return {'imgs': imgs, 'supp_imgs': supps}, y
+
+
 def timm_state_dict(enc_name: str, seed: int) -> dict:
     """A seeded ConvNeXt state dict in timm's layout, as `api/data/export_timm.py`
     writes one: the encoder's keys at 3 input channels, and timm's classifier head
@@ -2697,6 +2852,182 @@ def phase_eval_zero_shot(sd, scenes, smi: str) -> None:
                 fail(f'eval zero-shot {cfg}: a perfect prediction scored {best}')
     print(f'eval zero-shot: phase wall {time.perf_counter() - t_phase:.1f} s')
 
+@functools.lru_cache(maxsize=None)
+def _seeded_weights(key: str, net_cfg: str) -> dict:
+    """`models.seeded_state_dict` of the net `key` of a cfg (its section as JSON), drawn
+    once a process: the overlaid pose net is the same in three families."""
+    from slowtv_monodepth_tpu_torch import parsers
+    from slowtv_monodepth_tpu_torch.models import seeded_state_dict
+    with torch.device('meta'):
+        net = parsers.get_net({key: json.loads(net_cfg)})[key]
+    return {k: torch.from_numpy(v) for k, v in seeded_state_dict(net, 0).items()}
+
+
+def family_cfg(name: str) -> dict:
+    """`BENCH_DEFAULT_CFG` merged with the family's file, the pose encoder overlaid."""
+    from slowtv_monodepth_tpu_torch.config import merge_dicts
+    cfg = merge_dicts(BENCH_DEFAULT_CFG, FAMILY_FILE_CFGS[name])
+    if cfg['net'].get('pose'):
+        cfg['net']['pose']['enc_name'] = FAMILY_POSE_OVERLAY
+    return cfg
+
+
+def _family_pass(trainer, x, y, supp, noise) -> dict:
+    """One forward + backward of a family's loss (no update) -> loss, its terms, every
+    parameter's gradient, the gates' bits and the launches it made."""
+    trainer.nets.train()
+    trainer.nets.zero_grad(set_to_none=True)
+    _reset_counts()
+    loss, (ld, _) = trainer.loss_fn(x, y, supp, noise=noise)
+    loss.backward()
+    torch.cuda.synchronize()
+    return {'counts': _read_counts(), 'loss': loss.item(),
+            'terms': {k: v.item() for k, v in ld.items() if k.startswith('loss_')},
+            'bits': {k: ld[k].detach().clone() for k in ('automask', 'automask_hints') if k in ld},
+            'grads': {f'{n}.{k}': p.grad.detach().clone() for n, net in trainer.nets.items()
+                      for k, p in net.named_parameters() if p.grad is not None},
+            'n_params': sum(1 for net in trainer.nets.values() for _ in net.parameters())}
+
+
+def _family_compare(got: dict, want: dict) -> tuple[list, list]:
+    """The kernel path (`got`) against the plain path (`want`) -> faults and the
+    text for the log."""
+    faults, flips, notes = [], 0, []
+    for k, bits in got['bits'].items():
+        n = int((bits != want['bits'][k]).sum())
+        flips += n
+        notes.append(f'{k} {n} of {bits.numel()} bits differ ({n / bits.numel():.1e})')
+        if n > FAMILY_GATE_SHARE * bits.numel():
+            faults.append(f'{k}: {n} of {bits.numel()} bits differ')
+    if got['n_params'] != len(got['grads']) or got['n_params'] != len(want['grads']):
+        faults.append(f'{len(got["grads"])} / {len(want["grads"])} gradients of '
+                      f'{got["n_params"]} parameters')
+    for k in ['loss'] + sorted(want['terms']):
+        g, w = (got['loss'], want['loss']) if k == 'loss' else (got['terms'][k], want['terms'][k])
+        rtol = FAMILY_GATE_RTOL if flips and k in ('loss', 'loss_depth_regr') else 1e-5
+        if not abs(g - w) <= rtol * abs(w):
+            faults.append(f'{k}: {g:.7g} vs plain {w:.7g} (rtol {rtol:.0e})')
+    worst = 0.0
+    for k, w in want['grads'].items():
+        g = got['grads'][k]
+        if not bool(torch.isfinite(g).all()) or not float(g.abs().max()) > 0:
+            faults.append(f'{k}: gradient non-finite or zero')
+            continue
+        rel = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        worst = max(worst, rel) if not (flips and k.startswith('depth.')) else worst
+        bound = FAMILY_GATE_POSE_RTOL if flips else 1e-3
+        if not (flips and k.startswith('depth.')) and rel > bound:
+            faults.append(f'{k}: gradient off by {rel:.2e} of its largest (bound {bound:.0e})')
+    if flips:
+        keys = [k for k in want['grads'] if k.startswith('depth.')]
+        num = torch.sqrt(sum(((got['grads'][k] - want['grads'][k]).double() ** 2).sum()
+                             for k in keys))
+        den = torch.sqrt(sum((want['grads'][k].double() ** 2).sum() for k in keys))
+        l2 = float(num / den)
+        notes.append(f'depth net gradient {l2:.2e} relative L2 (bound {FAMILY_GATE_DEPTH_L2:.0e})')
+        if l2 > FAMILY_GATE_DEPTH_L2:
+            faults.append(f'depth net gradient {l2:.2e} relative L2')
+    notes.append(f'worst gradient {worst:.2e} of its tensor\'s largest'
+                 + (' (pose net; gate flips)' if flips else ''))
+    return faults, notes
+
+
+def phase_families(scenes, smi: str) -> None:
+    """The recipe families beside KBR at published widths (ConvNeXt-B, 4 scales, B=8,
+    192x640): one micro-step (forward + backward) of DVSO as it stands, Depth-Hints-MS,
+    SfM-Learner and Klodt on the kernel path and on the plain path from the same seeded
+    weights and batch, held to each other; launches per kernel; device ms per
+    micro-step. Then DVSO through `MonoDepthLoop`: 2 epochs of 2 batches over
+    `StereoHintLoader`, `last.ckpt`, one validation batch."""
+    from slowtv_monodepth_tpu_torch.core import load_checkpoint
+    from slowtv_monodepth_tpu_torch.core.trainer import MonoDepthTrainer
+    t0 = time.perf_counter()
+    print(f'families: pose encoder {BENCH_DEFAULT_CFG["net"]["pose"]["enc_name"]} (ROADMAP A10) '
+          f'overlaid to {FAMILY_POSE_OVERLAY} in every family that keeps a pose net')
+    loader = SceneLoader(scenes, 1, FAMILY_SHAPE, batch=FAMILY_B)
+    for fam_i, name in enumerate(FAMILY_FILE_CFGS):
+        cfg = family_cfg(name)
+        supp = tuple(cfg['dataset']['kitti_lmdb']['supp_idxs'])
+        weights = {k: _seeded_weights(k, json.dumps(net_cfg, sort_keys=True))
+                   for k, net_cfg in cfg['net'].items() if net_cfg}
+        rs = np.random.RandomState(RUN_SEED + fam_i)
+        x, y = family_batch(loader, rs.randint(0, len(loader.base), FAMILY_B), supp,
+                            'depth_regr' in cfg['loss'], rs)
+        x, y = ({k: torch.from_numpy(np.ascontiguousarray(v)).cuda() for k, v in d.items()}
+                for d in (x, y))
+        n_sc = len(cfg['net']['depth']['out_scales'])
+        noise = (torch.from_numpy(rs.standard_normal((n_sc * FAMILY_B,) + FAMILY_SHAPE + (1,))
+                                  .astype(np.float32)).cuda()
+                 if cfg['loss']['img_recon'].get('use_automask') else None)
+        passes, times = {}, {}
+        for kernels in (True, False):
+            # Shapes only, then the seeded weights on the card: no initial draw (seconds a net
+            # on the host; on the card, the CUDA generator after a failed capture refuses it).
+            with torch.device('meta'):
+                trainer = MonoDepthTrainer(cfg, kernels=kernels)
+            trainer.nets.to_empty(device='cuda')
+            for k, sd in weights.items():
+                trainer.nets[k].load_state_dict(sd)
+            passes[kernels] = _family_pass(trainer, x, y, supp, noise)
+
+            def fwd_bwd(trainer=trainer):
+                trainer.nets.zero_grad(set_to_none=True)
+                trainer.loss_fn(x, y, supp, noise=noise)[0].backward()
+            times[kernels] = cuda_ms(fwd_bwd, iters=2, warmup=1)
+            del trainer, fwd_bwd
+            gc.collect()
+            torch.cuda.empty_cache()
+        want = FAMILY_LAUNCHES[name]
+        got_counts = {k: passes[True]['counts'][k] for k in want}
+        if got_counts != want or any(passes[False]['counts'].values()):
+            fail(f'families {name}: launches per micro-step {got_counts}, expected {want}; '
+                 f'plain path {passes[False]["counts"]}')
+        faults, notes = _family_compare(passes[True], passes[False])
+        if faults:
+            fail(f'families {name}: kernel path against the plain path: ' + '; '.join(faults))
+        k_ms, p_ms = times[True], times[False]
+        nets = sorted(cfg['net'][n]['enc_name'] for n in weights)
+        print(f'families {name} (supports {list(supp)}, nets {nets}): '
+              f'loss {passes[True]["loss"]:.6f} (plain {passes[False]["loss"]:.6f}); '
+              + '; '.join(notes) + f'; every one of {passes[True]["n_params"]} parameters with a '
+              f'finite non-zero gradient; launches per micro-step {got_counts}; device ms per '
+              f'micro-step (forward + backward, no update; eager in brackets, timed by '
+              f'{k_ms.how}/{p_ms.how}): kernel {k_ms.ms:.2f} ({k_ms.eager_ms:.2f}), plain '
+              f'{p_ms.ms:.2f} ({p_ms.eager_ms:.2f}) on {smi}')
+        del passes
+        torch.cuda.empty_cache()
+
+    # DVSO through the loop as `slowtv-train-torch` runs it.
+    cfg = family_cfg('dvso')
+    cfg = {**cfg, 'seed': RUN_SEED, 'trainer': {
+        **cfg['trainer'], 'max_epochs': FAMILY_RUN_EPOCHS, 'log_every_n_steps': 1,
+        'limit_val_batches': 1, 'matmul': 'highest'}}
+    n = FAMILY_RUN_EPOCHS * FAMILY_RUN_BATCHES
+    with tempfile.TemporaryDirectory() as tmp:
+        loop, st = _run_loop(cfg, Path(tmp) / 'run', scenes, val=True, tag='families dvso',
+                             loaders=(StereoHintLoader(scenes, FAMILY_RUN_BATCHES, True, RUN_SEED),
+                                      StereoHintLoader(scenes, 1, False, RUN_SEED + 1)))
+        sd, ckpt_cfg = load_checkpoint(Path(tmp) / 'run' / 'last.ckpt')
+    per_step, val_step = FAMILY_LAUNCHES['dvso'], FAMILY_VAL_LAUNCHES
+    expect = {k: n * v + FAMILY_RUN_EPOCHS * val_step.get(k, 0) for k, v in per_step.items()}
+    if st['counts'] != expect:
+        fail(f'families dvso run: launches {st["counts"]}, expected {expect}')
+    outconv = sd.get('nets.depth.decoders.disp.decoder.10.weight')
+    if loop.global_step != n or outconv is None or outconv.shape[0] != 3 \
+            or not ckpt_cfg['net']['depth']['use_virtual_stereo'] or 'nets.pose' in ' '.join(sd):
+        fail(f'families dvso run: {loop.global_step} micro-steps, last.ckpt {len(sd)} tensors')
+    val = {k: st['val'].get(k) for k in ('loss', 'loss_stereo_const', 'loss_depth_regr', 'AbsRel')}
+    if not all(v is not None and np.isfinite(v) for v in val.values()):
+        fail(f'families dvso run: validation scalars {val}')
+    print(f'families dvso run: {FAMILY_RUN_EPOCHS} epochs x {FAMILY_RUN_BATCHES} batches of '
+          f'{FAMILY_B} at {FAMILY_SHAPE[0]}x{FAMILY_SHAPE[1]}, supports [0], no pose net: '
+          f'launches {st["counts"]} (per train micro-step {per_step}, per validation step '
+          f'{val_step}); last.ckpt {len(sd)} tensors (the disparity outconv 3 channels); '
+          'validation ' + ', '.join(f'{k} {v:.4g}' for k, v in val.items()))
+    torch.backends.cudnn.benchmark = False
+    print(f'families: phase wall {time.perf_counter() - t0:.1f} s')
+
+
 def profile_train(out: Path = ROOT / 'build' / 'train_profile.txt',
                   matmul: str = 'highest', fused_blocks: bool = False) -> None:
     """Where the KBR micro-step's device time goes (not part of `main`).
@@ -2804,6 +3135,7 @@ def main() -> None:
     phase_train_dev(scenes)
     phase_eval(sd, scenes, smi)
     phase_eval_zero_shot(sd, scenes, smi)
+    phase_families(scenes, smi)
     sources = {'dwconv': ('dwconv.cu', 'pallas_dwconv.py:59'),
                'decoder_stage': ('decoder_stage.cu', 'pallas_decoder.py:249'),
                'decoder_stage_bwd': ('decoder_stage_bwd.cu', 'pallas_decoder.py:268'),

@@ -98,7 +98,7 @@ class HeavyLogger:
                 _, (loss_dict, fwd) = trainer.loss_fn(x, y, tuple(supp_idxs), gen, noise)
         finally:
             trainer.nets.train(training)
-        fwd = {k: fwd[k] for k in ('disp', 'depth_feats') if k in fwd}
+        fwd = {k: fwd[k] for k in ('disp', 'disp_stereo', 'mask', 'depth_feats') if k in fwd}
         fwd['depth_feats'] = [f.permute(0, 2, 3, 1) for f in fwd.get('depth_feats', [])]
         x, y, fwd, loss_dict = _host((x, y, fwd, loss_dict))
 
@@ -137,23 +137,32 @@ class HeavyLogger:
             self.write_text(txt)
 
     def log_fwd(self, fwd: dict, supp_idxs) -> None:
-        """Network outputs: disparities and features (the predicted masks,
-        virtual stereo and autoencoder of other recipes are ROADMAP A9)."""
+        """Network outputs: disparities, the virtual-stereo disparity, the
+        predicted masks and features (the autoencoder's images are ROADMAP A9b)."""
         imgs = {}
         if 'disp' in fwd:
             imgs['pred/disp'] = self._grid(rgb_from_disp(fwd['disp'][0][..., 0]))
+        if 'disp_stereo' in fwd:
+            imgs['pred/disp_stereo'] = self._grid(rgb_from_disp(fwd['disp_stereo'][0][..., 0]))
+        if 'mask' in fwd:
+            for j, i in enumerate(supp_idxs):
+                if fwd['mask'][0].shape[-1] > j:
+                    imgs[f'pred/mask_{i}'] = self._grid(fwd['mask'][0][..., j:j + 1])
         if fwd.get('depth_feats'):
             imgs['pred/feats'] = self._grid(rgb_from_feat(fwd['depth_feats'][0]))
         self.write_images(imgs)
 
     def log_loss(self, ld: dict, supp_idxs) -> None:
-        """Loss artifacts: warps, automasks, gradients."""
+        """Loss artifacts: warps, automasks (the hints' too), gradients."""
         imgs = {}
         if 'supp_imgs_warp' in ld:
             for i, w in zip(supp_idxs, ld['supp_imgs_warp']):
                 imgs[f'loss/warp_{i}'] = self._grid(w)
         if 'automask' in ld:
             imgs['loss/automask'] = self._grid(np.asarray(ld['automask'], np.float32))
+        if 'automask_hints' in ld:
+            imgs['loss/automask_hints'] = self._grid(
+                np.asarray(ld['automask_hints'], np.float32))
         if 'disp_grad' in ld:
             imgs['loss/disp_grad'] = self._grid(rgb_from_disp(ld['disp_grad'][..., 0]))
         if 'image_grad' in ld:

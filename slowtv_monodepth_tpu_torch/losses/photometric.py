@@ -1,7 +1,7 @@
 """Dense photometric errors (PyTorch, NHWC).
 
-Counterpart of `slowtv_monodepth_tpu/losses/photometric.py`: the L1 error,
-and the Monodepth photometric error 0.85 SSIM + 0.15 L1. `PhotoError` sends
+Counterpart of `slowtv_monodepth_tpu/losses/photometric.py`: the L1 and L2
+errors, and the Monodepth photometric error 0.85 SSIM + 0.15 L1. `PhotoError` sends
 every stack with an SSIM term through `ops.photo_err_ssim` (kernels 7 and 8
 on the card; a dtype they do not take raises), flattening an (n, b) stack
 into ONE call, as the JAX package's does. The per-channel SSIM map itself is
@@ -11,9 +11,10 @@ from __future__ import annotations
 
 import torch
 
+from ..ops import clip, eps
 from ..ops.photo import avg_pool3x3_reflect, photo_err_ssim
 
-__all__ = ['DenseL1Error', 'PhotoError', 'avg_pool3x3_reflect']
+__all__ = ['DenseL1Error', 'DenseL2Error', 'PhotoError', 'avg_pool3x3_reflect']
 
 
 class DenseL1Error:
@@ -21,6 +22,14 @@ class DenseL1Error:
 
     def __call__(self, pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
         return (pred - target).abs().mean(-1, keepdim=True)
+
+
+class DenseL2Error:
+    """Dense L2 distance over channels -> (b, h, w, 1), its square floored at eps."""
+
+    def __call__(self, pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        sq = ((pred - target) ** 2).sum(-1, keepdim=True)
+        return torch.sqrt(clip(sq, lo=eps(pred)))
 
 
 class PhotoError:

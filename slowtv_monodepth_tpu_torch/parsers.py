@@ -5,8 +5,11 @@ Counterpart of `slowtv_monodepth_tpu/parsers.py` for the ported keys:
 - `get_ds` / `get_dl`: the registered datasets (`data/`: every key of the
   JAX package's registry; an unknown one raises `KeyError`) behind the
   prefetching loader, one loader per dataset, interleaved round-robin;
-- `get_loss`: `img_recon` (`ReconstructionLoss`) and `disp_smooth`
-  (`SmoothReg`), with their static weights;
+- `get_loss`: `img_recon` (`ReconstructionLoss`), `depth_regr` and
+  `stereo_const` (`RegressionLoss`), `disp_smooth` (`SmoothReg`), `disp_occ`
+  (`OccReg`) and `disp_mask` (`MaskReg`), with their static weights; the
+  feature losses raise `NotImplementedError` naming ROADMAP A9b, an unknown
+  key `KeyError`;
 - `get_sched`: the product of the configured epoch factors, evaluated at
   `update // steps_per_epoch`;
 - `get_opt` / `make_optimizer`: AdamW, Adam, SGD, LAMB, AdaBelief or
@@ -27,7 +30,7 @@ import torch
 import torch.nn as nn
 
 from .core.schedules import SCHEDULES
-from .losses import ReconstructionLoss, SmoothReg
+from .losses import MaskReg, OccReg, ReconstructionLoss, RegressionLoss, SmoothReg
 from .models import DepthNet, PoseNet
 from .optim import OPTIMIZERS
 
@@ -35,7 +38,12 @@ __all__ = ['get_net', 'get_loss', 'get_ds', 'get_dl', 'get_sched', 'get_opt',
            'make_optimizer', 'Optimizer']
 
 NETS = {'depth': DepthNet, 'pose': PoseNet}
-LOSSES = {'img_recon': ReconstructionLoss, 'disp_smooth': SmoothReg}
+LOSSES = {'img_recon': ReconstructionLoss, 'depth_regr': RegressionLoss,
+          'stereo_const': RegressionLoss, 'disp_smooth': SmoothReg, 'disp_occ': OccReg,
+          'disp_mask': MaskReg}
+# The Depth-VO-Feat and FeatDepth recipes' nets and losses (ROADMAP A9b).
+A9B_NETS = ('autoencoder',)
+A9B_LOSSES = ('feat_recon', 'autoenc_recon', 'feat_peaky', 'feat_smooth')
 
 
 def _listify(v):
@@ -49,9 +57,11 @@ def get_net(cfg: dict, **kw) -> nn.ModuleDict:
     for k, net_kw in cfg.items():
         if net_kw is None:
             continue
-        if k not in NETS:
+        if k in A9B_NETS:
             raise NotImplementedError(f'Net "{k}" is not ported yet (have {sorted(NETS)}); '
-                                      'ROADMAP queue A items 9-10.')
+                                      'ROADMAP queue A item 9b.')
+        if k not in NETS:
+            raise KeyError(f'Unknown network "{k}". ({sorted(NETS)})')
         nets[k] = NETS[k](**{key: _listify(v) for key, v in net_kw.items()}, **kw)
     return nn.ModuleDict(nets)
 
@@ -63,9 +73,11 @@ def get_loss(cfg: dict, **kw) -> tuple[dict, dict]:
     for k, loss_kw in cfg.items():
         if loss_kw is None:
             continue
-        if k not in LOSSES:
+        if k in A9B_LOSSES:
             raise NotImplementedError(f'Loss "{k}" is not ported yet (have {sorted(LOSSES)}); '
-                                      'ROADMAP queue A item 9.')
+                                      'ROADMAP queue A item 9b.')
+        if k not in LOSSES:
+            raise KeyError(f'Unknown loss "{k}". ({sorted(LOSSES)})')
         loss_kw = dict(loss_kw)
         weights[k] = float(loss_kw.pop('weight', 1.0))
         losses[k] = LOSSES[k](**loss_kw, **(kw if k == 'img_recon' else {}))

@@ -267,16 +267,23 @@ def test_run_matches_jax(args, ragged):
         assert a.get('Cat') == b.get('Cat') and a.get('SubCat') == b.get('SubCat')
 
 
-def test_run_in_a_pool_equals_in_process():
-    """`nproc=2` (a Pool forked after torch has run ops on its thread pool in this
-    process) gives what `nproc=0` gives, bit for bit."""
-    import torch
-    torch.ones(256, 256).matmul(torch.ones(256, 256)).sum().item()
+def test_run_in_a_pool_equals_in_process(tmp_path):
+    """`nproc=2` (a Pool forked after torch has run ops on its thread pool in the
+    same process) gives what `nproc=0` gives, bit for bit. Both run in a fresh
+    interpreter that never imports JAX (`fresh_interpreter.py`: a fork of this
+    JAX-loaded process can deadlock its worker)."""
+    from fresh_interpreter import run_fresh
     preds, data = _dataset()
-    ev = teval.MonoDepthEvaluator(align_mode='lsqr', **SYNS_ARGS)
-    mean0, items0 = ev.run(preds, data, nproc=0)
-    mean2, items2 = ev.run(preds, data, nproc=2)
+    (mean0, items0), (mean2, items2) = run_fresh("""
+        from slowtv_monodepth_tpu_torch import eval as teval
+        torch.ones(256, 256).matmul(torch.ones(256, 256)).sum().item()
+        preds, data, args = INPUTS
+        ev = teval.MonoDepthEvaluator(align_mode='lsqr', **args)
+        OUTPUT = ev.run(preds, data, nproc=0), ev.run(preds, data, nproc=2)
+        """, tmp_path, inputs=(preds, data, SYNS_ARGS))
     assert mean0 == mean2 and items0 == items2
+    assert mean0 == teval.MonoDepthEvaluator(align_mode='lsqr', **SYNS_ARGS).run(
+        preds, data, nproc=0)[0]
 
 
 def test_the_item_path_imports_no_torch():

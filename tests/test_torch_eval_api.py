@@ -182,7 +182,8 @@ def _runs(tmp_path) -> tuple[Path, Path]:
 
 
 def test_eval_chain_matches_jax(syns_root, tmp_path, capsys):
-    from slowtv_monodepth_tpu_torch import eval_depth, export_preds, generate_tables
+    from fresh_interpreter import run_fresh
+    from slowtv_monodepth_tpu_torch import export_preds, generate_tables
     port_ckpt, jax_ckpt = _runs(tmp_path)
 
     # Targets: the port's next to the split file, bitwise the JAX script's.
@@ -216,8 +217,15 @@ def test_eval_chain_matches_jax(syns_root, tmp_path, capsys):
     # (a scale near 0), and it would carry their 1e-6 differences into every metric.
     results = port_ckpt.parents[1] / 'results' / 'syns_test_last_lsqr.yaml'
     jax_results = tmp_path / 'jax_results.yaml'
-    _run_main(eval_depth.main, ['--cfg-file', EVAL_CFG, '--pred-file', pred_file,
-                                '--save-file', results, '--align-mode', 'lsqr', '--nproc', 2])
+    # The port's Pool forks: in a fresh interpreter without JAX (`fresh_interpreter.py`).
+    run_fresh("""
+        from slowtv_monodepth_tpu_torch import eval_depth
+        sys.argv = ['slowtv-eval-depth-torch'] + INPUTS
+        eval_depth.main()
+        """, tmp_path / 'fresh', env={'SLOWTV_DATA_ROOTS': str(syns_root.parent)},
+              inputs=[str(a) for a in ('--cfg-file', EVAL_CFG, '--pred-file', pred_file,
+                                       '--save-file', results, '--align-mode', 'lsqr',
+                                       '--nproc', 2)])
     _run_script(API / 'eval' / 'eval_depth.py',
                 ['--cfg-file', EVAL_CFG, '--pred-file', pred_file, '--save-file',
                  jax_results, '--align-mode', 'lsqr', '--nproc', 0])

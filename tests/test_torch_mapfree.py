@@ -27,7 +27,8 @@ from PIL import Image
 from slowtv_monodepth_tpu import parsers as jparsers
 from slowtv_monodepth_tpu import paths as jpaths
 from slowtv_monodepth_tpu_torch import mapfree_preds, parsers, paths
-from test_torch_eval_api import API, _run_main, _run_script, _runs
+from fresh_interpreter import run_fresh
+from test_torch_eval_api import API, _run_main, _runs
 from test_torch_eval_datasets import port_ckpt  # noqa: F401
 from torch_threads import two_torch_threads  # noqa: F401
 
@@ -186,10 +187,25 @@ def test_script_matches_the_jax_script(mapfree_root, tmp_path):
         _run_main(mapfree_preds.main, ['--ckpt', port_ckpt, '--name', 'ours', '--device', 'cpu']
                   + argv)
     (port_ckpt.parent / 'finished').touch()
-    _run_main(mapfree_preds.main, ['--ckpt', port_ckpt, '--name', 'ours', '--device', 'cpu']
-              + argv)
-    _run_script(API / 'mapfree' / 'generate_preds.py', ['--ckpt', jax_ckpt, '--name', 'jax']
-                + argv)
+    # Both scripts write through a forked Pool: each in a fresh interpreter
+    # (`fresh_interpreter.py`), the port's without JAX.
+    env = {'SLOWTV_DATA_ROOTS': str(mapfree_root.parent)}
+    run_fresh("""
+        from slowtv_monodepth_tpu_torch import mapfree_preds
+        sys.argv = ['slowtv-mapfree-preds-torch'] + INPUTS
+        mapfree_preds.main()
+        """, tmp_path / 'fresh_port', env=env,
+              inputs=[str(a) for a in ['--ckpt', port_ckpt, '--name', 'ours', '--device', 'cpu']
+                      + argv])
+    run_fresh("""
+        import runpy
+        script = INPUTS[0]
+        sys.argv = INPUTS
+        sys.path.insert(0, str(__import__('pathlib').Path(script).parent))
+        runpy.run_path(script, run_name='__main__')
+        """, tmp_path / 'fresh_jax', env=env, jax_free=False,
+              inputs=[str(a) for a in [API / 'mapfree' / 'generate_preds.py', '--ckpt', jax_ckpt,
+                                       '--name', 'jax'] + argv])
     files = sorted(mapfree_root.glob('val/*/*/*.ours.png'))
     assert len(files) == 2 * N_FRAMES
     worst = 0
@@ -226,12 +242,19 @@ def test_chip_smoke_mapfree_stand_in_matches_the_dataset(mapfree_root):
     assert all(np.asarray(batches[0][1]['depth']).min(axis=(1, 2, 3)) >= 1 - 1e-5)
 
 
-def test_a_failed_write_raises(mapfree_root, port_ckpt):  # noqa: F811
-    """The JAX script drops a failed item without a word; the port raises."""
+def test_a_failed_write_raises(mapfree_root, port_ckpt, tmp_path):  # noqa: F811
+    """The JAX script drops a failed item without a word; the port raises. The
+    writes fork a Pool: in a fresh interpreter without JAX (`fresh_interpreter.py`)."""
     cfg = {'type': 'mapfree', 'mode': 'val', 'depth_src': 'dptkitti', 'datum': 'image depth'}
-    with pytest.raises(FileNotFoundError, match='no_such_dir'):  # the PNG's directory is missing
-        mapfree_preds.compute_preds('no_such_dir/ours', cfg, str(port_ckpt), device='cpu',
-                                    num_workers=0)
+    raised = run_fresh("""
+        from slowtv_monodepth_tpu_torch import mapfree_preds
+        try:  # the PNG's directory is missing
+            mapfree_preds.compute_preds('no_such_dir/ours', *INPUTS, device='cpu', num_workers=0)
+        except FileNotFoundError as e:
+            OUTPUT = str(e)
+        """, tmp_path / 'fresh', inputs=(cfg, str(port_ckpt)),
+        env={'SLOWTV_DATA_ROOTS': str(mapfree_root.parent)})
+    assert raised and 'no_such_dir' in raised
     with pytest.raises(NotImplementedError, match='ROADMAP queue A item 11'):
         mapfree_preds.compute_preds('ours', cfg, str(port_ckpt), devices=2)
     if not torch.cuda.is_available():  # `--device` defaults to the card

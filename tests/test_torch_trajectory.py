@@ -21,6 +21,11 @@ float32 coin toss on each side (`test_torch_train_step.py`), and the
 trajectories drift apart: measured 1.3e-5 at micro-step 6, 9.7e-5 at 13,
 4.0e-4 at 14. Teeth: the schedule counting micro-steps instead of updates
 fails (off by 7e-3 to 0.7 from micro-step 4 on).
+
+The same wiring with `optimizer.backbone_lr` (1e-5 for every parameter under
+an `encoder`, 1e-4 for the rest, weight decay on all of them: the
+reference's explicit groups bypass timm's bias/norm filter) is held the same
+way; its teeth: the two groups' LRs swapped.
 """
 import jax
 import jax.numpy as jnp
@@ -52,6 +57,7 @@ CFG = {
                   'linear': {'start_factor': 0.1, 'total_iters': 4}},
     'trainer': {'min_depth': 0.1, 'max_depth': 100, 'always_fwd_pose': False},
 }
+BLR_CFG = {**CFG, 'optimizer': {**CFG['optimizer'], 'backbone_lr': 1e-5}}
 EARLY_MICRO_STEPS, EARLY_RTOL = 2 * ACCUMULATE, 1e-5
 LOSS_RTOL = 1e-3
 
@@ -82,11 +88,10 @@ def weights() -> dict:
     return {f'nets.{k}.{kk}': v for k in nets for kk, v in seeded_state_dict(nets[k], 0).items()}
 
 
-@pytest.fixture(scope='module')
-def jax_losses(weights) -> list:
-    params, _ = convert_reference_ckpt(weights, CFG)
-    tx = jparsers.make_optimizer(CFG, steps_per_epoch=STEPS_PER_EPOCH, accumulate=ACCUMULATE)
-    step = jax.jit(JaxTrainer(CFG).make_step_fn(SUPP, tx))
+def jax_run(weights: dict, cfg: dict) -> list:
+    params, _ = convert_reference_ckpt(weights, cfg)
+    tx = jparsers.make_optimizer(cfg, steps_per_epoch=STEPS_PER_EPOCH, accumulate=ACCUMULATE)
+    step = jax.jit(JaxTrainer(cfg).make_step_fn(SUPP, tx))
     state = TrainState(step=jnp.asarray(0, jnp.int32), params=params,
                        aux={'depth': {}, 'pose': {}},  # the step's own: one compile
                        opt_state=tx.init(params), bad_step=jnp.asarray(-1, jnp.int32))
@@ -98,15 +103,28 @@ def jax_losses(weights) -> list:
     return losses
 
 
-def port_losses(weights: dict, fault=None) -> list:
-    trainer = MonoDepthTrainer(CFG)
+@pytest.fixture(scope='module')
+def jax_losses(weights) -> list:
+    return jax_run(weights, CFG)
+
+
+@pytest.fixture(scope='module')
+def jax_losses_backbone_lr(weights) -> list:
+    return jax_run(weights, BLR_CFG)
+
+
+def port_losses(weights: dict, fault=None, cfg: dict = CFG) -> list:
+    trainer = MonoDepthTrainer(cfg)
     for name, net in trainer.nets.items():
         net.load_state_dict({k[len(name) + 6:]: torch.from_numpy(v) for k, v in weights.items()
                              if k.startswith(f'nets.{name}.')})
-    opt = parsers.make_optimizer(CFG, trainer.nets, steps_per_epoch=STEPS_PER_EPOCH,
+    opt = parsers.make_optimizer(cfg, trainer.nets, steps_per_epoch=STEPS_PER_EPOCH,
                                  accumulate=ACCUMULATE)
     if fault == 'schedule_counts_micro_steps':
         opt.lrs = lambda: [lr * opt.sched(opt.updates * 2 + opt.micro - 1) for lr in opt.base_lrs]
+    if fault == 'backbone_lr_swapped':
+        assert len(opt.base_lrs) == 2
+        opt.base_lrs = opt.base_lrs[::-1]
     step = trainer.make_step_fn(SUPP, opt)
     losses = []
     for i in range(N_UPDATES * ACCUMULATE):
@@ -132,3 +150,12 @@ def test_loss_trajectory_matches_jax(weights, jax_losses):
 def test_trajectory_differential_has_teeth(weights, jax_losses):
     assert _faults(port_losses(weights, 'schedule_counts_micro_steps'), jax_losses)
 
+
+def test_backbone_lr_trajectory_matches_jax(weights, jax_losses_backbone_lr):
+    got = port_losses(weights, cfg=BLR_CFG)
+    assert _faults(got, jax_losses_backbone_lr) == []
+    assert got[-1] != got[0]
+
+
+def test_backbone_lr_differential_has_teeth(weights, jax_losses_backbone_lr):
+    assert _faults(port_losses(weights, 'backbone_lr_swapped', BLR_CFG), jax_losses_backbone_lr)
