@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path, KBR training step and KBR training run on
-one NVIDIA GPU (H100).
+"""Drive the PyTorch port's serving path, KBR training step and KBR training run, the
+recipe families and the ResNet nets on one NVIDIA GPU (H100).
 
 Phases, in order; any failure exits non-zero and prints no result:
 1. device: require CUDA, print the card's name and power limit, pin exact
@@ -156,15 +156,28 @@ Phases, in order; any failure exits non-zero and prints no result:
    inverted-berHu hints, Laplacian smoothness, `disp_occ`), Depth-Hints-MS (log-l1 hints
    behind the hint automask, supports [-1, 1, 0]), SfM-Learner (explainability masks,
    `disp_mask`) and Klodt (uncertainty masks), as `cfg/benchmark/default.yaml` + the
-   family's file give them (`family_cfg`; the default's ResNet-18 pose net, ROADMAP A10,
-   overlaid to convnext_tiny), at ConvNeXt-B, 4 scales, B=8, 192x640, `T_stereo` of both
-   signs in a batch: one forward + backward each on the kernel path and on the plain path
-   from the same seeded weights and batch, the loss and every gradient held to the plain
-   path's (1e-5, 1e-3 of each tensor's largest; the gates' flips counted and bounded), the
-   launches of each kernel per micro-step (`FAMILY_LAUNCHES`), device ms per micro-step.
-   Then DVSO through `MonoDepthLoop`: 2 epochs of 2 batches over `StereoHintLoader`
-   (stereo frames, `T_stereo`, hints and KITTI's sparse depth), its launches, `last.ckpt`
-   (the 3-channel disparity head), a validation batch each epoch.
+   family's file give them (`family_cfg`, the default's ResNet-18 pose net as published),
+   at ConvNeXt-B, 4 scales, B=8, 192x640, `T_stereo` of both signs in a batch: one
+   forward + backward each on the kernel path and on the plain path from the same seeded
+   weights and batch, the loss, every gradient and every BatchNorm running statistic held
+   to the plain path's (1e-5, 1e-3 of each tensor's largest; the gates' flips counted and
+   bounded), the launches of each kernel per micro-step (`FAMILY_LAUNCHES`), device ms per
+   micro-step. Then DVSO through `MonoDepthLoop`: 2 epochs of 2 batches over
+   `StereoHintLoader` (stereo frames, `T_stereo`, hints and KITTI's sparse depth), its
+   launches, `last.ckpt` (the 3-channel disparity head), a validation batch each epoch.
+18. resnet: the ResNet and ResNeXt nets with their BatchNorm state (`phase_resnet`):
+   Monodepth2-M as it stands (ConvNeXt-B depth net, ResNet-18 pose net),
+   `abl_pretrained/resnet18` and `abl_pretrained/resnext101_pt_ssl` (`resnet_cfg`; no
+   weight file: the pretrained nets warn and keep the seeded weights), B=8, 192x640: one
+   forward + backward each on the kernel and plain paths, held as in phase 17, the
+   launches per micro-step (`RESNET_LAUNCHES`: a ResNet depth net fuses only decoder stage
+   0), device ms per micro-step and peak memory. Then `abl_pretrained/resnet18` through
+   `MonoDepthLoop` (2 epochs of 2 batches over `PackLoader` stand-ins of KITTI, a
+   validation batch each), its `last.ckpt` with every running statistic and int64 counter
+   equal to the trainer's, served by `BenchmarkPredictor` at B=12 in eval mode and held to
+   the trainer's eval-mode forward (GOLDEN_ATOL).
+   Alone: `python3 -c 'import chip_smoke as c; s = c.phase_device(); c.phase_build();
+   c.phase_resnet(c._make_scenes(), s)'`.
 Every time is a device time (`cuda_ms`: the calls captured into one CUDA
 graph, CUDA events around one replay) with the eager time beside it. The last
 two lines are a JSON object per kernel and the contract line
@@ -359,8 +372,7 @@ EVAL_ARGS = {  # cfg/eval/<name>.yaml `args` (no yaml on the card)
 EVAL_ALIGN = 'lsqr'     # `slowtv-eval-depth-torch`'s default
 # Phase 17: the recipe families beside KBR, as `cfg/benchmark/default.yaml` + the family's
 # file merge them (no yaml on the card; `tests/test_torch_families.py` holds these to the
-# files). The pose net of the default, ResNet-18, is ROADMAP A10: the families that keep it
-# run with its encoder overlaid to convnext_tiny (FAMILY_POSE_OVERLAY), stated where it prints.
+# files), with the default's ResNet-18 pose net as published.
 BENCH_DEFAULT_CFG = {
     'net': {'depth': {'enc_name': 'convnext_base', 'pretrained': True, 'dec_name': 'monodepth',
                       'out_scales': [0, 1, 2, 3], 'use_virtual_stereo': False, 'mask_name': None,
@@ -400,11 +412,10 @@ FAMILY_FILE_CFGS = {  # cfg/benchmark/<name>.yaml
     'klodt': {'net': {'depth': {'mask_name': 'uncertainty', 'num_ch_mask': 2}},
               'loss': {'img_recon': {'mask_name': 'uncertainty'}},
               'dataset': {'kitti_lmdb': {'supp_idxs': [-1, 1]}}}}
-FAMILY_POSE_OVERLAY = 'convnext_tiny'
 FAMILY_B, FAMILY_SHAPE = 8, (192, 640)   # the cfgs' batch and KITTI shape
 # Kernel launches per micro-step (forward + backward) of each family at 4 scales:
 # - dwconv 2 per ConvNeXt block (forward, and dx with flipped taps), dwconv_dw 1: the 36
-#   blocks of ConvNeXt-B, and the 18 of the overlaid ConvNeXt-T where a pose net runs;
+#   blocks of ConvNeXt-B (the ResNet-18 pose net's convs, BatchNorm and max-pool are cuDNN's);
 # - decoder_stage / _bwd: the disparity decoder's two fused stages where it has one output
 #   channel; virtual stereo (3 channels) and the mask decoder (num_ch_mask) run unfused
 #   stages, as the JAX package's, so DVSO launches none and the mask families 2;
@@ -418,9 +429,9 @@ _FAMILY_ZERO = {'warp_packed': 0, 'convnext_block': 0, 'convnext_block_bwd': 0}
 FAMILY_LAUNCHES = {
     'dvso': {'dwconv': 72, 'dwconv_dw': 36, 'decoder_stage': 0, 'decoder_stage_bwd': 0,
              'warp': 3, 'photo_fwd': 2, 'photo_bwd': 2, **_FAMILY_ZERO},
-    'depth_hints_MS': {'dwconv': 108, 'dwconv_dw': 54, 'decoder_stage': 2, 'decoder_stage_bwd': 2,
+    'depth_hints_MS': {'dwconv': 72, 'dwconv_dw': 36, 'decoder_stage': 2, 'decoder_stage_bwd': 2,
                        'warp': 3, 'photo_fwd': 4, 'photo_bwd': 1, **_FAMILY_ZERO},
-    'sfm_learner': {'dwconv': 108, 'dwconv_dw': 54, 'decoder_stage': 2, 'decoder_stage_bwd': 2,
+    'sfm_learner': {'dwconv': 72, 'dwconv_dw': 36, 'decoder_stage': 2, 'decoder_stage_bwd': 2,
                     'warp': 1, 'photo_fwd': 1, 'photo_bwd': 1, **_FAMILY_ZERO}}
 FAMILY_LAUNCHES['klodt'] = FAMILY_LAUNCHES['sfm_learner']
 # DVSO's validation step: the forward and the loss under no_grad.
@@ -436,6 +447,37 @@ FAMILY_VAL_LAUNCHES = {'dwconv': 36, 'warp': 3, 'photo_fwd': 2}
 FAMILY_GATE_SHARE = 1e-3
 FAMILY_GATE_RTOL, FAMILY_GATE_POSE_RTOL, FAMILY_GATE_DEPTH_L2 = 5e-3, 1e-2, 1e-1
 FAMILY_RUN_BATCHES, FAMILY_RUN_EPOCHS = 2, 2   # the DVSO loop: 2 epochs of 2 batches
+# BatchNorm's running statistics after one train-mode pass, kernel path against plain path,
+# relative to each tensor's largest value: the same cuDNN convs on both paths, the depth
+# net's skip features those of the same encoder.
+BN_STATS_RTOL = 1e-3
+# Phase 18: the ResNet and ResNeXt nets, as `cfg/benchmark/default.yaml`, then (for
+# `cfg/abl_pretrained/`) that directory's `default.yaml`, then the file merge them (no yaml on
+# the card; `tests/test_torch_families.py` holds these to the files).
+_ABL_PRETRAINED_DEFAULT = {'loss': {'img_recon': {'use_min': True, 'use_automask': True}},
+                           'dataset': {'kitti_lmdb': {'supp_idxs': [-1, 1]}}}
+RESNET_FILE_CFGS = {  # cfg name -> the files merged over `BENCH_DEFAULT_CFG`, in order
+    'benchmark/monodepth2_M': [{'loss': {'img_recon': {'use_min': True, 'use_automask': True}},
+                                'dataset': {'kitti_lmdb': {'supp_idxs': [-1, 1]}}}],
+    'abl_pretrained/resnet18': [_ABL_PRETRAINED_DEFAULT,
+                                {'net': {'depth': {'enc_name': 'resnet18', 'pretrained': False}}}],
+    'abl_pretrained/resnext101_pt_ssl': [
+        _ABL_PRETRAINED_DEFAULT,
+        {'net': {'depth': {'enc_name': 'ssl_resnext101_32x8d', 'pretrained': True}}}]}
+# Kernel launches per micro-step (forward + backward), min-reprojection + automask as the KBR
+# step: one batched warp, the photometric error on the warped and the static stacks, one
+# backward. ConvNeXt-B's 36 blocks in Monodepth2-M's depth net: dwconv 72, dwconv_dw 36, its
+# decoder's stages 1 and 0 fused. A ResNet depth net has features at stride 2, so stage 1
+# takes a skip and only stage 0 is fused; no dwconv. The ResNet-18 pose net launches none.
+_RESNET_LOSS_LAUNCHES = {'warp': 1, 'photo_fwd': 2, 'photo_bwd': 1, **_FAMILY_ZERO}
+RESNET_LAUNCHES = {
+    'benchmark/monodepth2_M': {'dwconv': 72, 'dwconv_dw': 36, 'decoder_stage': 2,
+                               'decoder_stage_bwd': 2, **_RESNET_LOSS_LAUNCHES},
+    'abl_pretrained/resnet18': {'dwconv': 0, 'dwconv_dw': 0, 'decoder_stage': 1,
+                                'decoder_stage_bwd': 1, **_RESNET_LOSS_LAUNCHES}}
+RESNET_LAUNCHES['abl_pretrained/resnext101_pt_ssl'] = RESNET_LAUNCHES['abl_pretrained/resnet18']
+RESNET_RUN = 'abl_pretrained/resnet18'   # train -> checkpoint -> serve
+RESNET_SERVE_B = 12                      # `export_preds`' batch
 # Kernel 7's map at the KBR step's two photometric shapes on
 # `tools/photo_bench.digest_inputs`, as its parent checkout (f3a8e85) gave it on an
 # H100: separating kernel 8 out of csrc/photo.cu left kernel 7's bits alone.
@@ -1652,9 +1694,10 @@ class PackLoader(SceneLoader):
     readers' metadata keys.
     """
 
-    def __init__(self, scenes, name: str, n_batches: int, shape, train: bool, seed: int = 0):
+    def __init__(self, scenes, name: str, n_batches: int, shape, train: bool, seed: int = 0,
+                 batch: int = TRAIN_B):
         from slowtv_monodepth_tpu_torch.data import IMAGENET_MEAN, IMAGENET_STD
-        super().__init__(scenes, n_batches, shape, seed=seed)
+        super().__init__(scenes, n_batches, shape, batch=batch, seed=seed)
         self.name, self.train = name, train
         self.std = (self.base - IMAGENET_MEAN) / IMAGENET_STD
 
@@ -2855,7 +2898,8 @@ def phase_eval_zero_shot(sd, scenes, smi: str) -> None:
 @functools.lru_cache(maxsize=None)
 def _seeded_weights(key: str, net_cfg: str) -> dict:
     """`models.seeded_state_dict` of the net `key` of a cfg (its section as JSON), drawn
-    once a process: the overlaid pose net is the same in three families."""
+    once a process: the pose net is the same in most families (BatchNorm's running
+    statistics drawn too: a positive variance, counters at 0)."""
     from slowtv_monodepth_tpu_torch import parsers
     from slowtv_monodepth_tpu_torch.models import seeded_state_dict
     with torch.device('meta'):
@@ -2864,17 +2908,15 @@ def _seeded_weights(key: str, net_cfg: str) -> dict:
 
 
 def family_cfg(name: str) -> dict:
-    """`BENCH_DEFAULT_CFG` merged with the family's file, the pose encoder overlaid."""
+    """`BENCH_DEFAULT_CFG` merged with the family's file."""
     from slowtv_monodepth_tpu_torch.config import merge_dicts
-    cfg = merge_dicts(BENCH_DEFAULT_CFG, FAMILY_FILE_CFGS[name])
-    if cfg['net'].get('pose'):
-        cfg['net']['pose']['enc_name'] = FAMILY_POSE_OVERLAY
-    return cfg
+    return merge_dicts(BENCH_DEFAULT_CFG, FAMILY_FILE_CFGS[name])
 
 
 def _family_pass(trainer, x, y, supp, noise) -> dict:
     """One forward + backward of a family's loss (no update) -> loss, its terms, every
-    parameter's gradient, the gates' bits and the launches it made."""
+    parameter's gradient, every BatchNorm's running statistics after it, the gates' bits
+    and the launches it made."""
     trainer.nets.train()
     trainer.nets.zero_grad(set_to_none=True)
     _reset_counts()
@@ -2886,6 +2928,10 @@ def _family_pass(trainer, x, y, supp, noise) -> dict:
             'bits': {k: ld[k].detach().clone() for k in ('automask', 'automask_hints') if k in ld},
             'grads': {f'{n}.{k}': p.grad.detach().clone() for n, net in trainer.nets.items()
                       for k, p in net.named_parameters() if p.grad is not None},
+            'stats': {f'{n}.{k}': b.detach().clone() for n, net in trainer.nets.items()
+                      for k, b in net.named_buffers() if 'running' in k},
+            'counters': {int(b) for net in trainer.nets.values()
+                         for k, b in net.named_buffers() if k.endswith('num_batches_tracked')},
             'n_params': sum(1 for net in trainer.nets.values() for _ in net.parameters())}
 
 
@@ -2929,7 +2975,74 @@ def _family_compare(got: dict, want: dict) -> tuple[list, list]:
             faults.append(f'depth net gradient {l2:.2e} relative L2')
     notes.append(f'worst gradient {worst:.2e} of its tensor\'s largest'
                  + (' (pose net; gate flips)' if flips else ''))
+    if got['counters'] - {1} or sorted(got['stats']) != sorted(want['stats']):
+        faults.append(f'BatchNorm counters {got["counters"]} after one pass')
+    worst = 0.0
+    for k, w in want['stats'].items():  # the batch statistics of the same activations
+        rel = float((got['stats'][k] - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        worst = max(worst, rel)
+        if not rel <= BN_STATS_RTOL:
+            faults.append(f'{k}: off by {rel:.2e} of its largest (bound {BN_STATS_RTOL:.0e})')
+    if want['stats']:
+        notes.append(f'{len(want["stats"])} BatchNorm running statistics, worst {worst:.2e} '
+                     'of its largest')
     return faults, notes
+
+
+def _step_inputs(cfg: dict, loader: SceneLoader, seed: int) -> tuple:
+    """A batch of `FAMILY_B` frames for `cfg` on the card (`family_batch`: its supports,
+    hints where it regresses them) and the automask noise where it has an automask ->
+    (x, y, supports, noise or None)."""
+    supp = tuple(cfg['dataset']['kitti_lmdb']['supp_idxs'])
+    rs = np.random.RandomState(seed)
+    x, y = family_batch(loader, rs.randint(0, len(loader.base), FAMILY_B), supp,
+                        'depth_regr' in cfg['loss'], rs)
+    x, y = ({k: torch.from_numpy(np.ascontiguousarray(v)).cuda() for k, v in d.items()}
+            for d in (x, y))
+    n_sc = len(cfg['net']['depth']['out_scales'])
+    noise = (torch.from_numpy(rs.standard_normal((n_sc * FAMILY_B,) + FAMILY_SHAPE + (1,))
+                              .astype(np.float32)).cuda()
+             if cfg['loss']['img_recon'].get('use_automask') else None)
+    return x, y, supp, noise
+
+
+def _both_paths(cfg: dict, x, y, supp, noise, tag: str,
+                expect: dict) -> tuple[dict, dict, dict, list]:
+    """One forward + backward of `cfg`'s loss on the kernel path and on the plain path from
+    the same seeded weights and batch; the kernel path's launches held to `expect` and its
+    results to the plain path's (`_family_compare`) -> (passes, device times, peak GiB,
+    notes), keyed by `kernels`."""
+    from slowtv_monodepth_tpu_torch.core.trainer import MonoDepthTrainer
+    weights = {k: _seeded_weights(k, json.dumps(net_cfg, sort_keys=True))
+               for k, net_cfg in cfg['net'].items() if net_cfg}
+    passes, times, peaks = {}, {}, {}
+    for kernels in (True, False):
+        # Shapes only, then the seeded weights on the card: no initial draw (seconds a net
+        # on the host; on the card, the CUDA generator after a failed capture refuses it).
+        with torch.device('meta'):
+            trainer = MonoDepthTrainer(cfg, kernels=kernels)
+        trainer.nets.to_empty(device='cuda')
+        for k, sd in weights.items():
+            trainer.nets[k].load_state_dict(sd)
+        torch.cuda.reset_peak_memory_stats()
+        passes[kernels] = _family_pass(trainer, x, y, supp, noise)
+
+        def fwd_bwd(trainer=trainer):
+            trainer.nets.zero_grad(set_to_none=True)
+            trainer.loss_fn(x, y, supp, noise=noise)[0].backward()
+        times[kernels] = cuda_ms(fwd_bwd, iters=2, warmup=1)
+        peaks[kernels] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del trainer, fwd_bwd
+        gc.collect()
+        torch.cuda.empty_cache()
+    got = {k: passes[True]['counts'][k] for k in expect}
+    if got != expect or any(passes[False]['counts'].values()):
+        fail(f'{tag}: launches per micro-step {got}, expected {expect}; '
+             f'plain path {passes[False]["counts"]}')
+    faults, notes = _family_compare(passes[True], passes[False])
+    if faults:
+        fail(f'{tag}: kernel path against the plain path: ' + '; '.join(faults))
+    return passes, times, peaks, notes
 
 
 def phase_families(scenes, smi: str) -> None:
@@ -2940,53 +3053,18 @@ def phase_families(scenes, smi: str) -> None:
     micro-step. Then DVSO through `MonoDepthLoop`: 2 epochs of 2 batches over
     `StereoHintLoader`, `last.ckpt`, one validation batch."""
     from slowtv_monodepth_tpu_torch.core import load_checkpoint
-    from slowtv_monodepth_tpu_torch.core.trainer import MonoDepthTrainer
     t0 = time.perf_counter()
-    print(f'families: pose encoder {BENCH_DEFAULT_CFG["net"]["pose"]["enc_name"]} (ROADMAP A10) '
-          f'overlaid to {FAMILY_POSE_OVERLAY} in every family that keeps a pose net')
+    print(f'families: pose encoder {BENCH_DEFAULT_CFG["net"]["pose"]["enc_name"]} as published '
+          'in every family that keeps a pose net')
     loader = SceneLoader(scenes, 1, FAMILY_SHAPE, batch=FAMILY_B)
     for fam_i, name in enumerate(FAMILY_FILE_CFGS):
         cfg = family_cfg(name)
-        supp = tuple(cfg['dataset']['kitti_lmdb']['supp_idxs'])
-        weights = {k: _seeded_weights(k, json.dumps(net_cfg, sort_keys=True))
-                   for k, net_cfg in cfg['net'].items() if net_cfg}
-        rs = np.random.RandomState(RUN_SEED + fam_i)
-        x, y = family_batch(loader, rs.randint(0, len(loader.base), FAMILY_B), supp,
-                            'depth_regr' in cfg['loss'], rs)
-        x, y = ({k: torch.from_numpy(np.ascontiguousarray(v)).cuda() for k, v in d.items()}
-                for d in (x, y))
-        n_sc = len(cfg['net']['depth']['out_scales'])
-        noise = (torch.from_numpy(rs.standard_normal((n_sc * FAMILY_B,) + FAMILY_SHAPE + (1,))
-                                  .astype(np.float32)).cuda()
-                 if cfg['loss']['img_recon'].get('use_automask') else None)
-        passes, times = {}, {}
-        for kernels in (True, False):
-            # Shapes only, then the seeded weights on the card: no initial draw (seconds a net
-            # on the host; on the card, the CUDA generator after a failed capture refuses it).
-            with torch.device('meta'):
-                trainer = MonoDepthTrainer(cfg, kernels=kernels)
-            trainer.nets.to_empty(device='cuda')
-            for k, sd in weights.items():
-                trainer.nets[k].load_state_dict(sd)
-            passes[kernels] = _family_pass(trainer, x, y, supp, noise)
-
-            def fwd_bwd(trainer=trainer):
-                trainer.nets.zero_grad(set_to_none=True)
-                trainer.loss_fn(x, y, supp, noise=noise)[0].backward()
-            times[kernels] = cuda_ms(fwd_bwd, iters=2, warmup=1)
-            del trainer, fwd_bwd
-            gc.collect()
-            torch.cuda.empty_cache()
-        want = FAMILY_LAUNCHES[name]
-        got_counts = {k: passes[True]['counts'][k] for k in want}
-        if got_counts != want or any(passes[False]['counts'].values()):
-            fail(f'families {name}: launches per micro-step {got_counts}, expected {want}; '
-                 f'plain path {passes[False]["counts"]}')
-        faults, notes = _family_compare(passes[True], passes[False])
-        if faults:
-            fail(f'families {name}: kernel path against the plain path: ' + '; '.join(faults))
+        x, y, supp, noise = _step_inputs(cfg, loader, RUN_SEED + fam_i)
+        passes, times, _, notes = _both_paths(cfg, x, y, supp, noise, f'families {name}',
+                                              FAMILY_LAUNCHES[name])
+        got_counts = {k: passes[True]['counts'][k] for k in FAMILY_LAUNCHES[name]}
         k_ms, p_ms = times[True], times[False]
-        nets = sorted(cfg['net'][n]['enc_name'] for n in weights)
+        nets = sorted(v['enc_name'] for v in cfg['net'].values() if v)
         print(f'families {name} (supports {list(supp)}, nets {nets}): '
               f'loss {passes[True]["loss"]:.6f} (plain {passes[False]["loss"]:.6f}); '
               + '; '.join(notes) + f'; every one of {passes[True]["n_params"]} parameters with a '
@@ -3026,6 +3104,105 @@ def phase_families(scenes, smi: str) -> None:
           'validation ' + ', '.join(f'{k} {v:.4g}' for k, v in val.items()))
     torch.backends.cudnn.benchmark = False
     print(f'families: phase wall {time.perf_counter() - t0:.1f} s')
+
+
+def resnet_cfg(name: str) -> dict:
+    """`BENCH_DEFAULT_CFG` merged with the files of `RESNET_FILE_CFGS[name]`."""
+    from slowtv_monodepth_tpu_torch.config import merge_dicts
+    cfg = BENCH_DEFAULT_CFG
+    for part in RESNET_FILE_CFGS[name]:
+        cfg = merge_dicts(cfg, part)
+    return cfg
+
+
+def phase_resnet(scenes, smi: str) -> None:
+    """The ResNet and ResNeXt nets at published widths (B=8, 192x640, 4 scales): one
+    micro-step (forward + backward) of Monodepth2-M as it stands (ConvNeXt-B depth net,
+    ResNet-18 pose net), `abl_pretrained/resnet18` and `abl_pretrained/resnext101_pt_ssl`
+    on the kernel path and on the plain path from the same seeded weights and batch: the
+    loss, every gradient and every BatchNorm running statistic held to the plain path's;
+    launches per kernel; device ms per micro-step and peak memory. Then
+    `abl_pretrained/resnet18` through `MonoDepthLoop` (2 epochs of 2 batches and a
+    validation batch each), its `last.ckpt` with every buffer, served by
+    `BenchmarkPredictor` at B=12 and held to the trainer's eval-mode forward."""
+    from slowtv_monodepth_tpu_torch.core import BenchmarkPredictor, load_checkpoint
+    t0 = time.perf_counter()
+    loader = SceneLoader(scenes, 1, FAMILY_SHAPE, batch=FAMILY_B)
+    for i, name in enumerate(RESNET_FILE_CFGS):
+        cfg = resnet_cfg(name)
+        x, y, supp, noise = _step_inputs(cfg, loader, RUN_SEED + 20 + i)
+        passes, times, peaks, notes = _both_paths(cfg, x, y, supp, noise, f'resnet {name}',
+                                                  RESNET_LAUNCHES[name])
+        got_counts = {k: passes[True]['counts'][k] for k in RESNET_LAUNCHES[name]}
+        k_ms, p_ms = times[True], times[False]
+        nets = {n: v['enc_name'] for n, v in cfg['net'].items() if v}
+        print(f'resnet {name} (nets {nets}, B={FAMILY_B}, {FAMILY_SHAPE[0]}x{FAMILY_SHAPE[1]}, '
+              f'supports {list(supp)}): loss {passes[True]["loss"]:.6f} (plain '
+              f'{passes[False]["loss"]:.6f}, rtol 1e-5); gradients within 1e-3 and running '
+              f'statistics within {BN_STATS_RTOL:.0e} of each tensor\'s largest: '
+              + '; '.join(notes) + f'; every one of {passes[True]["n_params"]} parameters with a '
+              f'finite non-zero gradient; launches per micro-step {got_counts}; device ms per '
+              f'micro-step (forward + backward, no update; eager in brackets, timed by '
+              f'{k_ms.how}/{p_ms.how}): kernel {k_ms.ms:.2f} ({k_ms.eager_ms:.2f}), plain '
+              f'{p_ms.ms:.2f} ({p_ms.eager_ms:.2f}); peak memory kernel {peaks[True]:.2f} '
+              f'GiB, plain {peaks[False]:.2f} GiB on {smi}')
+        del passes
+        torch.cuda.empty_cache()
+
+    # Train -> checkpoint -> serve, as `slowtv-train-torch` and `export_preds` run them.
+    cfg = resnet_cfg(RESNET_RUN)
+    cfg = {**cfg, 'seed': RUN_SEED, 'trainer': {
+        **cfg['trainer'], 'max_epochs': FAMILY_RUN_EPOCHS, 'log_every_n_steps': 1,
+        'limit_val_batches': 1, 'matmul': 'highest'}}
+    n = FAMILY_RUN_EPOCHS * FAMILY_RUN_BATCHES
+    with tempfile.TemporaryDirectory() as tmp:
+        run = Path(tmp) / 'run'
+        loop, st = _run_loop(cfg, run, scenes, val=True, tag=f'resnet {RESNET_RUN}', loaders=(
+            PackLoader(scenes, 'kitti_lmdb', FAMILY_RUN_BATCHES, FAMILY_SHAPE, True, RUN_SEED,
+                       batch=FAMILY_B),
+            PackLoader(scenes, 'kitti_lmdb', 1, FAMILY_SHAPE, False, RUN_SEED + 1, batch=FAMILY_B)))
+        counts = st['counts']
+        if loop.global_step != n or counts['decoder_stage_bwd'] != n or counts['dwconv'] \
+                or counts['decoder_stage'] != n + FAMILY_RUN_EPOCHS:
+            fail(f'resnet run: {loop.global_step} micro-steps, launches {counts}')
+        sd, ckpt_cfg = load_checkpoint(run / 'last.ckpt')
+        live = {f'nets.{k}.{kk}': v for k, net in loop.trainer.nets.items()
+                for kk, v in net.state_dict().items()}
+        buffers = [k for k in live if 'running' in k or k.endswith('num_batches_tracked')]
+        stale = [k for k in buffers if not torch.equal(sd[k], live[k].cpu())]
+        counters = {int(sd[k]) for k in buffers if k.endswith('num_batches_tracked')}
+        if sorted(sd) != sorted(live) or not buffers or stale or counters != {n} \
+                or any(sd[k].dtype != torch.int64 for k in buffers if 'running' not in k):
+            fail(f'resnet run: last.ckpt has {len(sd)} of {len(live)} tensors, buffers '
+                 f'{len(buffers)}, stale {stale[:3]}, counters {counters}')
+        predictor = BenchmarkPredictor('cuda')
+        net = predictor.load_model(run / 'last.ckpt')
+        std = PackLoader(scenes, 'kitti_lmdb', 1, FAMILY_SHAPE, False).std  # a frame a scene
+        imgs = std[np.arange(RESNET_SERVE_B) % len(std)]
+        t = torch.from_numpy(np.ascontiguousarray(imgs)).cuda().permute(0, 3, 1, 2)
+        _reset_counts()
+        with torch.no_grad():
+            got = predictor.forward(net, t)
+            served = _read_counts()
+            want = loop.trainer.nets['depth'].eval()(t)['disp'][0]
+        torch.cuda.synchronize()
+        err = _max_err(got, want)
+        if net.training or got.shape != (RESNET_SERVE_B, 1) + FAMILY_SHAPE or err > GOLDEN_ATOL \
+                or served['decoder_stage'] != 1 or served['dwconv']:
+            fail(f'resnet serve: output {tuple(got.shape)} off the trainer\'s eval forward by '
+                 f'{err:.2e}, launches {served}')
+        print(f'resnet run {RESNET_RUN}: {FAMILY_RUN_EPOCHS} epochs x {FAMILY_RUN_BATCHES} '
+              f'batches of {FAMILY_B} at {FAMILY_SHAPE[0]}x{FAMILY_SHAPE[1]}, launches '
+              f'{counts}; last.ckpt {len(sd)} tensors, {len(buffers)} BatchNorm buffers equal '
+              f'to the trainer\'s, counters {sorted(counters)} (int64); BenchmarkPredictor '
+              f'serves it at B={RESNET_SERVE_B} in eval mode ({served["decoder_stage"]} '
+              f'decoder_stage launch per forward), {err:.2e} off the trainer\'s eval-mode '
+              f'forward (bound {GOLDEN_ATOL:.0e}) on {smi}')
+        del loop, net, predictor
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.benchmark = False
+    print(f'resnet: phase wall {time.perf_counter() - t0:.1f} s')
 
 
 def profile_train(out: Path = ROOT / 'build' / 'train_profile.txt',
@@ -3136,6 +3313,7 @@ def main() -> None:
     phase_eval(sd, scenes, smi)
     phase_eval_zero_shot(sd, scenes, smi)
     phase_families(scenes, smi)
+    phase_resnet(scenes, smi)
     sources = {'dwconv': ('dwconv.cu', 'pallas_dwconv.py:59'),
                'decoder_stage': ('decoder_stage.cu', 'pallas_decoder.py:249'),
                'decoder_stage_bwd': ('decoder_stage_bwd.cu', 'pallas_decoder.py:268'),

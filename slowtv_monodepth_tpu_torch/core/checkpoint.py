@@ -263,7 +263,9 @@ def train_state_from_jax(state, nets: Mapping[str, torch.nn.Module], opt,
     and `parsers.Optimizer`, so both step functions continue from one state.
 
     :param state: `jax.tree.map(np.asarray, train_state)`: `params` {'depth',
-        'pose'}, `step`, and `opt_state` of `parsers.make_optimizer`: AdamW,
+        'pose'}, `aux` (a BatchNorm net's `batch_stats`: its running statistics
+        go into the net's buffers), `step`, and `opt_state` of
+        `parsers.make_optimizer`: AdamW,
         bare or under `optax.MultiSteps` (read by attribute: `mu`, `nu`, `count`;
         `mini_step`, `gradient_step`, `acc_grads`, `inner_opt_state`).
     :param out_scales: the depth net's `out_scales` in cfg order.
@@ -273,7 +275,7 @@ def train_state_from_jax(state, nets: Mapping[str, torch.nn.Module], opt,
     keeps their SUM in `.grad`, so the accumulator comes across times `mini_step`.
     """
     from ..models.from_jax import depth_state_dict_from_jax, pose_state_dict_from_jax
-    convert = {'depth': lambda t: depth_state_dict_from_jax(t, out_scales),
+    convert = {'depth': lambda t, stats=None: depth_state_dict_from_jax(t, out_scales, stats),
                'pose': pose_state_dict_from_jax}
     if set(nets) - set(convert):
         raise NotImplementedError(f'Nets {sorted(set(nets) - set(convert))} have no bridge.')
@@ -297,6 +299,13 @@ def train_state_from_jax(state, nets: Mapping[str, torch.nn.Module], opt,
     with torch.no_grad():
         for p, v in port_tensors(state.params).items():
             p.copy_(v)
+        for name, net in nets.items():
+            stats = state.aux.get(name, {}).get('batch_stats')
+            if stats is None:
+                continue
+            sd = convert[name](state.params[name], stats)
+            for k, b in net.named_buffers():
+                b.copy_(sd[k])
     mu, nu = port_tensors(adam.mu), port_tensors(adam.nu)
     count = int(np.asarray(adam.count))
     for p in opt.params():

@@ -372,23 +372,29 @@ class MonoDepthLoop:
 
     # -------------------------------------------------------------- callbacks
     def _swa_update(self, epoch: int) -> None:
-        """Accumulate the SWA running sum over the last 25% of epochs."""
+        """Accumulate the SWA running sum of the parameters over the last 25% of
+        epochs. Buffers (BatchNorm's running statistics) are not averaged: the JAX
+        package averages `state.params` only."""
         if not self.use_swa or epoch < int(0.75 * self.max_epochs):
             return
-        sds = {k: net.state_dict() for k, net in self.trainer.nets.items()}
+        params = {n: dict(net.named_parameters()) for n, net in self.trainer.nets.items()}
         if self._swa_sum is None:
             self._swa_sum = {n: {k: v.detach().to(torch.float32, copy=True)
-                                 for k, v in sd.items()} for n, sd in sds.items()}
+                                 for k, v in ps.items()} for n, ps in params.items()}
         else:
-            for n, sd in sds.items():
-                for k, v in sd.items():
+            for n, ps in params.items():
+                for k, v in ps.items():
                     self._swa_sum[n][k] += v.detach()
         self._swa_n += 1
 
     def _swa_finalize(self) -> None:
+        """`swa.ckpt`: the averaged parameters and the buffers' current values
+        (as the JAX package's `state.replace(params=avg)` keeps `aux`)."""
         if not self.use_swa or self._swa_sum is None:
             return
-        avg = {n: {k: v / self._swa_n for k, v in sd.items()} for n, sd in self._swa_sum.items()}
+        avg = {n: {**dict(self.trainer.nets[n].named_buffers()),
+                   **{k: v / self._swa_n for k, v in sd.items()}}
+               for n, sd in self._swa_sum.items()}
         save_checkpoint(self.ckpt_dir / 'swa.ckpt', avg, self.cfg)
         LOGGER.info(f'SWA checkpoint over {self._swa_n} epochs -> {self.ckpt_dir / "swa.ckpt"}')
 

@@ -4,7 +4,12 @@ Counterpart of `slowtv_monodepth_tpu/models/depth.py:DepthNet`: the same
 fields and the same output dict, with NCHW tensors. `state_dict()` keys,
 prefixed with `nets.depth.`, are the reference Lightning checkpoint's
 (`slowtv_monodepth_tpu/models/import_reference.py` reads them): `encoder.*`
-(timm ConvNeXt names) and `decoders.disp.decoder.{idx}.*`.
+(timm's ConvNeXt or ResNet names, BatchNorm buffers included) and
+`decoders.disp.decoder.{idx}.*`.
+
+A ResNet or ResNeXt encoder gives features at strides 2 to 32, so the
+decoder's stage 1 takes a skip and only stage 0 runs fused; behind ConvNeXt
+(strides 4 to 32) stages 1 and 0 do.
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ MASKS = {None: None, 'explainability': 'sigmoid', 'uncertainty': 'relu'}
 
 
 class DepthNet(nn.Module):
-    """:param enc_name: Encoder key (ConvNeXt family, `CONVNEXT_SPECS`).
+    """:param enc_name: Encoder key (`CONVNEXT_SPECS` or `RESNET_SPECS`).
     :param pretrained: Look for pretrained encoder weights when training
         starts (`MonoDepthTrainer`, as the JAX package's `init_state`); a
         served net takes its weights from a checkpoint.
@@ -130,6 +135,8 @@ def seeded_state_dict(net: nn.Module, seed: int) -> dict[str, np.ndarray]:
       blocks' residual branches matter;
     - any other 1-D `*.weight` (LayerNorm scale): 1 + 0.1 * N(0, 1);
     - 1-D `*.bias`: 0.1 * N(0, 1);
+    - BatchNorm's buffers: `*.running_var` uniform in [0.5, 1.5] (a variance),
+      `*.running_mean` 0.1 * N(0, 1), `*.num_batches_tracked` 0 (int64, no draw);
     - conv / linear weights: N(0, 1) / sqrt(fan_in), fan_in = prod(shape[1:]).
     Works on a `torch.device('meta')` net (only shapes are read).
     """
@@ -137,7 +144,12 @@ def seeded_state_dict(net: nn.Module, seed: int) -> dict[str, np.ndarray]:
     out = {}
     for key, t in sorted(net.state_dict().items()):
         shape = tuple(t.shape)
-        if key.endswith('.gamma'):
+        if key.endswith('.num_batches_tracked'):
+            out[key] = np.zeros(shape, np.int64)
+            continue
+        if key.endswith('.running_var'):
+            v = rs.uniform(0.5, 1.5, shape)
+        elif key.endswith('.gamma'):
             v = rs.uniform(0.05, 0.15, shape)
         elif len(shape) == 1 and key.endswith('.weight'):
             v = 1.0 + 0.1 * rs.standard_normal(shape)

@@ -4,7 +4,9 @@ Counterpart of `slowtv_monodepth_tpu/models/encoders/pretrained.py`: with
 `pretrained: True` the trainer grafts `<model_root>/timm/<enc_name>.npz|.pth|.pt`
 (written by `api/data/export_timm.py` on a machine with timm) into the net's
 encoder when the file is there, and warns and keeps the initial weights when it
-is not. The ConvNeXt family is ported; the other encoder families are ROADMAP
+is not. The ConvNeXt, ResNet and ResNeXt families are ported (a ResNet's
+BatchNorm running statistics are grafted with its parameters, as the JAX
+package grafts its `batch_stats`); the other encoder families are ROADMAP
 queue A item 10, and their constructors raise before a file is looked for.
 
 The weights are copied into the encoder's existing parameters
@@ -22,7 +24,8 @@ import torch.nn as nn
 from ... import paths
 from ...utils import get_logger
 from .convnext import CONVNEXT_SPECS
-from .import_torch import convert_convnext, load_state_dict_file
+from .import_torch import convert_convnext, convert_resnet, load_state_dict_file
+from .resnet import RESNET_SPECS
 
 __all__ = ['find_weights_file', 'load_pretrained_encoder']
 
@@ -52,11 +55,13 @@ def load_pretrained_encoder(net: nn.Module, enc_name: str, in_chans: int = 3) ->
             f'No pretrained weights for "{enc_name}" under <model_root>/timm/; '
             'using random init. Export with api/data/export_timm.py.')
         return False
-    if enc_name not in CONVNEXT_SPECS:
-        raise NotImplementedError(f'No converter for encoder "{enc_name}" in the port: only '
-                                  'ConvNeXt is ported (ROADMAP queue A item 10).')
     LOGGER.info(f'Loading pretrained encoder weights from {file}...')
-    sd = convert_convnext(load_state_dict_file(file), CONVNEXT_SPECS[enc_name]['depths'],
-                          in_chans=in_chans)
+    if enc_name in RESNET_SPECS:
+        spec = RESNET_SPECS[enc_name]
+        sd = convert_resnet(load_state_dict_file(file), spec['layers'], block=spec['block'],
+                            in_chans=in_chans)
+    else:
+        sd = convert_convnext(load_state_dict_file(file), CONVNEXT_SPECS[enc_name]['depths'],
+                              in_chans=in_chans)
     net.encoder.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
     return True

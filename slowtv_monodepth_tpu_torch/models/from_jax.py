@@ -2,8 +2,13 @@
 `PoseNet` state dicts.
 
 The inverse of `slowtv_monodepth_tpu/models/import_reference.py:_convert_depth`
-and `_convert_pose` with `encoders/import_torch.py:convert_convnext`
-(ConvNeXt encoders, monodepth decoders, pose heads). The other direction
+and `_convert_pose` with `encoders/import_torch.py:convert_convnext` and
+`convert_resnet` (ConvNeXt, ResNet and ResNeXt encoders, monodepth decoders,
+pose heads). A ResNet's BatchNorm running statistics come from the net's
+`batch_stats` (`state.aux[net]['batch_stats']`); given them, the state dict
+holds the buffers too (`num_batches_tracked`, which flax does not keep, 0).
+Without them it holds the parameters only (for a tree of optimizer moments,
+say). The other direction
 needs no code of its own: prefix the port's `state_dict()` keys with
 `nets.depth.` / `nets.pose.` and hand them to `convert_reference_ckpt`.
 
@@ -12,7 +17,8 @@ Layouts: conv HWIO -> OIHW, depthwise (k, k, 1, C) -> (C, 1, k, k), dense
 
 A JAX orbax checkpoint reaches the port in three steps: the JAX package's
 `state, meta = core.checkpoint.load_checkpoint(path)` (host numpy), then
-`sd = depth_state_dict_from_jax(state.params['depth'])`, then the port's
+`sd = depth_state_dict_from_jax(state.params['depth'],
+batch_stats=state.aux['depth'].get('batch_stats'))`, then the port's
 `core.checkpoint.save_checkpoint(out, {'depth': sd}, meta['cfg'])`.
 """
 from __future__ import annotations
@@ -62,6 +68,40 @@ def _convnext(p: dict) -> dict:
     return sd
 
 
+def _resnet(p: dict, stats: Optional[dict]) -> dict:
+    """JAX `ResNetEncoder` params (and batch_stats) -> timm keys."""
+    def bn(dst: str, q: dict, st: Optional[dict]) -> dict:
+        out = {f'{dst}.weight': _t(q['scale']), f'{dst}.bias': _t(q['bias'])}
+        if st is not None:
+            out.update({f'{dst}.running_mean': _t(st['mean']), f'{dst}.running_var': _t(st['var']),
+                        f'{dst}.num_batches_tracked': torch.zeros((), dtype=torch.int64)})
+        return out
+
+    stats = stats or {}
+    sd = {'conv1.weight': _conv(p['conv1']['kernel']), **bn('bn1', p['bn1'], stats.get('bn1'))}
+    for name, q in p.items():
+        if not (m := re.fullmatch(r'layer(\d+)_(\d+)', name)):
+            continue
+        pre, st = f'layer{m[1]}.{m[2]}', stats.get(name, {})
+        for sub, w in q.items():
+            if sub.startswith('conv') or sub == 'downsample_conv':
+                dst = f'{pre}.downsample.0' if sub == 'downsample_conv' else f'{pre}.{sub}'
+                sd[f'{dst}.weight'] = _conv(w['kernel'])
+            else:
+                dst = f'{pre}.downsample.1' if sub == 'downsample_bn' else f'{pre}.{sub}'
+                sd.update(bn(dst, w, st.get(sub)))
+    return sd
+
+
+def _encoder(p: dict, stats: Optional[dict]) -> dict:
+    if 'stem_conv' in p:
+        return _convnext(p)
+    if 'conv1' in p:
+        return _resnet(p, stats)
+    raise NotImplementedError('Only ConvNeXt, ResNet and ResNeXt encoders are ported '
+                              '(ROADMAP queue A item 10).')
+
+
 def _monodepth(p: dict, out_scales: Sequence[int]) -> dict:
     names = [f'upconv_{i}_{j}' for i in range(4, -1, -1) for j in (0, 1)]
     sd = {}
@@ -77,21 +117,24 @@ def _monodepth(p: dict, out_scales: Sequence[int]) -> dict:
 
 
 def depth_state_dict_from_jax(params: dict,
-                              out_scales: Optional[Sequence[int]] = None
+                              out_scales: Optional[Sequence[int]] = None,
+                              batch_stats: Optional[dict] = None
                               ) -> dict[str, torch.Tensor]:
-    """JAX `DepthNet` params (ConvNeXt + monodepth) -> port `DepthNet` state dict.
+    """JAX `DepthNet` params (ConvNeXt, ResNet or ResNeXt + monodepth) -> port
+    `DepthNet` state dict.
 
     :param params: {'encoder': ..., 'decoders_disp': ..., ['decoders_mask']},
         leaves numpy or jax arrays.
     :param out_scales: The net's `out_scales` in cfg order (it fixes the
         outconv indices); default: the scales present, ascending.
+    :param batch_stats: the net's {'encoder': ...} running statistics (a
+        BatchNorm encoder): with them the buffers come out too.
     """
-    if 'stem_conv' not in params['encoder']:
-        raise NotImplementedError('Only ConvNeXt encoders are ported.')
     if out_scales is None:
         out_scales = sorted(int(k.split('_')[1]) for k in params['decoders_disp']
                             if k.startswith('outconv_'))
-    sd = {f'encoder.{k}': v for k, v in _convnext(params['encoder']).items()}
+    enc = _encoder(params['encoder'], (batch_stats or {}).get('encoder'))
+    sd = {f'encoder.{k}': v for k, v in enc.items()}
     for dec in ('disp', 'mask'):
         if f'decoders_{dec}' in params:
             sd.update({f'decoders.{dec}.{k}': v for k, v in
@@ -99,15 +142,17 @@ def depth_state_dict_from_jax(params: dict,
     return sd
 
 
-def pose_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
-    """JAX `PoseNet` params (ConvNeXt encoder) -> port `PoseNet` state dict.
+def pose_state_dict_from_jax(params: dict, batch_stats: Optional[dict] = None
+                             ) -> dict[str, torch.Tensor]:
+    """JAX `PoseNet` params (ConvNeXt, ResNet or ResNeXt encoder) -> port
+    `PoseNet` state dict.
 
     :param params: {'encoder', 'squeeze', 'decoders_pose',
         ['decoders_focal', 'decoders_offset']}, leaves numpy or jax arrays.
+    :param batch_stats: as `depth_state_dict_from_jax`'s.
     """
-    if 'stem_conv' not in params['encoder']:
-        raise NotImplementedError('Only ConvNeXt encoders are ported.')
-    sd = {f'encoder.{k}': v for k, v in _convnext(params['encoder']).items()}
+    enc = _encoder(params['encoder'], (batch_stats or {}).get('encoder'))
+    sd = {f'encoder.{k}': v for k, v in enc.items()}
     sq = params['squeeze']['conv']
     sd['squeeze.0.weight'], sd['squeeze.0.bias'] = _conv(sq['kernel']), _t(sq['bias'])
     for head in ('pose', 'focal', 'offset'):

@@ -9,8 +9,11 @@ assembled by `build_K`.
 
 `state_dict()` keys, prefixed with `nets.pose.`, are the reference
 checkpoint's (`models/import_reference.py:_convert_pose` reads them):
-`encoder.*`, `squeeze.0.*`, `decoders.{pose,focal,offset}.{0,1}.0.*` and
-`decoders.{pose,focal,offset}.2.*`.
+`encoder.*` (timm's names, BatchNorm buffers included), `squeeze.0.*`,
+`decoders.{pose,focal,offset}.{0,1}.0.*` and `decoders.{pose,focal,offset}.2.*`.
+
+The trainer calls the net once on all n' * b image pairs of a batch, so a
+BatchNorm encoder's batch statistics span every pair, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -33,7 +36,8 @@ def _head(n_ch: int, out_ch: int) -> nn.Sequential:
 
 
 class PoseNet(nn.Module):
-    """:param enc_name: Encoder key (ConvNeXt family).
+    """:param enc_name: Encoder key (ConvNeXt, ResNet or ResNeXt; the published
+        pose net is ResNet-18).
     :param learn_K: Also predict the normalized focal length and principal point.
     :param pretrained: Look for pretrained encoder weights when training
         starts (see `DepthNet`).

@@ -17,7 +17,7 @@ Counterpart of `slowtv_monodepth_tpu/parsers.py` for the ported keys:
   stepped once per micro-step and averages the gradients over `accumulate`
   micro-steps, with the schedule counting optimizer updates
   (`optax.MultiSteps` semantics), optional clipping of the averaged
-  gradient by its global norm and the loop's LR scale.
+  gradient by its global norm, the loop's LR scale and `frozen_bn`.
 Other keys raise `NotImplementedError` naming the ROADMAP item that ports
 them. Torch optimizers hold their parameters, so `get_opt` and
 `make_optimizer` take the nets as their second argument.
@@ -35,7 +35,7 @@ from .models import DepthNet, PoseNet
 from .optim import OPTIMIZERS
 
 __all__ = ['get_net', 'get_loss', 'get_ds', 'get_dl', 'get_sched', 'get_opt',
-           'make_optimizer', 'Optimizer']
+           'make_optimizer', 'Optimizer', 'bn_params']
 
 NETS = {'depth': DepthNet, 'pose': PoseNet}
 LOSSES = {'img_recon': ReconstructionLoss, 'depth_regr': RegressionLoss,
@@ -157,6 +157,9 @@ class Optimizer:
     Other calls leave the parameters as they are, as `optax.MultiSteps`
     emits zero updates. `grad_clip` scales the averaged gradient down to
     that global norm first (`optax.clip_by_global_norm` inside MultiSteps).
+    Then the gradients of the `frozen` parameters are zeroed (`frozen_bn`:
+    the JAX package's `optax.set_to_zero` between the clip and the optimizer,
+    so the clip's norm still counts them, and a decoupled decay still applies).
 
     `state_dict` / `load_state_dict` carry the inner optimizer's state (Adam's
     moments and step counts, ...), the update and micro-step counters and,
@@ -164,11 +167,12 @@ class Optimizer:
     """
 
     def __init__(self, opt: torch.optim.Optimizer, sched: Callable[[int], float],
-                 accumulate: int = 1, grad_clip: Optional[float] = None):
+                 accumulate: int = 1, grad_clip: Optional[float] = None, frozen=()):
         self.opt = opt
         self.sched = sched
         self.accumulate = max(int(accumulate), 1)
         self.grad_clip = grad_clip
+        self.frozen = list(frozen)
         self.base_lrs = [g['lr'] for g in opt.param_groups]
         self.updates = 0
         self.micro = 0
@@ -190,6 +194,9 @@ class Optimizer:
         if self.grad_clip:
             norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
             torch._foreach_mul_(grads, self.grad_clip / torch.clamp(norm, min=self.grad_clip))
+        for p in self.frozen:
+            if p.grad is not None:
+                p.grad.zero_()
         for group, lr in zip(self.opt.param_groups, self.lrs()):
             group['lr'] = lr
             if group.get('decay'):  # AdamW's decoupled decay
@@ -220,6 +227,14 @@ def _has(name: str, key: str) -> bool:
     return any(key in part for part in name.split('.'))
 
 
+def bn_params(nets: nn.Module) -> list:
+    """The BatchNorm affine parameters (`frozen_bn`'s set). The JAX package picks
+    them by the substring `bn` in its names (`bn1`, `downsample_bn`); under timm's
+    names the downsample's BatchNorm is `downsample.1`, so the port picks by type."""
+    return [p for m in nets.modules() if isinstance(m, nn.BatchNorm2d)
+            for p in m.parameters(recurse=False) if p.requires_grad]
+
+
 # optax's options of each optimizer (the cfg passes them through by name).
 _OPT_OPTIONS = {'adamw': ('b1', 'b2', 'eps', 'weight_decay'),
                 'adam': ('b1', 'b2', 'eps', 'eps_root', 'nesterov'),
@@ -244,6 +259,8 @@ def get_opt(cfg: dict, nets: nn.Module, steps_per_epoch: int = 1,
     - `backbone_lr`: parameters under an `encoder` take it, the rest `lr`,
       and the decay applies to all of them (no filter, as the reference).
     - `lr_scale` multiplies both LRs (the loop's `auto_scale_lr`).
+    - `frozen_bn`: the BatchNorm affine parameters' gradients are zeroed before
+      each update (`bn_params`); their running statistics still update.
     """
     cfg = dict(cfg)
     name = cfg.pop('type', cfg.pop('opt', None))
@@ -251,9 +268,9 @@ def get_opt(cfg: dict, nets: nn.Module, steps_per_epoch: int = 1,
         raise KeyError('Must provide an optimizer `type`.')
     if name not in _OPT_OPTIONS:
         raise KeyError(f'Unknown optimizer "{name}". ({sorted(_OPT_OPTIONS)})')
-    if cfg.pop('frozen_bn', False) or cfg.pop('flatten', False):
-        raise NotImplementedError('frozen_bn (BatchNorm nets, ROADMAP A10) and flatten '
-                                  '(a TPU option) are not ported.')
+    frozen = bn_params(nets) if cfg.pop('frozen_bn', False) else []
+    if cfg.pop('flatten', False):
+        raise NotImplementedError('flatten (a TPU option) is not ported.')
     for key in ('mu_dtype', 'accumulator_dtype'):
         if cfg.pop(key, None) is not None:
             raise NotImplementedError(f'{key} (optimizer state in another dtype) is not ported '
@@ -293,7 +310,7 @@ def get_opt(cfg: dict, nets: nn.Module, steps_per_epoch: int = 1,
                                eps=kw.get('eps', 1e-8))
     else:
         opt = OPTIMIZERS[name](groups, lr=lr, **kw)
-    return Optimizer(opt, get_sched(sched_cfg, steps_per_epoch), accumulate, grad_clip)
+    return Optimizer(opt, get_sched(sched_cfg, steps_per_epoch), accumulate, grad_clip, frozen)
 
 
 def make_optimizer(cfg: dict, nets: nn.Module, steps_per_epoch: int = 1,

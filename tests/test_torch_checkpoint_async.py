@@ -23,6 +23,7 @@ from slowtv_monodepth_tpu_torch import parsers
 from slowtv_monodepth_tpu_torch.core import MonoDepthLoop, checkpoint
 from slowtv_monodepth_tpu_torch.core.checkpoint import CheckpointManager
 from torch_threads import two_torch_threads  # noqa: F401
+from torch_tmp import drop_tmp_path  # noqa: F401
 
 CFG = {'optimizer': {'type': 'adamw', 'lr': 1e-2, 'weight_decay': 1e-3}}
 

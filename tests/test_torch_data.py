@@ -27,6 +27,7 @@ from slowtv_monodepth_tpu.databases import packdb as jpackdb
 from slowtv_monodepth_tpu_torch import parsers, paths
 from test_kbr_wiring import N_FRAMES, _depth_png_bytes, _png_bytes, make_kbr_cfg
 from torch_threads import two_torch_threads  # noqa: F401
+from torch_tmp import drop_tmp_path  # noqa: F401
 
 PACK_DATASETS = ('kitti_lmdb', 'mannequin_lmdb', 'slow_tv_lmdb')
 PACK_KEYS = ('kitti_raw_lmdb', 'mannequin_lmdb', 'slow_tv_lmdb')

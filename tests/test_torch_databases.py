@@ -21,6 +21,7 @@ from slowtv_monodepth_tpu.databases import packdb as jpackdb
 from slowtv_monodepth_tpu_torch import databases as tdb
 from slowtv_monodepth_tpu_torch.data.devkits import kitti_raw_pack as tkrp
 from torch_threads import two_torch_threads  # noqa: F401
+from torch_tmp import drop_tmp_path  # noqa: F401
 
 PACKAGES = {'jax': jdb, 'port': tdb}
 

@@ -27,6 +27,7 @@ from slowtv_monodepth_tpu_torch.data import SlowTvDataset
 from slowtv_monodepth_tpu_torch.data.augment import PHOTO_OP_IDS, ColorJiggle
 from slowtv_monodepth_tpu_torch.data.base_mde import IMAGENET_MEAN, IMAGENET_STD
 from torch_threads import two_torch_threads  # noqa: F401
+from torch_tmp import drop_tmp_path  # noqa: F401
 
 TOL = dict(atol=2e-5, rtol=1e-5)
 

@@ -42,6 +42,7 @@ import torch
 from slowtv_monodepth_tpu_torch import _build
 from slowtv_monodepth_tpu_torch.ops.dwconv import depthwise_conv_plain, dw_plan, dwconv_dw_plain
 from torch_threads import two_torch_threads  # noqa: F401
+from torch_tmp import drop_tmp_path  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 EMU = ROOT / 'tests' / 'cuda_emu'

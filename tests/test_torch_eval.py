@@ -30,6 +30,7 @@ from slowtv_monodepth_tpu_torch.eval import edges as tedges
 from slowtv_monodepth_tpu_torch.eval import metrics as tmetrics
 from slowtv_monodepth_tpu_torch.utils.resize import resize
 from torch_threads import two_torch_threads  # noqa: F401
+from torch_tmp import drop_tmp_path  # noqa: F401
 
 RTOL = 1e-5
 BICUBIC_ULPS = 3

@@ -33,6 +33,7 @@ from slowtv_monodepth_tpu_torch.core import save_checkpoint
 from test_torch_eval import assert_metrics_close
 from test_torch_models import depth_cfg, seeded_pair
 from torch_threads import two_torch_threads  # noqa: F401
+from torch_tmp import drop_tmp_path  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 API = ROOT / 'api'

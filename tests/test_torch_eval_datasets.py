@@ -32,6 +32,7 @@ from slowtv_monodepth_tpu import paths as jpaths
 from slowtv_monodepth_tpu_torch import export_gt, parsers, paths
 from test_torch_eval_api import API, _run_main, _run_script
 from torch_threads import two_torch_threads  # noqa: F401
+from torch_tmp import drop_if_passed, drop_tmp_path  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 EVAL_CFGS = ROOT / 'cfg' / 'eval'
@@ -354,7 +355,7 @@ def test_ddad_projection_is_bitwise_the_jax_script(roots):
 
 
 @pytest.fixture(scope='module')
-def port_ckpt(tmp_path_factory):
+def port_ckpt(request, tmp_path_factory):
     """A finished run's `last.ckpt`: seeded ConvNeXt-atto depth weights."""
     import torch
 
@@ -367,7 +368,9 @@ def port_ckpt(tmp_path_factory):
     path = tmp_path_factory.mktemp('run') / 'models' / 'last.ckpt'
     save_checkpoint(path, {'depth': {k: torch.from_numpy(v) for k, v in sd.items()}}, cfg)
     (path.parent / 'finished').touch()
-    return path
+    failed = request.session.testsfailed
+    yield path
+    drop_if_passed(request, failed, path.parents[1])
 
 
 # cfg -> (dataset key, export_gt datum, export_gt kwargs)

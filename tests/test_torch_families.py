@@ -20,12 +20,14 @@ and handed to the port.
   JAX package's takes the same key);
 - the trainer with nets: the SfM-Learner and Klodt cfgs as they stand
   (`cfg/benchmark/default.yaml` + the family's file), cut to test size:
-  convnext_atto depth and pose nets (the pose net is ResNet-18 in the cfg:
-  ROADMAP A10), 2 scales, B=2, 64x96. DVSO and Depth-Hints are held the same
+  convnext_atto depth and pose nets (the pose net is ResNet-18 in the cfg;
+  `tests/test_torch_resnet_trajectory.py` trains that one), 2 scales, B=2, 64x96. DVSO and Depth-Hints are held the same
   way on the first micro-step of `tests/test_torch_families_trajectory.py`;
 - every cfg of `cfg/benchmark/`, `cfg/benchmark_ours/` and `cfg/abl_smooth/`
   builds or raises naming its ROADMAP item, as it stands and with the pose
-  encoder overlaid to convnext_tiny;
+  encoder overlaid to convnext_tiny; every cfg of `cfg/abl_pretrained/` and
+  `cfg/abl_bb/` builds as it stands or raises naming A10, and each ResNet or
+  ResNeXt one runs one CPU micro-step at a cut size;
 - `MonoDepthLoop` on `default.yaml` + `dvso.yaml` over a synthetic KITTI pack.
 
 Tolerances: loss values rtol 1e-5 (float32 sums in another order); the
@@ -61,6 +63,7 @@ from slowtv_monodepth_tpu_torch.core.trainer import MonoDepthTrainer
 from slowtv_monodepth_tpu_torch.models import (depth_state_dict_from_jax,
                                                pose_state_dict_from_jax, seeded_state_dict)
 from torch_threads import two_torch_threads  # noqa: F401
+from torch_tmp import drop_tmp_path  # noqa: F401
 
 CFG = Path(__file__).resolve().parents[1] / 'cfg'
 B, H, W = 2, 64, 96
@@ -157,8 +160,9 @@ def make_batch(supp_idxs, hints: bool, seed: int) -> tuple[dict, dict]:
 
 def family_cfg(name: str) -> dict:
     """`cfg/benchmark/default.yaml` + `<name>.yaml` as they stand, cut to test
-    size: convnext_atto nets without pretrained weights (the pose net's
-    ResNet-18 is ROADMAP A10), 2 scales."""
+    size: convnext_atto nets without pretrained weights (for the pose net too:
+    the families' losses are what these tests hold; `tests/test_torch_resnet_trajectory.py`
+    holds the ResNet-18 pose net), 2 scales."""
     cfg = load_merge_yaml(CFG / 'benchmark' / 'default.yaml', CFG / 'benchmark' / f'{name}.yaml')
     cfg['net']['depth'].update(enc_name='convnext_atto', pretrained=False, out_scales=[0, 1])
     if cfg['net'].get('pose'):
@@ -795,22 +799,24 @@ def _load(path: Path) -> dict:
 _A10 = 'queue A item 10'
 _A9B = 'queue A item 9b'
 # cfg -> (as it stands, with the pose encoder overlaid to convnext_tiny):
-# None builds a `MonoDepthTrainer`, else the ROADMAP item its refusal names.
+# None builds a `MonoDepthTrainer`, else the ROADMAP item its refusal names. The
+# published ResNet-18 pose net builds (A10a), so only another decoder (A10) or a
+# feature loss or net (A9b) still refuses.
 FAMILIES = {
     'benchmark/cadepth_MS': (_A10, _A10), 'benchmark/ddvnet': (_A10, _A10),
-    'benchmark/default': (_A10, None), 'benchmark/depth_hints_MS': (_A10, None),
-    'benchmark/depth_vo_feat': (_A10, _A9B), 'benchmark/diffnet_MS': (_A10, _A10),
-    'benchmark/dvso': (None, None), 'benchmark/feat_depth': (_A10, _A9B),
+    'benchmark/default': (None, None), 'benchmark/depth_hints_MS': (None, None),
+    'benchmark/depth_vo_feat': (_A9B, _A9B), 'benchmark/diffnet_MS': (_A10, _A10),
+    'benchmark/dvso': (None, None), 'benchmark/feat_depth': (_A9B, _A9B),
     'benchmark/garg': (None, None), 'benchmark/hrdepth_M': (_A10, _A10),
-    'benchmark/hrdepth_MS': (_A10, _A10), 'benchmark/klodt': (_A10, None),
-    'benchmark/kuznietsov': (_A10, None), 'benchmark/monodepth': (None, None),
-    'benchmark/monodepth2_M': (_A10, None), 'benchmark/monodepth2_MS': (_A10, None),
-    'benchmark/monoresmatch': (None, None), 'benchmark/sfm_learner': (_A10, None),
+    'benchmark/hrdepth_MS': (_A10, _A10), 'benchmark/klodt': (None, None),
+    'benchmark/kuznietsov': (None, None), 'benchmark/monodepth': (None, None),
+    'benchmark/monodepth2_M': (None, None), 'benchmark/monodepth2_MS': (None, None),
+    'benchmark/monoresmatch': (None, None), 'benchmark/sfm_learner': (None, None),
     'benchmark/superdepth': (_A10, _A10),
-    **{f'benchmark_ours/{n}': (_A10, None) for n in (
+    **{f'benchmark_ours/{n}': (None, None) for n in (
         'default', 'ours', 'ours_hints', 'ours_min', 'ours_monodepth', 'ours_none',
         'ours_nosmooth')},
-    **{f'abl_smooth/{n}': (_A10, None) for n in (
+    **{f'abl_smooth/{n}': (None, None) for n in (
         'blur', 'default', 'laplacian', 'laplacian_blur', 'none', 'occlusion', 'occlusion_inv')},
 }
 
@@ -840,6 +846,76 @@ def test_every_family_cfg_builds_or_names_its_item(path, overlay, tmp_path, monk
     if 'pose' not in trainer.nets:
         assert supp_of(cfg) == (0,)
     assert 'No pretrained weights for "convnext_base"' in caplog.text
+
+
+def _backbone_files():
+    return sorted((CFG / 'abl_pretrained').glob('*.yaml')) + sorted((CFG / 'abl_bb').glob('*.yaml'))
+
+
+def _load_backbone(path: Path) -> dict:
+    """`cfg/benchmark/default.yaml` -> the directory's `default.yaml` -> the file, as
+    `tests/test_configs.py` merges the `abl_*` cfgs."""
+    chain = [CFG / 'benchmark' / 'default.yaml', path.parent / 'default.yaml', path]
+    return load_merge_yaml(*(chain[:-1] if path.stem == 'default' else chain))
+
+
+# cfg -> None (builds as it stands; a ResNet or ResNeXt one also trains a micro-step) or
+# the ROADMAP item its refusal names (the MobileNet, EfficientNet and HRNet encoders).
+BACKBONES = {
+    **{f'abl_pretrained/{n}': None for n in (
+        'default', 'resnet101', 'resnet101_pt', 'resnet18', 'resnet18_pt', 'resnet50',
+        'resnet50_pt', 'resnext101', 'resnext101_pt', 'resnext101_pt_ssl', 'resnext101_pt_swsl')},
+    **{f'abl_bb/{n}': None for n in (
+        'convnext_base', 'convnext_large', 'convnext_tiny', 'default', 'resnet101', 'resnet18')},
+    **{f'abl_bb/{n}': _A10 for n in (
+        'efficientnet_b0', 'efficientnet_b4', 'hrnet_w18', 'hrnet_w64', 'mobilenetv3_large_100',
+        'mobilenetv3_small_050')},
+}
+CUT_LAYERS = (1, 1, 1, 1)
+
+
+def test_the_pinned_backbone_cfgs_are_every_cfg():
+    assert sorted(BACKBONES) == sorted(f'{p.parent.name}/{p.stem}' for p in _backbone_files())
+
+
+@pytest.mark.parametrize('path', _backbone_files(), ids=lambda p: f'{p.parent.name}/{p.stem}')
+def test_every_backbone_cfg_builds_or_names_its_item(path, tmp_path, monkeypatch, caplog):
+    """As it stands on the meta device, with no weights file under the model root; then
+    a ResNet or ResNeXt depth net trains one micro-step on the CPU at a cut size: every
+    ResNet one block a stage (widths, groups and block type as published), 2 scales,
+    B=2, 64x96: a finite loss, every parameter finite, each BatchNorm counted once."""
+    from slowtv_monodepth_tpu_torch.models.encoders import RESNET_SPECS
+    monkeypatch.setattr(paths, 'MODEL_ROOTS', [tmp_path])
+    cfg = _load_backbone(path)
+    want = BACKBONES[f'{path.parent.name}/{path.stem}']
+    with torch.device('meta'):
+        if want is not None:
+            with pytest.raises(NotImplementedError, match=want):
+                MonoDepthTrainer(cfg)
+            return
+        MonoDepthTrainer(cfg)
+    enc = cfg['net']['depth']['enc_name']
+    if enc not in RESNET_SPECS:
+        return
+    for name in {enc, cfg['net']['pose']['enc_name']}:
+        monkeypatch.setitem(RESNET_SPECS, name, dict(RESNET_SPECS[name], layers=CUT_LAYERS))
+    cfg['net']['depth']['out_scales'] = [0, 1]
+    torch.manual_seed(0)
+    with caplog.at_level(logging.WARNING):
+        trainer = MonoDepthTrainer(cfg)
+    if cfg['net']['depth']['pretrained']:
+        assert f'No pretrained weights for "{enc}"' in caplog.text
+    before = {k: p.detach().clone() for k, p in trainer.nets.named_parameters()}
+    opt = parsers.make_optimizer(cfg, trainer.nets)
+    step = trainer.make_step_fn(supp_of(cfg), opt)
+    x, y = make_batch(supp_of(cfg), hints=False, seed=30)
+    scalars = step(*jax.tree.map(_t, (x, y)), generator=torch.Generator().manual_seed(0))
+    assert np.isfinite(scalars['loss'].item())
+    assert all(torch.isfinite(p).all() for p in trainer.nets.parameters())
+    assert sum(not torch.equal(p, before[k]) for k, p in trainer.nets.named_parameters()) \
+        > 0.9 * len(before)
+    counts = [int(b) for k, b in trainer.nets.named_buffers() if k.endswith('num_batches_tracked')]
+    assert counts and set(counts) == {1}
 
 
 # -------------------------------------------------------- 6. the DVSO training run
@@ -974,13 +1050,23 @@ def test_chip_smoke_stand_in_yields_the_readers_layout(tmp_path, monkeypatch, mo
 
 @pytest.mark.parametrize('name', ['dvso', 'depth_hints_MS', 'sfm_learner', 'klodt'])
 def test_chip_smoke_family_cfgs_are_the_files(name):
-    """`chip_smoke.family_cfg` (no yaml on the card) is `default.yaml` + the family's file,
-    with only the pose encoder overlaid (ResNet-18 is ROADMAP A10)."""
+    """`chip_smoke.family_cfg` (no yaml on the card) is `default.yaml` + the family's file
+    as they stand, the published ResNet-18 pose net included."""
     import chip_smoke
     want = load_merge_yaml(CFG / 'benchmark' / 'default.yaml', CFG / 'benchmark' / f'{name}.yaml')
-    if want['net'].get('pose'):
-        want['net']['pose']['enc_name'] = chip_smoke.FAMILY_POSE_OVERLAY
     assert chip_smoke.family_cfg(name) == want
+
+
+@pytest.mark.parametrize('name', ['benchmark/monodepth2_M', 'abl_pretrained/resnet18',
+                                  'abl_pretrained/resnext101_pt_ssl'])
+def test_chip_smoke_resnet_cfgs_are_the_files(name):
+    """`chip_smoke.resnet_cfg` (no yaml on the card) is the cfg as `tests/test_configs.py`
+    merges it: `cfg/benchmark/default.yaml` [-> the directory's `default.yaml`] -> the file."""
+    import chip_smoke
+    path = CFG / f'{name}.yaml'
+    want = (_load_backbone(path) if path.parent.name.startswith('abl_')
+            else load_merge_yaml(CFG / 'benchmark' / 'default.yaml', path))
+    assert chip_smoke.resnet_cfg(name) == want
 
 
 def test_the_warp_image_cotangent_runs_only_for_a_source_with_a_gradient(monkeypatch):

@@ -33,21 +33,13 @@ from slowtv_monodepth_tpu_torch import paths
 from slowtv_monodepth_tpu_torch.core import (BenchmarkPredictor, MonoDepthLoop, load_checkpoint,
                                              train_state_from_jax)
 from torch_threads import two_torch_threads  # noqa: F401
+from torch_tmp import drop_tmp_path  # noqa: F401
 
 NET = {'depth': {'enc_name': 'convnext_atto', 'pretrained': False, 'dec_name': 'monodepth',
                  'out_scales': [0, 1]},
        'pose': {'enc_name': 'convnext_atto', 'pretrained': False, 'learn_K': True}}
 LOSS = {'img_recon': {'weight': 1, 'use_min': True, 'use_automask': True},
         'disp_smooth': {'weight': 0.001, 'use_edges': True}}
-
-
-@pytest.fixture(autouse=True)
-def no_checkpoints_left_behind(tmp_path):
-    """A checkpoint with its optimizer state is ~150 MB, and pytest keeps the
-    temp trees of its last runs: leave none of them on the disk."""
-    yield
-    for f in tmp_path.rglob('*.ckpt'):
-        f.unlink()
 
 
 # ---------------------------------------------------------------- 1. the PNG tree

@@ -31,6 +31,7 @@ from fresh_interpreter import run_fresh
 from test_torch_eval_api import API, _run_main, _runs
 from test_torch_eval_datasets import port_ckpt  # noqa: F401
 from torch_threads import two_torch_threads  # noqa: F401
+from torch_tmp import drop_tmp_path  # noqa: F401
 
 FRAME = (72, 54)   # portrait frames (h, w)
 DPT = (60, 45)     # the DPT depth PNGs' size: gathered to the dataset's SHAPE 720x540

@@ -163,8 +163,10 @@ def test_convnext_specs_match_jax():
 
 
 def test_unported_configurations_raise():
-    with pytest.raises(NotImplementedError):
-        DepthNet(enc_name='resnet18')
+    """The encoder families and decoders of ROADMAP A10 beyond ConvNeXt, ResNet and
+    ResNeXt raise naming it."""
+    with pytest.raises(NotImplementedError, match='queue A item 10'):
+        DepthNet(enc_name='mobilenetv3_large_100')
     with pytest.raises(NotImplementedError):
         DepthNet(enc_name=ENC, dec_name='hrdepth')
 

@@ -149,8 +149,8 @@ def test_unported_options_raise():
     module = Params({'a': np.zeros(2, np.float32)})
     with pytest.raises(KeyError, match='Unknown optimizer "nadam"'):
         parsers.get_opt({'type': 'nadam'}, module)
-    with pytest.raises(NotImplementedError):
-        parsers.get_opt({'type': 'adamw', 'frozen_bn': True}, module)
+    with pytest.raises(NotImplementedError, match='flatten'):
+        parsers.get_opt({'type': 'adamw', 'flatten': True}, module)
     with pytest.raises(NotImplementedError):
         parsers.get_loss({'feat_recon': {}})
 

@@ -35,6 +35,7 @@ import torch
 from slowtv_monodepth_tpu_torch import _build
 from slowtv_monodepth_tpu_torch.ops import photo
 from torch_threads import two_torch_threads  # noqa: F401
+from torch_tmp import drop_tmp_path  # noqa: F401
 
 EMU = _build.CSRC.parents[1] / 'tests' / 'cuda_emu'
 ENTRY = 'slowtv_photo_fwd_f32'

@@ -93,5 +93,5 @@ def test_without_learned_intrinsics():
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         PoseNet(enc_name='convnext_atto', input_scale=2)
-    with pytest.raises(NotImplementedError):
-        PoseNet(enc_name='resnet18')
+    with pytest.raises(NotImplementedError, match='queue A item 10'):
+        PoseNet(enc_name='hrnet_w18')

@@ -26,6 +26,7 @@ from slowtv_monodepth_tpu_torch.models import DepthNet, PoseNet
 from slowtv_monodepth_tpu_torch.models.encoders import import_torch, pretrained
 from slowtv_monodepth_tpu_torch.models.from_jax import _convnext
 from torch_threads import two_torch_threads  # noqa: F401
+from torch_tmp import drop_tmp_path  # noqa: F401
 
 ENC = 'convnext_atto'
 NET = {'depth': {'enc_name': ENC, 'pretrained': True, 'dec_name': 'monodepth',

@@ -28,8 +28,9 @@ from slowtv_monodepth_tpu_torch.core.aspect_ratio import all_output_shapes
 from slowtv_monodepth_tpu_torch.core.train_metrics import METRIC_NAMES
 from test_kbr_wiring import make_kbr_cfg
 from test_torch_data import PACK_DATASETS, recipe_packs  # noqa: F401
-from test_torch_loop import _Writer, no_checkpoints_left_behind  # noqa: F401
+from test_torch_loop import _Writer
 from torch_threads import two_torch_threads  # noqa: F401
+from torch_tmp import drop_tmp_path  # noqa: F401
 
 RECIPE = Path(__file__).resolve().parents[1] / 'cfg' / 'kbr' / 'default.yaml'
 REF_SHAPE = [128, 192]

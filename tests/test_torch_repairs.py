@@ -41,6 +41,7 @@ from slowtv_monodepth_tpu_torch.models import (DepthNet, PoseNet, depth_state_di
                                                pose_state_dict_from_jax)
 from slowtv_monodepth_tpu_torch.models.init import TRUNC_STD
 from torch_threads import two_torch_threads  # noqa: F401
+from torch_tmp import drop_tmp_path  # noqa: F401
 
 NET = {'depth': {'enc_name': 'convnext_atto', 'pretrained': False, 'dec_name': 'monodepth',
                  'out_scales': [0, 1, 2, 3]},
@@ -254,3 +255,50 @@ def test_wandb_without_the_package_warns_and_logs_to_tensorboard(tmp_path, monke
     writer.add_scalar('train_losses/loss', 0.5, 1)
     writer.close()
     assert list((tmp_path / 'logs').glob('events.out.tfevents.*'))
+
+
+# ------------------------------------------------------------ T2. SWA over BatchNorm nets
+def _swa_run(tmp_path, epochs: int = 4) -> tuple:
+    """`MonoDepthLoop`'s SWA callbacks over ResNet-18 nets, `epochs` epochs of which the
+    last quarter averages: each epoch moves every parameter and buffer as training
+    would -> (the snapshots seen by the averaging epochs, the nets, swa.ckpt's tensors)."""
+    net = {'depth': {'enc_name': 'resnet18', 'pretrained': False, 'dec_name': 'monodepth',
+                     'out_scales': [0]},
+           'pose': {'enc_name': 'resnet18', 'pretrained': False}}
+    cfg = {'net': net, 'loss': LOSS, 'optimizer': {'type': 'adam', 'lr': 1e-4},
+           'trainer': {'max_epochs': epochs, 'swa': True}}
+    loop = MonoDepthLoop(cfg, tmp_path / 'run', device='cpu', train_dl=_NoBatches(),
+                         use_markers=False)
+    gen = torch.Generator().manual_seed(2)
+    seen = []
+    with torch.no_grad():
+        for epoch in range(epochs):
+            if epoch >= int(0.75 * epochs):  # the averaging epochs: new values each
+                for p in loop.trainer.nets.parameters():
+                    p.add_(torch.randn(p.shape, generator=gen))
+                for k, b in loop.trainer.nets.named_buffers():
+                    b.add_(1 if k.endswith('num_batches_tracked') else
+                           float(torch.rand((), generator=gen)) + 0.1)
+                seen.append({f'nets.{n}.{k}': v.clone()
+                             for n, net_ in loop.trainer.nets.items()
+                             for k, v in net_.state_dict().items()})
+            loop._swa_update(epoch)
+    loop._swa_finalize()
+    return seen, loop.trainer.nets, load_checkpoint(tmp_path / 'run' / 'swa.ckpt')[0]
+
+
+def test_swa_averages_the_parameters_and_keeps_the_buffers(tmp_path):
+    """swa.ckpt holds the mean of the parameters over the averaging epochs and the
+    buffers' last values (BatchNorm's running statistics, int64 counters), as the JAX
+    package's `state.replace(params=avg)` keeps its `batch_stats`. The parent averaged
+    every `state_dict` entry, counters cast to float."""
+    seen, nets, swa = _swa_run(tmp_path, epochs=8)
+    assert len(seen) == 2
+    params = {f'nets.{n}.{k}' for n, net in nets.items() for k, _ in net.named_parameters()}
+    buffers = {f'nets.{n}.{k}' for n, net in nets.items() for k, _ in net.named_buffers()}
+    assert sorted(swa) == sorted(params | buffers) and buffers
+    for k in params:
+        torch.testing.assert_close(swa[k], (seen[0][k] + seen[1][k]) / 2, rtol=0, atol=1e-6)
+    for k in buffers:
+        assert swa[k].dtype == seen[-1][k].dtype and torch.equal(swa[k], seen[-1][k]), k
+    assert {swa[k].dtype for k in buffers if k.endswith('num_batches_tracked')} == {torch.int64}

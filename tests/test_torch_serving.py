@@ -28,6 +28,7 @@ from slowtv_monodepth_tpu_torch.core import (BenchmarkPredictor, load_checkpoint
 sys.path.insert(0, str(Path(__file__).parent))
 from test_torch_models import depth_cfg, seeded_pair  # noqa: E402
 from torch_threads import two_torch_threads  # noqa: F401
+from torch_tmp import drop_if_passed, drop_tmp_path  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 ATOL = 1e-5
@@ -76,14 +77,16 @@ def test_geometry_matches_jax(fn):
 
 
 @pytest.fixture(scope='module')
-def ckpt(tmp_path_factory):
+def ckpt(request, tmp_path_factory):
     """A reference-layout checkpoint of a seeded ConvNeXt-atto depth net."""
     cfg = depth_cfg(out_scales=(0, 1, 2, 3))
     net, params = seeded_pair(cfg, seed=7)
     path = tmp_path_factory.mktemp('ckpt') / 'atto.ckpt'
     save_checkpoint(path, {'depth': net.state_dict()},
                     {'net': {'depth': cfg}, 'trainer': {'min_depth': 0.1, 'max_depth': 100}})
-    return path, net, params, cfg
+    failed = request.session.testsfailed
+    yield path, net, params, cfg
+    drop_if_passed(request, failed, path.parent)
 
 
 def test_checkpoint_layout_reads_back(ckpt):

@@ -29,6 +29,7 @@ from slowtv_monodepth_tpu_torch import export_gt, validate_release
 from test_torch_eval_api import API, _run_main, _run_script, syns_root  # noqa: F401
 from test_torch_eval_datasets import point, port_ckpt, unpoint, write_nyud  # noqa: F401
 from torch_threads import two_torch_threads  # noqa: F401
+from torch_tmp import drop_tmp_path  # noqa: F401
 
 
 @pytest.fixture

@@ -38,6 +38,7 @@ import torch
 from slowtv_monodepth_tpu_torch import _build
 from slowtv_monodepth_tpu_torch.ops import sample
 from torch_threads import two_torch_threads  # noqa: F401
+from torch_tmp import drop_tmp_path  # noqa: F401
 
 EMU = _build.CSRC.parents[1] / 'tests' / 'cuda_emu'
 ENTRIES = ('slowtv_warp_bilinear_f32', 'slowtv_warp_bilinear_packed_bf16')
