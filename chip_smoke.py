@@ -178,6 +178,22 @@ Phases, in order; any failure exits non-zero and prints no result:
    the trainer's eval-mode forward (GOLDEN_ATOL).
    Alone: `python3 -c 'import chip_smoke as c; s = c.phase_device(); c.phase_build();
    c.phase_resnet(c._make_scenes(), s)'`.
+19. feat: Depth-VO-Feat and FeatDepth as they stand (`phase_feat`; `family_cfg`:
+   `cfg/benchmark/default.yaml` + the file, no weight file). Kernel 5's generic-C
+   instance at the two feature warps, (16, 192, 640, 128) and (18, 192, 640, 64),
+   held to float64 within WARP_ATOL x max|source|, two calls bitwise equal, timed
+   beside the plain version, `F.grid_sample` (the sample only) and the byte bound (the
+   kernels line's warp row `feat_c128_*`, `feat_c64_*`). One micro-step of each cfg at
+   ConvNeXt-B, 4 scales, 192x640 (Depth-VO-Feat B=8, supports [-1, 0], its depth
+   encoder's pass over the supports; FeatDepth B=6, supports [-1, 1, 0], the ResNet-18
+   autoencoder, both automask noises) on the kernel and plain paths, held as in phase 17
+   (the autoencoder's BatchNorm counters at 2), `FEAT_LAUNCHES`, device ms and peak
+   memory. Then FeatDepth through `MonoDepthLoop` (2 epochs of 2 batches and a
+   validation batch each over `StereoHintLoader` with its supports and no hints): its
+   launches, `last.ckpt` with every tensor of the autoencoder equal to the trainer's,
+   counters at 2 a micro-step, served by `BenchmarkPredictor` at B=12.
+   Alone: `python3 -c 'import chip_smoke as c; s = c.phase_device(); c.phase_build();
+   c.phase_feat(c._make_scenes(), s)'`.
 Every time is a device time (`cuda_ms`: the calls captured into one CUDA
 graph, CUDA events around one replay) with the eager time beside it. The last
 two lines are a JSON object per kernel and the contract line
@@ -478,6 +494,51 @@ RESNET_LAUNCHES = {
 RESNET_LAUNCHES['abl_pretrained/resnext101_pt_ssl'] = RESNET_LAUNCHES['abl_pretrained/resnet18']
 RESNET_RUN = 'abl_pretrained/resnet18'   # train -> checkpoint -> serve
 RESNET_SERVE_B = 12                      # `export_preds`' batch
+# Phase 19: Depth-VO-Feat and FeatDepth, `cfg/benchmark/<name>.yaml` over `BENCH_DEFAULT_CFG`
+# (no yaml on the card; `tests/test_torch_families.py` holds these to the files).
+FEAT_FILE_CFGS = {
+    'depth_vo_feat': {'loss': {'feat_recon': {'weight': 0.1, 'loss_name': 'l1', 'use_min': False,
+                                              'use_automask': False}},
+                      'dataset': {'kitti_lmdb': {'supp_idxs': [-1, 0]}}},
+    'feat_depth': {'net': {'autoencoder': {'enc_name': 'resnet18', 'pretrained': True,
+                                           'dec_name': 'monodepth', 'out_scales': [0, 1, 2, 3]}},
+                   'loss': {'img_recon': {'use_min': True, 'use_automask': True},
+                            'feat_recon': {'weight': 0.01, 'loss_name': 'l2', 'use_min': True,
+                                           'use_automask': True},
+                            'autoenc_recon': {'weight': 1, 'use_min': False, 'use_automask': False},
+                            'feat_peaky': {'weight': 0.0001, 'use_edges': True},
+                            'feat_smooth': {'weight': 0.0001, 'use_edges': True}},
+                   'dataset': {'kitti_lmdb': {'supp_idxs': [-1, 1, 0]}},
+                   'loader': {'batch_size': 6}}}
+# Kernel launches per micro-step (forward + backward):
+# - Depth-VO-Feat: ConvNeXt-B's 36 blocks forward, backward (dx) and once more forward in
+#   the depth encoder's pass over the n x b support frames (`extract_features`, no_grad):
+#   dwconv 108, dwconv_dw 36; the disparity decoder's stages 1 and 0 fused; one warp of the
+#   images (C = 3) and one of the stride-4 features (C = 128, kernel 5's generic C); the
+#   photometric kernels on the warped images only (no automask; `feat_recon` is l1).
+# - FeatDepth: no support pass through the depth encoder (the ResNet-18 autoencoder's
+#   features are warped, C = 64), so dwconv 72; photo_fwd on the warped and static image
+#   stacks and on the autoencoder's 4 x (6 + 18) images, photo_bwd on the two with a
+#   gradient. The ResNet-18 pose net and autoencoder launch none.
+FEAT_LAUNCHES = {
+    'depth_vo_feat': {'dwconv': 108, 'dwconv_dw': 36, 'decoder_stage': 2, 'decoder_stage_bwd': 2,
+                      'warp': 2, 'photo_fwd': 1, 'photo_bwd': 1, **_FAMILY_ZERO},
+    'feat_depth': {'dwconv': 72, 'dwconv_dw': 36, 'decoder_stage': 2, 'decoder_stage_bwd': 2,
+                   'warp': 2, 'photo_fwd': 3, 'photo_bwd': 2, **_FAMILY_ZERO}}
+# FeatDepth's validation step: the forward and the loss under no_grad.
+FEAT_VAL_LAUNCHES = {'dwconv': 36, 'decoder_stage': 2, 'warp': 2, 'photo_fwd': 3}
+# Kernel 5 at the feature shapes of the two micro-steps: (supports x batch, channels).
+FEAT_WARP = {'depth_vo_feat': (2 * FAMILY_B, 128), 'feat_depth': (3 * 6, 64)}
+# BatchNorm passes per micro-step: the autoencoder runs on the targets, then on the supports.
+BN_PASSES = {'autoencoder': 2}
+# Phase 19 holds the depth net's gradient between the paths as one vector at FEAT_DEPTH_L2
+# relative L2 (FAMILY_GATE_DEPTH_L2 where a gate flipped), not tensor by tensor: Depth-VO-Feat
+# has no automask and so no gate bits to count, but its L1 terms (the photometric error's,
+# the features' `l1`) take the sign of errors that the two paths compute in another float32
+# order, so where an error is within rounding of 0 the sign flips as a gate's bit does.
+# Measured on an H100 80GB HBM3 at 700 W: the depth gradient 4.7e-4 relative L2 apart, its
+# worst tensors 1.0e-3 to 2.1e-3 of their largest (a per-tensor hold at 1e-3 failed).
+FEAT_DEPTH_L2 = 5e-3
 # Kernel 7's map at the KBR step's two photometric shapes on
 # `tools/photo_bench.digest_inputs`, as its parent checkout (f3a8e85) gave it on an
 # H100: separating kernel 8 out of csrc/photo.cu left kernel 7's bits alone.
@@ -1154,6 +1215,16 @@ def _scene_pair(scenes, m: int, rs):
     return x.clamp(0, 1).contiguous(), y.contiguous()
 
 
+def library_warp(im, cx, cy):
+    """-> a call of `F.grid_sample` on the same samples (it returns the sample only, not
+    ddx, ddy)."""
+    h, w = im.shape[1:3]
+    grid = torch.stack([(2 * cx + 1) / w - 1, (2 * cy + 1) / h - 1], -1)
+    return lambda: torch.nn.functional.grid_sample(
+        im.float().permute(0, 3, 1, 2), grid, mode='bilinear', padding_mode='border',
+        align_corners=False)
+
+
 def phase_train_kernels(scenes) -> dict:
     import torch.nn.functional as F
     from slowtv_monodepth_tpu_torch.core.aspect_ratio import crop_grid
@@ -1324,13 +1395,6 @@ def phase_train_kernels(scenes) -> dict:
         print(f'warp {tuple(src.shape)} -> {bucket}, per call: device ms (eager) kernel '
               f'{t.ms:.4f} ({t.eager_ms:.4f}), plain {pt.ms:.4f} ({pt.eager_ms:.4f}), bound '
               f'{max(bound):.4f} ({"bytes" if bound[0] >= bound[1] else "operations"})')
-
-    def library_warp(im, cx, cy):
-        """`F.grid_sample` on the same samples (it returns the sample only, not ddx, ddy)."""
-        h, w = im.shape[1:3]
-        grid = torch.stack([(2 * cx + 1) / w - 1, (2 * cy + 1) / h - 1], -1)
-        return lambda: F.grid_sample(im.float().permute(0, 3, 1, 2), grid, mode='bilinear',
-                                     padding_mode='border', align_corners=False)
 
     for im, cx, cy, n, scale in cases:
         got = sample.warp_bilinear(im, cx, cy)
@@ -1741,12 +1805,15 @@ class StereoHintLoader(SceneLoader):
     `T_stereo` (both signs in a batch, as the flip augmentation and the two cameras
     give them; the stereo frame shifted the way its sign says), KITTI's sparse depth at
     `RECIPE_DEPTH_SHAPE`, the proxy-depth hints at the frames' shape (~10% invalid) and K.
+    With `supp` and `hints=False`, the datum of a cfg without hints and those supports
+    (FeatDepth's: [-1, 1, 0], `tests/test_torch_feat_families.py` holds it).
     """
 
-    def __init__(self, scenes, n_batches: int, train: bool, seed: int = 0):
+    def __init__(self, scenes, n_batches: int, train: bool, seed: int = 0, supp=(0,),
+                 hints: bool = True, batch: int = FAMILY_B):
         from slowtv_monodepth_tpu_torch.data import IMAGENET_MEAN, IMAGENET_STD
-        super().__init__(scenes, n_batches, FAMILY_SHAPE, batch=FAMILY_B, seed=seed)
-        self.train = train
+        super().__init__(scenes, n_batches, FAMILY_SHAPE, batch=batch, seed=seed)
+        self.train, self.supp, self.hints = train, tuple(supp), hints
         self.std = (self.base - IMAGENET_MEAN) / IMAGENET_STD
 
     def __iter__(self):
@@ -1756,11 +1823,12 @@ class StereoHintLoader(SceneLoader):
             with timer('Total'):
                 rs = np.random.RandomState(self.seed + 1000 * self.epoch + i)
                 idx = rs.randint(0, len(self.base), self.batch)
-                x, y = family_batch(self, idx, (0,), hints=True, rs=rs)
+                x, y = family_batch(self, idx, self.supp, hints=self.hints, rs=rs)
                 y['depth'] = sparse_depth(rs, self.batch)
-                y = {k: y[k] for k in ('imgs', 'T_stereo', 'supp_imgs', 'depth', 'depth_hints', 'K')}
-                x = {'imgs': self.std[idx], 'supp_idxs': np.array([0]),
-                     'supp_imgs': family_shift(self.std[idx], y['T_stereo'])[None]}
+                y = {k: y[k] for k in ('imgs', 'T_stereo', 'supp_imgs', 'depth', 'depth_hints', 'K')
+                     if k in y}
+                x = {'imgs': self.std[idx], 'supp_idxs': np.array(self.supp),
+                     'supp_imgs': family_supports(self.std[idx], self.supp, y['T_stereo'])}
             m = {'items': [str(j) for j in idx]}
             if self.train:
                 m['augs'] = [''] * self.batch
@@ -1774,6 +1842,12 @@ def family_shift(imgs: np.ndarray, T: np.ndarray) -> np.ndarray:
     return np.stack([np.roll(im, 5 if t[0, 3] > 0 else -5, axis=1) for im, t in zip(imgs, T)])
 
 
+def family_supports(imgs: np.ndarray, supp: tuple, T: np.ndarray) -> np.ndarray:
+    """(n, b, h, w, c) supports of `imgs`: -1, 1 shifted 3 px along W, 0 the stereo frame."""
+    return np.stack([family_shift(imgs, T) if i == 0 else np.roll(imgs, 3 * i, axis=2)
+                     for i in supp])
+
+
 def family_batch(loader: SceneLoader, idx, supp: tuple, hints: bool, rs) -> tuple[dict, dict]:
     """Frames `idx` of a loader's scenes with the supports `supp` (-1, 1: shifted 3 px along
     W; 0: the stereo frame), K, `T_stereo` (+-0.1 m along x, both signs) and, with `hints`,
@@ -1782,8 +1856,7 @@ def family_batch(loader: SceneLoader, idx, supp: tuple, hints: bool, rs) -> tupl
     imgs = loader.base[idx]
     T = np.ascontiguousarray(np.broadcast_to(np.eye(4, dtype=np.float32), (b, 4, 4)))
     T[:, 0, 3] = np.where(np.arange(b) % 2 == 0, 0.1, -0.1)
-    supps = np.stack([family_shift(imgs, T) if i == 0 else np.roll(imgs, 3 * i, axis=2)
-                      for i in supp])
+    supps = family_supports(imgs, supp, T)
     y = {'imgs': imgs, 'supp_imgs': supps,
          'K': np.ascontiguousarray(np.broadcast_to(loader.K, (b, 4, 4)))}
     if 0 in supp:
@@ -2908,9 +2981,9 @@ def _seeded_weights(key: str, net_cfg: str) -> dict:
 
 
 def family_cfg(name: str) -> dict:
-    """`BENCH_DEFAULT_CFG` merged with the family's file."""
+    """`BENCH_DEFAULT_CFG` merged with the family's file (phase 17's or phase 19's)."""
     from slowtv_monodepth_tpu_torch.config import merge_dicts
-    return merge_dicts(BENCH_DEFAULT_CFG, FAMILY_FILE_CFGS[name])
+    return merge_dicts(BENCH_DEFAULT_CFG, {**FAMILY_FILE_CFGS, **FEAT_FILE_CFGS}[name])
 
 
 def _family_pass(trainer, x, y, supp, noise) -> dict:
@@ -2930,14 +3003,16 @@ def _family_pass(trainer, x, y, supp, noise) -> dict:
                       for k, p in net.named_parameters() if p.grad is not None},
             'stats': {f'{n}.{k}': b.detach().clone() for n, net in trainer.nets.items()
                       for k, b in net.named_buffers() if 'running' in k},
-            'counters': {int(b) for net in trainer.nets.values()
-                         for k, b in net.named_buffers() if k.endswith('num_batches_tracked')},
+            'counters': {n: {int(b) for k, b in net.named_buffers()
+                             if k.endswith('num_batches_tracked')}
+                         for n, net in trainer.nets.items()},
             'n_params': sum(1 for net in trainer.nets.values() for _ in net.parameters())}
 
 
-def _family_compare(got: dict, want: dict) -> tuple[list, list]:
+def _family_compare(got: dict, want: dict, depth_l2=None) -> tuple[list, list]:
     """The kernel path (`got`) against the plain path (`want`) -> faults and the
-    text for the log."""
+    text for the log. With `depth_l2`, the depth net's gradient is held as one vector at
+    that relative L2 (as where a gate flipped), the other nets' tensor by tensor."""
     faults, flips, notes = [], 0, []
     for k, bits in got['bits'].items():
         n = int((bits != want['bits'][k]).sum())
@@ -2954,29 +3029,36 @@ def _family_compare(got: dict, want: dict) -> tuple[list, list]:
         if not abs(g - w) <= rtol * abs(w):
             faults.append(f'{k}: {g:.7g} vs plain {w:.7g} (rtol {rtol:.0e})')
     worst = 0.0
+    as_vector = bool(flips) or depth_l2 is not None
     for k, w in want['grads'].items():
         g = got['grads'][k]
         if not bool(torch.isfinite(g).all()) or not float(g.abs().max()) > 0:
             faults.append(f'{k}: gradient non-finite or zero')
             continue
         rel = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
-        worst = max(worst, rel) if not (flips and k.startswith('depth.')) else worst
+        worst = max(worst, rel) if not (as_vector and k.startswith('depth.')) else worst
         bound = FAMILY_GATE_POSE_RTOL if flips else 1e-3
-        if not (flips and k.startswith('depth.')) and rel > bound:
+        if not (as_vector and k.startswith('depth.')) and rel > bound:
             faults.append(f'{k}: gradient off by {rel:.2e} of its largest (bound {bound:.0e})')
-    if flips:
+    if as_vector:
+        depth_l2 = FAMILY_GATE_DEPTH_L2 if flips else depth_l2
         keys = [k for k in want['grads'] if k.startswith('depth.')]
         num = torch.sqrt(sum(((got['grads'][k] - want['grads'][k]).double() ** 2).sum()
                              for k in keys))
         den = torch.sqrt(sum((want['grads'][k].double() ** 2).sum() for k in keys))
         l2 = float(num / den)
-        notes.append(f'depth net gradient {l2:.2e} relative L2 (bound {FAMILY_GATE_DEPTH_L2:.0e})')
-        if l2 > FAMILY_GATE_DEPTH_L2:
+        worst_depth = max(float((got['grads'][k] - want['grads'][k]).abs().max())
+                          / max(float(want['grads'][k].abs().max()), 1e-30) for k in keys)
+        notes.append(f'depth net gradient {l2:.2e} relative L2 (bound {depth_l2:.0e}), its '
+                     f'worst tensor {worst_depth:.2e} of its largest')
+        if l2 > depth_l2:
             faults.append(f'depth net gradient {l2:.2e} relative L2')
     notes.append(f'worst gradient {worst:.2e} of its tensor\'s largest'
-                 + (' (pose net; gate flips)' if flips else ''))
-    if got['counters'] - {1} or sorted(got['stats']) != sorted(want['stats']):
-        faults.append(f'BatchNorm counters {got["counters"]} after one pass')
+                 + (' (pose net; gate flips)' if flips else ' (outside the depth net)'
+                    if as_vector else ''))
+    if any(c - {BN_PASSES.get(n, 1)} for n, c in got['counters'].items()) \
+            or sorted(got['stats']) != sorted(want['stats']):
+        faults.append(f'BatchNorm counters {got["counters"]} after one micro-step')
     worst = 0.0
     for k, w in want['stats'].items():  # the batch statistics of the same activations
         rel = float((got['stats'][k] - w).abs().max()) / max(float(w.abs().max()), 1e-30)
@@ -2990,24 +3072,30 @@ def _family_compare(got: dict, want: dict) -> tuple[list, list]:
 
 
 def _step_inputs(cfg: dict, loader: SceneLoader, seed: int) -> tuple:
-    """A batch of `FAMILY_B` frames for `cfg` on the card (`family_batch`: its supports,
+    """A batch of the cfg's batch size for `cfg` on the card (`family_batch`: its supports,
     hints where it regresses them) and the automask noise where it has an automask ->
-    (x, y, supports, noise or None)."""
+    (x, y, supports, noise or None). With `feat_recon`'s automask too, the noise is a
+    dict of both (`MonoDepthTrainer.forward_loss`)."""
     supp = tuple(cfg['dataset']['kitti_lmdb']['supp_idxs'])
+    b = cfg['loader']['batch_size']
     rs = np.random.RandomState(seed)
-    x, y = family_batch(loader, rs.randint(0, len(loader.base), FAMILY_B), supp,
+    x, y = family_batch(loader, rs.randint(0, len(loader.base), b), supp,
                         'depth_regr' in cfg['loss'], rs)
     x, y = ({k: torch.from_numpy(np.ascontiguousarray(v)).cuda() for k, v in d.items()}
             for d in (x, y))
     n_sc = len(cfg['net']['depth']['out_scales'])
-    noise = (torch.from_numpy(rs.standard_normal((n_sc * FAMILY_B,) + FAMILY_SHAPE + (1,))
-                              .astype(np.float32)).cuda()
-             if cfg['loss']['img_recon'].get('use_automask') else None)
+
+    def draw(m):
+        return torch.from_numpy(rs.standard_normal((m,) + FAMILY_SHAPE + (1,))
+                                .astype(np.float32)).cuda()
+    noise = draw(n_sc * b) if cfg['loss']['img_recon'].get('use_automask') else None
+    if (cfg['loss'].get('feat_recon') or {}).get('use_automask'):
+        noise = {'img_recon': noise, 'feat_recon': draw(b)}
     return x, y, supp, noise
 
 
-def _both_paths(cfg: dict, x, y, supp, noise, tag: str,
-                expect: dict) -> tuple[dict, dict, dict, list]:
+def _both_paths(cfg: dict, x, y, supp, noise, tag: str, expect: dict,
+                depth_l2=None) -> tuple[dict, dict, dict, list]:
     """One forward + backward of `cfg`'s loss on the kernel path and on the plain path from
     the same seeded weights and batch; the kernel path's launches held to `expect` and its
     results to the plain path's (`_family_compare`) -> (passes, device times, peak GiB,
@@ -3039,7 +3127,7 @@ def _both_paths(cfg: dict, x, y, supp, noise, tag: str,
     if got != expect or any(passes[False]['counts'].values()):
         fail(f'{tag}: launches per micro-step {got}, expected {expect}; '
              f'plain path {passes[False]["counts"]}')
-    faults, notes = _family_compare(passes[True], passes[False])
+    faults, notes = _family_compare(passes[True], passes[False], depth_l2)
     if faults:
         fail(f'{tag}: kernel path against the plain path: ' + '; '.join(faults))
     return passes, times, peaks, notes
@@ -3205,6 +3293,164 @@ def phase_resnet(scenes, smi: str) -> None:
     print(f'resnet: phase wall {time.perf_counter() - t0:.1f} s')
 
 
+def _feat_warp_case(name: str, seed: int, smi: str) -> dict:
+    """Kernel 5 (its generic-C instance) at one cfg's feature warp: the stride-4 maps
+    resized to 192x640 for every support frame of the batch, at near-identity coords as
+    scale 0's warp gives them. Held to `warp_bilinear_plain` in float64 (in chunks of 2
+    images) within WARP_ATOL x max|source|, two calls bitwise equal, timed beside the
+    plain version, `F.grid_sample` (the sample only) and the byte bound -> its result."""
+    from slowtv_monodepth_tpu_torch.ops import sample
+    b, c = FEAT_WARP[name]
+    h, w = FAMILY_SHAPE
+    g = torch.Generator().manual_seed(seed)  # on the host: the CUDA generator may be spent
+    im = torch.randn((b, h, w, c), generator=g)
+    if name == 'feat_depth':  # a ResNet's stride-4 map is post-ReLU; ConvNeXt's LayerNorm'd
+        im = im.clamp_(min=0)
+    im = im.cuda()
+    ys, xs = torch.meshgrid(torch.arange(float(h)), torch.arange(float(w)), indexing='ij')
+    cx = (xs + 2 + torch.randn((b, h, w), generator=g)).clamp(0, w - 1).cuda()
+    cy = (ys + 0.5 * torch.randn((b, h, w), generator=g)).clamp(0, h - 1).cuda()
+    got = sample.warp_bilinear(im, cx, cy)
+    again = sample.warp_bilinear(im, cx, cy)
+    if not all(torch.equal(a, a2) for a, a2 in zip(got, again)):
+        fail(f'warp {tuple(im.shape)}: two calls differ')
+    del again
+    err = 0.0
+    for i in range(0, b, 2):
+        want = sample.warp_bilinear_plain(im[i:i + 2].double(), cx[i:i + 2].double(),
+                                          cy[i:i + 2].double())
+        err = max([err] + [_max_err(a[i:i + 2], wa) for a, wa in zip(got, want)])
+        del want
+    scale = float(im.abs().max())
+    del got
+    torch.cuda.empty_cache()
+    t = cuda_ms(lambda: sample.warp_bilinear(im, cx, cy), iters=5, warmup=1)
+    pt = cuda_ms(lambda: sample.warp_bilinear_plain(im, cx, cy), iters=3, warmup=1)
+    lt = cuda_ms(library_warp(im, cx, cy), iters=5, warmup=1)
+    pout = cx.numel() * c
+    n_bytes = 4 * (im.numel() + 2 * cx.numel() + 3 * pout)
+    bound = bound_ms(n_bytes, 14 * pout)
+    line = (f'feat warp {name} {tuple(im.shape)} -> {tuple(cx.shape[1:])} (kernel 5, generic C = '
+            f'{c}): max|kernel-plain(f64)| {err:.2e} (tol {WARP_ATOL:.0e} x max|source| '
+            f'{scale:.3g}), two calls bitwise equal; device ms (eager) kernel {t.ms:.4f} '
+            f'({t.eager_ms:.4f}), plain {pt.ms:.4f} ({pt.eager_ms:.4f}), F.grid_sample (sample '
+            f'only) {lt.ms:.4f} ({lt.eager_ms:.4f}), bound {max(bound):.4f} ('
+            f'{"bytes" if bound[0] >= bound[1] else "operations"}: {n_bytes / 1e9:.3f} GB) '
+            f'on {smi}')
+    print(line)
+    if not err <= WARP_ATOL * scale:
+        fail(line)
+    out = {'shape': list(im.shape), 'max_abs_err': err, 'ms': t.ms, 'eager_ms': t.eager_ms,
+           'plain_ms': pt.ms, 'plain_eager_ms': pt.eager_ms, 'library_ms': lt.ms,
+           'library_eager_ms': lt.eager_ms, 'bound_ms': max(bound)}
+    del im, cx, cy
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_feat(scenes, smi: str) -> dict:
+    """Depth-VO-Feat and FeatDepth at published widths (ConvNeXt-B depth nets, 4 scales,
+    192x640, the ResNet-18 pose net; FeatDepth B=6 with its ResNet-18 autoencoder,
+    Depth-VO-Feat B=8). Kernel 5 at the two feature warps (C = 128 and 64) against float64;
+    one micro-step of each cfg as it stands on the kernel and plain paths, held as in
+    phase 17 (`FEAT_LAUNCHES`; the autoencoder's BatchNorm counters at 2); then FeatDepth
+    through `MonoDepthLoop` (2 epochs of 2 batches over `StereoHintLoader` with its
+    supports), its `last.ckpt` with the autoencoder, served by `BenchmarkPredictor`.
+    -> kernel 5's results at the two feature shapes."""
+    from slowtv_monodepth_tpu_torch.core import BenchmarkPredictor, load_checkpoint
+    t0 = time.perf_counter()
+    warps = {name: _feat_warp_case(name, RUN_SEED + 60 + i, smi)
+             for i, name in enumerate(FEAT_WARP)}
+    for i, name in enumerate(FEAT_FILE_CFGS):
+        cfg = family_cfg(name)
+        loader = SceneLoader(scenes, 1, FAMILY_SHAPE, batch=cfg['loader']['batch_size'])
+        x, y, supp, noise = _step_inputs(cfg, loader, RUN_SEED + 40 + i)
+        passes, times, peaks, notes = _both_paths(cfg, x, y, supp, noise, f'feat {name}',
+                                                  FEAT_LAUNCHES[name], FEAT_DEPTH_L2)
+        got_counts = {k: passes[True]['counts'][k] for k in FEAT_LAUNCHES[name]}
+        k_ms, p_ms = times[True], times[False]
+        nets = {n: v['enc_name'] for n, v in cfg['net'].items() if v}
+        print(f'feat {name} (nets {nets}, B={cfg["loader"]["batch_size"]}, '
+              f'{FAMILY_SHAPE[0]}x{FAMILY_SHAPE[1]}, supports {list(supp)}, losses '
+              f'{sorted(passes[True]["terms"])}): loss {passes[True]["loss"]:.6f} (plain '
+              f'{passes[False]["loss"]:.6f}, rtol 1e-5); the depth net\'s gradient as one vector, '
+              f'the others\' within 1e-3 and running statistics within {BN_STATS_RTOL:.0e} of '
+              f'each tensor\'s largest, BatchNorm counters {passes[True]["counters"]}: '
+              + '; '.join(notes)
+              + f'; every one of {passes[True]["n_params"]} parameters with a finite non-zero '
+              f'gradient; launches per micro-step {got_counts}; device ms per micro-step '
+              f'(forward + backward, no update; eager in brackets, timed by {k_ms.how}/'
+              f'{p_ms.how}): kernel {k_ms.ms:.2f} ({k_ms.eager_ms:.2f}), plain {p_ms.ms:.2f} '
+              f'({p_ms.eager_ms:.2f}); peak memory kernel {peaks[True]:.2f} GiB, plain '
+              f'{peaks[False]:.2f} GiB on {smi}')
+        del passes
+        torch.cuda.empty_cache()
+
+    # FeatDepth through the loop as `slowtv-train-torch` runs it, then served.
+    cfg = family_cfg('feat_depth')
+    cfg = {**cfg, 'seed': RUN_SEED, 'trainer': {
+        **cfg['trainer'], 'max_epochs': FAMILY_RUN_EPOCHS, 'log_every_n_steps': 1,
+        'limit_val_batches': 1, 'matmul': 'highest'}}
+    b, supp = cfg['loader']['batch_size'], tuple(cfg['dataset']['kitti_lmdb']['supp_idxs'])
+    n = FAMILY_RUN_EPOCHS * FAMILY_RUN_BATCHES
+    with tempfile.TemporaryDirectory() as tmp:
+        run = Path(tmp) / 'run'
+        loop, st = _run_loop(cfg, run, scenes, val=True, tag='feat feat_depth', loaders=(
+            StereoHintLoader(scenes, FAMILY_RUN_BATCHES, True, RUN_SEED, supp, False, b),
+            StereoHintLoader(scenes, 1, False, RUN_SEED + 1, supp, False, b)))
+        expect = {k: n * v + FAMILY_RUN_EPOCHS * FEAT_VAL_LAUNCHES.get(k, 0)
+                  for k, v in FEAT_LAUNCHES['feat_depth'].items()}
+        if loop.global_step != n or st['counts'] != expect:
+            fail(f'feat run: {loop.global_step} micro-steps, launches {st["counts"]}, expected '
+                 f'{expect}')
+        sd, _ = load_checkpoint(run / 'last.ckpt')
+        live = {f'nets.{k}.{kk}': v for k, net in loop.trainer.nets.items()
+                for kk, v in net.state_dict().items()}
+        ae = [k for k in live if k.startswith('nets.autoencoder.')]
+        stale = [k for k in live if not torch.equal(sd[k], live[k].cpu())]
+        counters = {k.split('.')[1]: int(sd[k]) for k in live if k.endswith('num_batches_tracked')}
+        if sorted(sd) != sorted(live) or not ae or stale \
+                or set(counters.items()) != {('pose', n), ('autoencoder', 2 * n)}:
+            fail(f'feat run: last.ckpt has {len(sd)} of {len(live)} tensors ({len(ae)} of the '
+                 f'autoencoder), stale {stale[:3]}, counters {sorted(set(counters.items()))}')
+        val = {k: st['val'].get(k) for k in ('loss', 'loss_feat_recon', 'loss_autoenc_recon',
+                                             'AbsRel')}
+        if not all(v is not None and np.isfinite(v) for v in val.values()):
+            fail(f'feat run: validation scalars {val}')
+        predictor = BenchmarkPredictor('cuda')
+        net = predictor.load_model(run / 'last.ckpt')
+        std = StereoHintLoader(scenes, 1, False).std
+        imgs = std[np.arange(RESNET_SERVE_B) % len(std)]
+        t = torch.from_numpy(np.ascontiguousarray(imgs)).cuda().permute(0, 3, 1, 2)
+        _reset_counts()
+        with torch.no_grad():
+            got = predictor.forward(net, t)
+            served = _read_counts()
+            want = loop.trainer.nets['depth'].eval()(t)['disp'][0]
+        torch.cuda.synchronize()
+        err = _max_err(got, want)
+        if net.training or got.shape != (RESNET_SERVE_B, 1) + FAMILY_SHAPE or err > GOLDEN_ATOL \
+                or served['decoder_stage'] != 2 or served['dwconv'] != 36:
+            fail(f'feat serve: output {tuple(got.shape)} off the trainer\'s eval forward by '
+                 f'{err:.2e}, launches {served}')
+        print(f'feat run feat_depth: {FAMILY_RUN_EPOCHS} epochs x {FAMILY_RUN_BATCHES} batches '
+              f'of {b} at {FAMILY_SHAPE[0]}x{FAMILY_SHAPE[1]}, supports {list(supp)}: launches '
+              f'{st["counts"]} (per train micro-step {FEAT_LAUNCHES["feat_depth"]}, per '
+              f'validation step {FEAT_VAL_LAUNCHES}); last.ckpt {len(sd)} tensors, {len(ae)} of '
+              f'the autoencoder, every one equal to the trainer\'s, BatchNorm counters '
+              f'{sorted(set(counters.items()))}; validation '
+              + ', '.join(f'{k} {v:.4g}' for k, v in val.items())
+              + f'; BenchmarkPredictor serves its depth net at B={RESNET_SERVE_B} ('
+              f'{served["dwconv"]} dwconv, {served["decoder_stage"]} decoder_stage launches), '
+              f'{err:.2e} off the trainer\'s eval-mode forward (bound {GOLDEN_ATOL:.0e}) on {smi}')
+        del loop, net, predictor
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.benchmark = False
+    print(f'feat: phase wall {time.perf_counter() - t0:.1f} s')
+    return warps
+
+
 def profile_train(out: Path = ROOT / 'build' / 'train_profile.txt',
                   matmul: str = 'highest', fused_blocks: bool = False) -> None:
     """Where the KBR micro-step's device time goes (not part of `main`).
@@ -3314,6 +3560,7 @@ def main() -> None:
     phase_eval_zero_shot(sd, scenes, smi)
     phase_families(scenes, smi)
     phase_resnet(scenes, smi)
+    feat_warps = phase_feat(scenes, smi)
     sources = {'dwconv': ('dwconv.cu', 'pallas_dwconv.py:59'),
                'decoder_stage': ('decoder_stage.cu', 'pallas_decoder.py:249'),
                'decoder_stage_bwd': ('decoder_stage_bwd.cu', 'pallas_decoder.py:268'),
@@ -3352,13 +3599,17 @@ def main() -> None:
             'ms', 'plain_ms', 'library_ms', 'bound_ms', 'eager_ms', 'plain_eager_ms')})
     rows['decoder_stage'].update({f'b1_{k}': kern['decoder_stage_b1'][k] for k in (
         'ms', 'plain_ms', 'library_ms', 'bound_ms', 'eager_ms', 'plain_eager_ms')})
+    for name, c in (('depth_vo_feat', 128), ('feat_depth', 64)):  # kernel 5's generic C
+        rows['warp'].update({f'feat_c{c}_{k}': v for k, v in feat_warps[name].items()})
     print('(launches: dwconv and decoder_stage in the serving slice, convnext_block in its '
           "fused-blocks half, decoder_stage_bwd in the training run's first epoch, warp_packed in "
           'its bf16 epoch, the others in the training slice; ms / plain_ms / bound_ms / library_ms: '
           'device time per ConvNeXt-B + decoder forward at B=2, 384x640, for dwconv and '
           'decoder_stage (dwconv step_*: its 108 launches per KBR micro-step; decoder_stage '
           'step_*: its 2 stages per KBR micro-step, b1_*: per request at B=1), per request (36 blocks at B=1, 384x640) for convnext_block (step_*: its 54 launches per KBR micro-step with fused blocks), per KBR '
-          'micro-step at B=4, 384x640 for the others; convnext_block max_abs_err is relative to '
+          'micro-step at B=4, 384x640 for the others; warp feat_c128_* / feat_c64_*: one call '
+          "at Depth-VO-Feat's / FeatDepth's feature warp (phase 19), max_abs_err against float64; "
+          'convnext_block max_abs_err is relative to '
           'max|y|; bound_ms from 67 TFLOP/s float32 and 3.35 TB/s; photo_bwd and '
           "decoder_stage_bwd max_abs_err are relative to the gradient's own largest magnitude; "
           'convnext_block_bwd: launches in the fused training slice; ms, plain_ms and bound_ms '

@@ -263,7 +263,7 @@ def train_state_from_jax(state, nets: Mapping[str, torch.nn.Module], opt,
     and `parsers.Optimizer`, so both step functions continue from one state.
 
     :param state: `jax.tree.map(np.asarray, train_state)`: `params` {'depth',
-        'pose'}, `aux` (a BatchNorm net's `batch_stats`: its running statistics
+        ['pose'], ['autoencoder']}, `aux` (a BatchNorm net's `batch_stats`: its running statistics
         go into the net's buffers), `step`, and `opt_state` of
         `parsers.make_optimizer`: AdamW,
         bare or under `optax.MultiSteps` (read by attribute: `mu`, `nu`, `count`;
@@ -274,9 +274,12 @@ def train_state_from_jax(state, nets: Mapping[str, torch.nn.Module], opt,
     MultiSteps keeps the running MEAN of the micro-steps' gradients; the port
     keeps their SUM in `.grad`, so the accumulator comes across times `mini_step`.
     """
-    from ..models.from_jax import depth_state_dict_from_jax, pose_state_dict_from_jax
+    from ..models.from_jax import (autoencoder_state_dict_from_jax, depth_state_dict_from_jax,
+                                   pose_state_dict_from_jax)
     convert = {'depth': lambda t, stats=None: depth_state_dict_from_jax(t, out_scales, stats),
-               'pose': pose_state_dict_from_jax}
+               'pose': pose_state_dict_from_jax,
+               'autoencoder': lambda t, stats=None: autoencoder_state_dict_from_jax(
+                   t, nets['autoencoder'].out_sc, stats)}
     if set(nets) - set(convert):
         raise NotImplementedError(f'Nets {sorted(set(nets) - set(convert))} have no bridge.')
 

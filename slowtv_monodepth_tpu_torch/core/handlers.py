@@ -1,17 +1,18 @@
 """Per-loss handlers of the training step (PyTorch, NHWC).
 
 Counterpart of `slowtv_monodepth_tpu/core/handlers.py`, with the JAX
-package's batching: `image_recon`, `stereo_const`, `depth_regr`,
-`disp_smooth`, `disp_occ` and `disp_mask`. All upsampled scales share the
+package's batching: `image_recon`, `feat_recon`, `autoenc_recon`,
+`stereo_const`, `depth_regr`, `disp_smooth`, `feat_smooth`, `disp_occ` and
+`disp_mask`. All upsampled scales share the
 full (h, w) resolution, so they are stacked on the batch axis and each
 handler makes ONE batched `view_synth` call over (supports x scales x
 batch): one warp launch per handler call on the card (`depth_regr`'s hint
 automask: two).
 
 Shapes: depths {s: (b, h, w, 1)}, masks {s: (b, h, w, n)}, imgs
-(b, h, w, 3), supp_imgs (n, b, h, w, 3), Ts (n, b, 4, 4), Ks (b, 4, 4).
-The feature handlers (`feat_recon`, `autoenc_recon`, `feat_smooth`) belong
-to ROADMAP queue A item 9b.
+(b, h, w, 3), supp_imgs (n, b, h, w, 3), Ts (n, b, 4, 4), Ks (b, 4, 4);
+features per encoder stage [(b, h/r, w/r, c)] and their supports'
+[(n, b, h/r, w/r, c)].
 """
 from __future__ import annotations
 
@@ -21,8 +22,8 @@ import torch
 
 from ..ops import resize_like, view_synth
 
-__all__ = ['image_recon', 'stereo_const', 'depth_regr', 'disp_smooth', 'disp_occ', 'disp_mask',
-           'rigid_inverse']
+__all__ = ['image_recon', 'feat_recon', 'autoenc_recon', 'stereo_const', 'depth_regr',
+           'disp_smooth', 'feat_smooth', 'disp_occ', 'disp_mask', 'rigid_inverse']
 
 
 def _stack_scales(d: dict) -> torch.Tensor:
@@ -76,7 +77,8 @@ def image_recon(crit, depths: dict, imgs: torch.Tensor, supp_imgs: torch.Tensor,
     depths_s = _stack_scales(depths)
     masks_s = None if masks is None else _stack_scales(masks)
     imgs_s = _tile_scales(imgs, n_sc)
-    supp_s = torch.cat([supp_imgs] * n_sc, dim=1)
+    # One scale (`feat_recon`): the supports as they are, not a copy of 1 GB of features.
+    supp_s = supp_imgs if n_sc == 1 else torch.cat([supp_imgs] * n_sc, dim=1)
     Ts_s = torch.cat([Ts] * n_sc, dim=1)
     Ks_s = _tile_scales(Ks, n_sc)
 
@@ -87,6 +89,48 @@ def image_recon(crit, depths: dict, imgs: torch.Tensor, supp_imgs: torch.Tensor,
     ld = {k: v[:b] for k, v in ld.items()}
     ld['supp_imgs_warp'] = warped[:, :b]
     return loss, ld
+
+
+def feat_recon(crit, depths: dict, feats, supp_feats, Ts: torch.Tensor, Ks: torch.Tensor,
+               generator: Optional[torch.Generator] = None,
+               noise: Optional[torch.Tensor] = None, kernels: bool = True,
+               masks: Optional[dict] = None):
+    """Feature reconstruction at scale 0 only: the stride-4 features (`feats[-4]`
+    of a pyramid) of the target and its supports, their gradients stopped, resized
+    bilinearly (no antialias) to scale 0's depth and warped by it as
+    `image_recon` warps images (kernel 5 at C = the features' channels on the
+    card). No gradient reaches the features, so the warp's backward runs the
+    coordinates' part only.
+
+    :param noise: the automask tie-break noise, (b, h, w, 1).
+    :return: (loss, {'supp_feats_warp': (n, b, h, w, c)}).
+    """
+    if isinstance(feats, (list, tuple)):
+        feats, supp_feats = feats[-4], supp_feats[-4]
+    depth0 = depths[0]
+    feats = resize_like(feats.detach(), depth0)
+    supp_feats = resize_like(supp_feats.detach().flatten(0, 1), depth0).unflatten(
+        0, supp_feats.shape[:2])
+    masks0 = None if masks is None else {0: masks[0]}
+    loss, ld = image_recon(crit, {0: depth0}, feats, supp_feats, Ts, Ks, generator=generator,
+                           noise=noise, kernels=kernels, masks=masks0)
+    return loss, {'supp_feats_warp': ld['supp_imgs_warp']}
+
+
+def autoenc_recon(crit, preds: dict, targets: torch.Tensor, supp_preds: dict,
+                  supp_targets: torch.Tensor):
+    """The autoencoder's image reconstruction: every scale's (upsampled) target and
+    support images against the inputs, as ONE stack (s * (b + n * b) images).
+
+    :param preds: {s: (b, h, w, 3)}; supp_preds {s: (n, b, h, w, 3)}.
+    """
+    n_sc = len(preds)
+    preds_s = _stack_scales(preds)
+    supp_preds_s = torch.cat([supp_preds[k].flatten(0, 1) for k in sorted(supp_preds)])
+    targets_s = _tile_scales(targets, n_sc)
+    supp_targets_s = _tile_scales(supp_targets.flatten(0, 1), n_sc)
+    loss, _ = crit(torch.cat([preds_s, supp_preds_s]), torch.cat([targets_s, supp_targets_s]))
+    return loss, {}
 
 
 def stereo_const(crit, disps: dict, depths: dict, disps_stereo: dict, depths_stereo: dict,
@@ -158,6 +202,17 @@ def disp_smooth(crit, disps: dict, imgs: torch.Tensor):
     ls = {s: crit(disp, resize_like(imgs, disp)) for s, disp in disps.items()}
     loss = torch.stack([v[0] / 2 ** s for s, v in ls.items()]).mean()
     return loss, ls[min(ls)][1]
+
+
+def feat_smooth(crit, feats, imgs: torch.Tensor, supp_feats, supp_imgs: torch.Tensor):
+    """Feature peakiness or smoothness over the encoder stages, stage s weighted by
+    1 / 2**s, averaged; the same over the supports' features, added."""
+    ls = [crit(f, resize_like(imgs, f))[0] / 2 ** s for s, f in enumerate(feats)]
+    loss = torch.stack(ls).mean()
+    supp_imgs_f = supp_imgs.flatten(0, 1)
+    ls = [crit(f.flatten(0, 1), resize_like(supp_imgs_f, f[0]))[0] / 2 ** s
+          for s, f in enumerate(supp_feats)]
+    return loss + torch.stack(ls).mean(), {}
 
 
 def disp_occ(crit, disps: dict):

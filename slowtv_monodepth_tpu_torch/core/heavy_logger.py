@@ -98,7 +98,10 @@ class HeavyLogger:
                 _, (loss_dict, fwd) = trainer.loss_fn(x, y, tuple(supp_idxs), gen, noise)
         finally:
             trainer.nets.train(training)
-        fwd = {k: fwd[k] for k in ('disp', 'disp_stereo', 'mask', 'depth_feats') if k in fwd}
+        fwd = {k: fwd[k] for k in ('disp', 'disp_stereo', 'mask', 'depth_feats', 'autoenc_imgs')
+               if k in fwd}
+        if 'supp_feats_warp' in loss_dict:  # the first support's is logged: copy only that
+            loss_dict = {**loss_dict, 'supp_feats_warp': loss_dict['supp_feats_warp'][:1]}
         fwd['depth_feats'] = [f.permute(0, 2, 3, 1) for f in fwd.get('depth_feats', [])]
         x, y, fwd, loss_dict = _host((x, y, fwd, loss_dict))
 
@@ -138,7 +141,7 @@ class HeavyLogger:
 
     def log_fwd(self, fwd: dict, supp_idxs) -> None:
         """Network outputs: disparities, the virtual-stereo disparity, the
-        predicted masks and features (the autoencoder's images are ROADMAP A9b)."""
+        predicted masks, the autoencoder's images and features."""
         imgs = {}
         if 'disp' in fwd:
             imgs['pred/disp'] = self._grid(rgb_from_disp(fwd['disp'][0][..., 0]))
@@ -148,12 +151,15 @@ class HeavyLogger:
             for j, i in enumerate(supp_idxs):
                 if fwd['mask'][0].shape[-1] > j:
                     imgs[f'pred/mask_{i}'] = self._grid(fwd['mask'][0][..., j:j + 1])
+        if 'autoenc_imgs' in fwd:
+            imgs['pred/autoenc'] = self._grid(fwd['autoenc_imgs'][0])
         if fwd.get('depth_feats'):
             imgs['pred/feats'] = self._grid(rgb_from_feat(fwd['depth_feats'][0]))
         self.write_images(imgs)
 
     def log_loss(self, ld: dict, supp_idxs) -> None:
-        """Loss artifacts: warps, automasks (the hints' too), gradients."""
+        """Loss artifacts: warps (the features' too), automasks (the hints' too),
+        gradients."""
         imgs = {}
         if 'supp_imgs_warp' in ld:
             for i, w in zip(supp_idxs, ld['supp_imgs_warp']):
@@ -167,4 +173,6 @@ class HeavyLogger:
             imgs['loss/disp_grad'] = self._grid(rgb_from_disp(ld['disp_grad'][..., 0]))
         if 'image_grad' in ld:
             imgs['loss/image_grad'] = self._grid(rgb_from_disp(ld['image_grad'][..., 0]))
+        if 'supp_feats_warp' in ld:
+            imgs['loss/feat_warp'] = self._grid(rgb_from_feat(ld['supp_feats_warp'][0]))
         self.write_images(imgs)

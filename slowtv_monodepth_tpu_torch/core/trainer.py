@@ -13,12 +13,13 @@ Batches are NHWC, as in the JAX package:
     x = {imgs (b, h, w, 3), supp_imgs (n, b, h, w, 3)}
     y = {imgs, supp_imgs, K (b, 4, 4), [T_stereo (b, 4, 4)], [depth (b, h', w', 1)],
          [depth_hints (b, h, w, 1)]}
-Ported losses: `img_recon` (with predicted masks or 'l2'), `stereo_const`,
-`depth_regr` (with the Depth-Hints automask), `disp_smooth` (Laplacian,
-blur), `disp_occ` and `disp_mask`: the KBR, Monodepth, Garg, MonoResMatch,
-DVSO, Kuznietsov, Depth-Hints, SfM-Learner and Klodt recipes. The net dict
-may lack the pose net (a stereo-only support). The feature losses raise
-`NotImplementedError` in `parsers.get_loss` (ROADMAP queue A item 9b).
+Ported losses: `img_recon` (with predicted masks or 'l2'), `feat_recon`,
+`autoenc_recon`, `stereo_const`, `depth_regr` (with the Depth-Hints
+automask), `disp_smooth` (Laplacian, blur), `feat_peaky`, `feat_smooth`,
+`disp_occ` and `disp_mask`: the KBR, Monodepth, Garg, MonoResMatch, DVSO,
+Kuznietsov, Depth-Hints, SfM-Learner, Klodt, Depth-VO-Feat and FeatDepth
+recipes. The net dict may lack the pose net (a stereo-only support) and may
+hold the image autoencoder (FeatDepth).
 
 The depth net's two skip-less decoder stages run fused, forward (kernel 3)
 and backward (kernel 4), as in serving, where the decoder has one output
@@ -27,7 +28,7 @@ warp sources to bfloat16 and runs the packed warp (kernel 6).
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
 
 import torch
 
@@ -88,9 +89,16 @@ class MonoDepthTrainer:
 
     # ---------------------------------------------------------------- forward
     def forward(self, x: dict, supp_idxs: tuple) -> dict:
-        """Depth and pose nets -> {depth_feats, disp {s: (b, h/2**s, w/2**s, 1)},
-        [disp_stereo {s: (..., 2)}], [mask {s: (..., n)}], T_i (b, 4, 4),
-        [fs, cs (n, b, 2), K (b, 4, 4)]}, maps NHWC."""
+        """Depth, pose and autoencoder nets -> {depth_feats (NCHW), disp {s: (b,
+        h/2**s, w/2**s, 1)}, [disp_stereo {s: (..., 2)}], [mask {s: (..., n)}], T_i
+        (b, 4, 4), [fs, cs (n, b, 2), K (b, 4, 4)], [autoenc_feats [(b, h/r, w/r,
+        c)], autoenc_imgs {s: (b, h/2**s, w/2**s, 3)}, supp_autoenc_feats and
+        supp_autoenc_imgs with a leading support axis n]}, maps NHWC.
+
+        The autoencoder runs on the targets, then once on all n * b support frames in
+        the same mode: in train mode BatchNorm takes each pass's batch statistics and
+        updates its running statistics twice, the second on the first's update, as
+        the JAX package's support pass chains on its target pass's."""
         fwd: dict = {}
         imgs = x['imgs']
         for key, net in self.nets.items():
@@ -118,15 +126,48 @@ class MonoDepthTrainer:
                     # The intrinsics predicted with the first support frame.
                     K = PoseNet.build_K(out['fs'], out['cs']).reshape(n, b, 4, 4)[0]
                     fwd['K'] = resize_K(K, imgs.shape[1:3])
+            elif key == 'autoencoder':
+                n, b = x['supp_imgs'].shape[:2]
+                out = net(imgs.permute(0, 3, 1, 2))
+                fwd['autoenc_feats'] = [f.permute(0, 2, 3, 1) for f in out['autoenc_feats']]
+                fwd['autoenc_imgs'] = {s: v.permute(0, 2, 3, 1)
+                                       for s, v in out['autoenc_imgs'].items()}
+                out = net(x['supp_imgs'].flatten(0, 1).permute(0, 3, 1, 2))
+                fwd['supp_autoenc_feats'] = [f.permute(0, 2, 3, 1).unflatten(0, (n, b))
+                                             for f in out['autoenc_feats']]
+                fwd['supp_autoenc_imgs'] = {s: v.permute(0, 2, 3, 1).unflatten(0, (n, b))
+                                            for s, v in out['autoenc_imgs'].items()}
             else:
-                raise NotImplementedError(
-                    f'Net "{key}" is not ported yet (ROADMAP queue A item 9b).')
+                raise KeyError(f'Unrecognized net key: {key}.')
         return fwd
 
+    def extract_features(self, fwd: dict, x: dict) -> tuple[list, list]:
+        """The features `feat_recon` warps -> (target's [(b, h/r, w/r, c)], supports'
+        [(n, b, h/r, w/r, c)]), NHWC: the autoencoder's where there is one, else the
+        depth net's and a pass of the depth encoder over all n * b support frames.
+
+        That pass runs in the step's mode (train mode: BatchNorm on the batch's
+        statistics, as the JAX package's) under `no_grad`: the handler stops the
+        features' gradient anyway. The JAX package discards its running-statistics
+        update, so the pass leaves every buffer of the depth net as it found it."""
+        if 'autoencoder' in self.nets:
+            return fwd['autoenc_feats'], fwd['supp_autoenc_feats']
+        net = self.nets['depth']
+        n, b = x['supp_imgs'].shape[:2]
+        buffers = {k: v.clone() for k, v in net.named_buffers()}
+        with torch.no_grad():
+            supp = net.encoder(x['supp_imgs'].flatten(0, 1).permute(0, 3, 1, 2)
+                               .contiguous(memory_format=torch.channels_last))
+            for k, v in net.named_buffers():
+                v.copy_(buffers[k])
+        feats = [f.permute(0, 2, 3, 1) for f in fwd['depth_feats']]
+        return feats, [f.permute(0, 2, 3, 1).unflatten(0, (n, b)) for f in supp]
+
     def forward_postprocess(self, fwd: dict, x: dict, y: dict, supp_idxs: tuple) -> dict:
-        """Upsample the disparities (and convert them to depth) and the masks,
-        keep the virtual-stereo channel that faces the real stereo pair, stack
-        the poses (`T_stereo` from `y` for a stereo support, index 0)."""
+        """Upsample the disparities (and convert them to depth), the masks and the
+        autoencoder's images, keep the virtual-stereo channel that faces the real
+        stereo pair, stack the poses (`T_stereo` from `y` for a stereo support,
+        index 0)."""
         imgs = x['imgs']
         new = {}
         for k, v in fwd.items():
@@ -134,8 +175,11 @@ class MonoDepthTrainer:
                 new[f'{k}_up'] = {s: resize_like(d, imgs) for s, d in v.items()}
                 new[f'{k}_up'.replace('disp', 'depth')] = {
                     s: self.to_depth(d) for s, d in new[f'{k}_up'].items()}
-            elif 'mask' in k:
+            elif 'mask' in k or k == 'autoenc_imgs':
                 new[f'{k}_up'] = {s: resize_like(m, imgs) for s, m in v.items()}
+            elif k == 'supp_autoenc_imgs':
+                new[f'{k}_up'] = {s: resize_like(m.flatten(0, 1), imgs).unflatten(0, m.shape[:2])
+                                  for s, m in v.items()}
         fwd.update(new)
 
         if 'disp_stereo' in fwd:
@@ -152,19 +196,25 @@ class MonoDepthTrainer:
         return fwd
 
     def forward_loss(self, fwd: dict, y: dict, generator: Optional[torch.Generator] = None,
-                     noise: Optional[torch.Tensor] = None, supp_idxs: tuple = ()):
+                     noise: Optional[Union[torch.Tensor, dict]] = None, supp_idxs: tuple = (),
+                     x: Optional[dict] = None):
         """Weighted sum of the configured losses -> (loss, loss_dict).
 
         With virtual stereo, `img_recon`, `disp_smooth` and `disp_occ` also
         run on the stereo view (keys `loss_stereo_<k>`, `stereo_<k>`): the
         virtual view is rebuilt from the target image through T_stereo^-1.
 
-        :param generator: draws the automask tie-break noise of `img_recon`.
-        :param noise: or that noise itself, (n_scales * b, h, w, 1). The
-            stereo view's reconstruction takes the same noise, as the JAX
-            package's takes the same key.
+        :param generator: draws the automask tie-break noise of `img_recon` and,
+            apart from it, of `feat_recon`.
+        :param noise: or that noise itself: `img_recon`'s, (n_scales * b, h, w, 1),
+            or {'img_recon': it, 'feat_recon': (b, h, w, 1)}. The stereo view's
+            reconstruction takes `img_recon`'s, as the JAX package's takes the
+            same key; the JAX package draws each loss's from a key of its own.
         :param supp_idxs: the supports' indices (which one is the stereo frame).
+        :param x: the network inputs: `feat_recon` without an autoencoder passes
+            their supports through the depth encoder (`extract_features`).
         """
+        noises = noise if isinstance(noise, dict) else {'img_recon': noise}
         y = dict(y)
         idx_stereo = next((j for j, i in enumerate(supp_idxs) if i == 0), None)
         if 'disp_stereo' in fwd and idx_stereo is not None:
@@ -176,19 +226,28 @@ class MonoDepthTrainer:
         for k, crit in self.losses.items():
             l2, ld2 = None, None
             if k == 'img_recon':
-                if crit.use_automask and noise is None and generator is not None:
+                nz = noises.get(k)
+                if crit.use_automask and nz is None and generator is not None:
                     d0 = fwd['depth_up'][min(fwd['depth_up'])]
-                    noise = torch.randn((len(fwd['depth_up']) * d0.shape[0],) + d0.shape[1:],
-                                        generator=generator, dtype=d0.dtype, device=d0.device)
+                    nz = torch.randn((len(fwd['depth_up']) * d0.shape[0],) + d0.shape[1:],
+                                     generator=generator, dtype=d0.dtype, device=d0.device)
                 l, ld = h.image_recon(crit, fwd['depth_up'], y['imgs'], y['supp_imgs'],
-                                      fwd['Ts'], Ks, noise=noise, kernels=self.kernels,
+                                      fwd['Ts'], Ks, noise=nz, kernels=self.kernels,
                                       warp_bf16=self.warp_bf16, masks=fwd.get('mask_up'))
                 if stereo:
                     l2, ld2 = h.image_recon(
                         crit, fwd['depth_stereo_up'], y['imgs_stereo'], y['imgs'][None],
-                        rigid_inverse(y['T_stereo'])[None], Ks, noise=noise,
+                        rigid_inverse(y['T_stereo'])[None], Ks, noise=nz,
                         kernels=self.kernels, warp_bf16=self.warp_bf16,
                         masks=fwd.get('mask_stereo_up'))
+            elif k == 'feat_recon':
+                feats, supp_feats = self.extract_features(fwd, x)
+                l, ld = h.feat_recon(crit, fwd['depth_up'], feats, supp_feats, fwd['Ts'], Ks,
+                                     generator=generator, noise=noises.get(k),
+                                     kernels=self.kernels, masks=fwd.get('mask_up'))
+            elif k == 'autoenc_recon':
+                l, ld = h.autoenc_recon(crit, fwd['autoenc_imgs_up'], y['imgs'],
+                                        fwd['supp_autoenc_imgs_up'], y['supp_imgs'])
             elif k == 'stereo_const':
                 if not stereo:
                     raise KeyError('Missing virtual stereo prediction "disp_stereo".')
@@ -205,6 +264,9 @@ class MonoDepthTrainer:
                 l, ld = h.disp_smooth(crit, fwd['disp'], y['imgs'])
                 if stereo:
                     l2, ld2 = h.disp_smooth(crit, fwd['disp_stereo'], y['imgs_stereo'])
+            elif k in ('feat_peaky', 'feat_smooth'):
+                l, ld = h.feat_smooth(crit, fwd['autoenc_feats'], y['imgs'],
+                                      fwd['supp_autoenc_feats'], y['supp_imgs'])
             elif k == 'disp_occ':
                 l, ld = h.disp_occ(crit, fwd['disp'])
                 if stereo:
@@ -216,8 +278,7 @@ class MonoDepthTrainer:
                 if 'mask_stereo' in fwd:
                     l = l + h.disp_mask(crit, fwd['mask_stereo'])[0]
             else:
-                raise NotImplementedError(
-                    f'Loss "{k}" is not ported yet (ROADMAP queue A item 9b).')
+                raise ValueError(f'Missing loss key: "{k}"')
             loss = loss + self.weights[k] * l
             loss_dict[f'loss_{k}'] = l
             loss_dict.update(ld)
@@ -229,11 +290,11 @@ class MonoDepthTrainer:
 
     def loss_fn(self, x: dict, y: dict, supp_idxs: tuple,
                 generator: Optional[torch.Generator] = None,
-                noise: Optional[torch.Tensor] = None):
+                noise: Optional[Union[torch.Tensor, dict]] = None):
         """forward -> postprocess -> loss: -> (loss, (loss_dict, fwd))."""
         fwd = self.forward(x, supp_idxs)
         fwd = self.forward_postprocess(fwd, x, y, supp_idxs)
-        loss, loss_dict = self.forward_loss(fwd, y, generator, noise, supp_idxs)
+        loss, loss_dict = self.forward_loss(fwd, y, generator, noise, supp_idxs, x)
         return loss, (loss_dict, fwd)
 
     @torch.no_grad()
@@ -272,7 +333,7 @@ class MonoDepthTrainer:
         supp_idxs = tuple(supp_idxs)
 
         def eval_step(x: dict, y: dict, generator: Optional[torch.Generator] = None,
-                      noise: Optional[torch.Tensor] = None) -> dict:
+                      noise: Optional[Union[torch.Tensor, dict]] = None) -> dict:
             self.nets.eval()
             with torch.no_grad():
                 loss, (ld, fwd) = self.loss_fn(x, y, supp_idxs, generator, noise)
@@ -282,7 +343,7 @@ class MonoDepthTrainer:
             return eval_step
 
         def step(x: dict, y: dict, generator: Optional[torch.Generator] = None,
-                 noise: Optional[torch.Tensor] = None) -> dict:
+                 noise: Optional[Union[torch.Tensor, dict]] = None) -> dict:
             self.nets.train()
             loss, (ld, fwd) = self.loss_fn(x, y, supp_idxs, generator, noise)
             loss.backward()

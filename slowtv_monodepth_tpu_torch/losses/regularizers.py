@@ -1,14 +1,16 @@
-"""Regularizers: disparity smoothness, occlusion and predicted masks (PyTorch, NHWC).
+"""Regularizers: disparity smoothness, feature peakiness and smoothness, occlusion and
+predicted masks (PyTorch, NHWC).
 
 Counterpart of `slowtv_monodepth_tpu/losses/regularizers.py`:
 - `SmoothReg` mean-normalizes the disparity first; its gradients are
   absolute forward differences zero-padded at the end (or, with
   `use_laplacian`, the second-order ones), optionally of a 3x3 Gaussian blur
   (`use_blur`) and weighted by e^{-|grad I|} (`use_edges`);
+- `FeatPeakReg` (the negated first-order feature gradients) and
+  `FeatSmoothReg` (the second-order ones), FeatDepth's, on raw features,
+  each optionally weighted by e^{-|grad I|} (`use_edges`);
 - `OccReg` is a signed disparity mean;
 - `MaskReg` is BCE(mask, 1).
-The feature regularizers (`FeatPeakReg`, `FeatSmoothReg`) belong to the
-FeatDepth recipe (ROADMAP queue A item 9b).
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ import torch.nn.functional as F
 
 from ..ops import clip, eps, mean_normalize
 
-__all__ = ['compute_grad', 'compute_laplacian', 'SmoothReg', 'OccReg', 'MaskReg']
+__all__ = ['compute_grad', 'compute_laplacian', 'SmoothReg', 'FeatPeakReg', 'FeatSmoothReg',
+           'OccReg', 'MaskReg']
 
 
 def _abs(x: torch.Tensor) -> torch.Tensor:
@@ -88,6 +91,48 @@ class SmoothReg:
             disp_dy = disp_dy * torch.exp(-img_dy)
         loss = disp_dx.mean() + disp_dy.mean()
         return loss, {'disp_grad': disp_grad, 'image_grad': img_grad}
+
+
+class FeatPeakReg:
+    """First-order feature peakiness: the NEGATED mean absolute feature gradients
+    (a loss that rewards sharp features)."""
+
+    def __init__(self, use_edges: bool = False):
+        self.use_edges = use_edges
+
+    def __call__(self, feat: torch.Tensor, img: torch.Tensor):
+        """:param feat: (b, h, w, c) features; img (b, h, w, 3) at their size."""
+        feat_dx, feat_dy = compute_grad(feat)
+        with torch.no_grad():
+            feat_grad = torch.sqrt(clip(feat_dx ** 2 + feat_dy ** 2, lo=eps(feat)))
+        if self.use_edges:
+            dx, dy = compute_grad(img, ch_mean=True)
+            feat_dx = feat_dx * torch.exp(-dx)
+            feat_dy = feat_dy * torch.exp(-dy)
+        loss = -(feat_dx.mean() + feat_dy.mean())
+        return loss, {'feat_grad': feat_grad}
+
+
+class FeatSmoothReg:
+    """Second-order feature smoothness: the mean absolute second-order feature
+    gradients."""
+
+    def __init__(self, use_edges: bool = False):
+        self.use_edges = use_edges
+
+    def __call__(self, feat: torch.Tensor, img: torch.Tensor):
+        """:param feat: (b, h, w, c) features; img (b, h, w, 3) at their size."""
+        feat_dxx, feat_dyy, feat_dxy, feat_dyx = compute_laplacian(feat)
+        with torch.no_grad():
+            feat_grad = torch.sqrt(clip(feat_dxx ** 2 + feat_dyy ** 2, lo=eps(feat)))
+        if self.use_edges:
+            dxx, dyy, dxy, dyx = compute_laplacian(img, ch_mean=True)
+            feat_dxx = feat_dxx * torch.exp(-dxx)
+            feat_dyy = feat_dyy * torch.exp(-dyy)
+            feat_dxy = feat_dxy * torch.exp(-dxy)
+            feat_dyx = feat_dyx * torch.exp(-dyx)
+        loss = feat_dxx.mean() + feat_dyy.mean() + feat_dxy.mean() + feat_dyx.mean()
+        return loss, {'feat_grad': feat_grad}
 
 
 class OccReg:

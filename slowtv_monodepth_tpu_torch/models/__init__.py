@@ -1,6 +1,9 @@
+from .autoencoder import AutoencoderNet
 from .depth import DepthNet, seeded_state_dict
-from .from_jax import depth_state_dict_from_jax, pose_state_dict_from_jax
+from .from_jax import (autoencoder_state_dict_from_jax, depth_state_dict_from_jax,
+                       pose_state_dict_from_jax)
 from .pose import PoseNet
 
-__all__ = ['DepthNet', 'PoseNet', 'seeded_state_dict', 'depth_state_dict_from_jax',
+__all__ = ['AutoencoderNet', 'DepthNet', 'PoseNet', 'seeded_state_dict',
+           'autoencoder_state_dict_from_jax', 'depth_state_dict_from_jax',
            'pose_state_dict_from_jax']

@@ -1,8 +1,8 @@
-"""Weight bridge: JAX package parameters -> the port's `DepthNet` and
-`PoseNet` state dicts.
+"""Weight bridge: JAX package parameters -> the port's `DepthNet`, `PoseNet`
+and `AutoencoderNet` state dicts.
 
-The inverse of `slowtv_monodepth_tpu/models/import_reference.py:_convert_depth`
-and `_convert_pose` with `encoders/import_torch.py:convert_convnext` and
+The inverse of `slowtv_monodepth_tpu/models/import_reference.py:_convert_depth`,
+`_convert_pose` and `_convert_autoencoder` with `encoders/import_torch.py:convert_convnext` and
 `convert_resnet` (ConvNeXt, ResNet and ResNeXt encoders, monodepth decoders,
 pose heads). A ResNet's BatchNorm running statistics come from the net's
 `batch_stats` (`state.aux[net]['batch_stats']`); given them, the state dict
@@ -10,7 +10,7 @@ holds the buffers too (`num_batches_tracked`, which flax does not keep, 0).
 Without them it holds the parameters only (for a tree of optimizer moments,
 say). The other direction
 needs no code of its own: prefix the port's `state_dict()` keys with
-`nets.depth.` / `nets.pose.` and hand them to `convert_reference_ckpt`.
+`nets.depth.` / `nets.pose.` / `nets.autoencoder.` and hand them to `convert_reference_ckpt`.
 
 Layouts: conv HWIO -> OIHW, depthwise (k, k, 1, C) -> (C, 1, k, k), dense
 (in, out) -> (out, in).
@@ -29,7 +29,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-__all__ = ['depth_state_dict_from_jax', 'pose_state_dict_from_jax']
+__all__ = ['autoencoder_state_dict_from_jax', 'depth_state_dict_from_jax',
+           'pose_state_dict_from_jax']
 
 
 def _t(a) -> torch.Tensor:
@@ -116,6 +117,11 @@ def _monodepth(p: dict, out_scales: Sequence[int]) -> dict:
     return sd
 
 
+def _scales_of(dec: dict) -> list[int]:
+    """The out scales of a JAX monodepth decoder's params, ascending."""
+    return sorted(int(k.split('_')[1]) for k in dec if k.startswith('outconv_'))
+
+
 def depth_state_dict_from_jax(params: dict,
                               out_scales: Optional[Sequence[int]] = None,
                               batch_stats: Optional[dict] = None
@@ -131,8 +137,7 @@ def depth_state_dict_from_jax(params: dict,
         BatchNorm encoder): with them the buffers come out too.
     """
     if out_scales is None:
-        out_scales = sorted(int(k.split('_')[1]) for k in params['decoders_disp']
-                            if k.startswith('outconv_'))
+        out_scales = _scales_of(params['decoders_disp'])
     enc = _encoder(params['encoder'], (batch_stats or {}).get('encoder'))
     sd = {f'encoder.{k}': v for k, v in enc.items()}
     for dec in ('disp', 'mask'):
@@ -163,4 +168,22 @@ def pose_state_dict_from_jax(params: dict, batch_stats: Optional[dict] = None
             blk = q[f'block{i}']['conv']
             sd[f'{pre}.{i}.0.weight'], sd[f'{pre}.{i}.0.bias'] = _conv(blk['kernel']), _t(blk['bias'])
         sd[f'{pre}.2.weight'], sd[f'{pre}.2.bias'] = _conv(q['out']['kernel']), _t(q['out']['bias'])
+    return sd
+
+
+def autoencoder_state_dict_from_jax(params: dict,
+                                    out_scales: Optional[Sequence[int]] = None,
+                                    batch_stats: Optional[dict] = None
+                                    ) -> dict[str, torch.Tensor]:
+    """JAX `AutoencoderNet` params -> port `AutoencoderNet` state dict
+    (`encoder.*`, `decoder.decoder.{idx}.*`).
+
+    :param params: {'encoder': ..., 'decoders_autoencoder': ...}.
+    :param out_scales, batch_stats: as `depth_state_dict_from_jax`'s.
+    """
+    dec = params['decoders_autoencoder']
+    enc = _encoder(params['encoder'], (batch_stats or {}).get('encoder'))
+    sd = {f'encoder.{k}': v for k, v in enc.items()}
+    sd.update({f'decoder.{k}': v for k, v in
+               _monodepth(dec, _scales_of(dec) if out_scales is None else out_scales).items()})
     return sd

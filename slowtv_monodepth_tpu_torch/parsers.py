@@ -1,15 +1,17 @@
 """Config-dict -> nets, losses and optimizer (PyTorch port).
 
 Counterpart of `slowtv_monodepth_tpu/parsers.py` for the ported keys:
-- `get_net`: `depth` (`DepthNet`) and `pose` (`PoseNet`);
+- `get_net`: `depth` (`DepthNet`), `pose` (`PoseNet`) and `autoencoder`
+  (`AutoencoderNet`);
 - `get_ds` / `get_dl`: the registered datasets (`data/`: every key of the
   JAX package's registry; an unknown one raises `KeyError`) behind the
   prefetching loader, one loader per dataset, interleaved round-robin;
-- `get_loss`: `img_recon` (`ReconstructionLoss`), `depth_regr` and
-  `stereo_const` (`RegressionLoss`), `disp_smooth` (`SmoothReg`), `disp_occ`
-  (`OccReg`) and `disp_mask` (`MaskReg`), with their static weights; the
-  feature losses raise `NotImplementedError` naming ROADMAP A9b, an unknown
-  key `KeyError`;
+- `get_loss`: `img_recon`, `feat_recon` and `autoenc_recon`
+  (`ReconstructionLoss`), `depth_regr` and `stereo_const` (`RegressionLoss`),
+  `disp_smooth` (`SmoothReg`), `feat_peaky` (`FeatPeakReg`), `feat_smooth`
+  (`FeatSmoothReg`), `disp_occ` (`OccReg`) and `disp_mask` (`MaskReg`), with
+  their static weights; an unknown key raises `KeyError`. `feat_recon` with
+  the SSIM error raises `NotImplementedError` (ROADMAP trap T1);
 - `get_sched`: the product of the configured epoch factors, evaluated at
   `update // steps_per_epoch`;
 - `get_opt` / `make_optimizer`: AdamW, Adam, SGD, LAMB, AdaBelief or
@@ -30,20 +32,19 @@ import torch
 import torch.nn as nn
 
 from .core.schedules import SCHEDULES
-from .losses import MaskReg, OccReg, ReconstructionLoss, RegressionLoss, SmoothReg
-from .models import DepthNet, PoseNet
+from .losses import (FeatPeakReg, FeatSmoothReg, MaskReg, OccReg, ReconstructionLoss,
+                     RegressionLoss, SmoothReg)
+from .models import AutoencoderNet, DepthNet, PoseNet
 from .optim import OPTIMIZERS
 
 __all__ = ['get_net', 'get_loss', 'get_ds', 'get_dl', 'get_sched', 'get_opt',
            'make_optimizer', 'Optimizer', 'bn_params']
 
-NETS = {'depth': DepthNet, 'pose': PoseNet}
-LOSSES = {'img_recon': ReconstructionLoss, 'depth_regr': RegressionLoss,
-          'stereo_const': RegressionLoss, 'disp_smooth': SmoothReg, 'disp_occ': OccReg,
-          'disp_mask': MaskReg}
-# The Depth-VO-Feat and FeatDepth recipes' nets and losses (ROADMAP A9b).
-A9B_NETS = ('autoencoder',)
-A9B_LOSSES = ('feat_recon', 'autoenc_recon', 'feat_peaky', 'feat_smooth')
+NETS = {'depth': DepthNet, 'pose': PoseNet, 'autoencoder': AutoencoderNet}
+LOSSES = {'img_recon': ReconstructionLoss, 'feat_recon': ReconstructionLoss,
+          'autoenc_recon': ReconstructionLoss, 'depth_regr': RegressionLoss,
+          'stereo_const': RegressionLoss, 'disp_smooth': SmoothReg, 'feat_peaky': FeatPeakReg,
+          'feat_smooth': FeatSmoothReg, 'disp_occ': OccReg, 'disp_mask': MaskReg}
 
 
 def _listify(v):
@@ -57,9 +58,6 @@ def get_net(cfg: dict, **kw) -> nn.ModuleDict:
     for k, net_kw in cfg.items():
         if net_kw is None:
             continue
-        if k in A9B_NETS:
-            raise NotImplementedError(f'Net "{k}" is not ported yet (have {sorted(NETS)}); '
-                                      'ROADMAP queue A item 9b.')
         if k not in NETS:
             raise KeyError(f'Unknown network "{k}". ({sorted(NETS)})')
         nets[k] = NETS[k](**{key: _listify(v) for key, v in net_kw.items()}, **kw)
@@ -68,19 +66,24 @@ def get_net(cfg: dict, **kw) -> nn.ModuleDict:
 
 def get_loss(cfg: dict, **kw) -> tuple[dict, dict]:
     """Losses + static weights of the cfg `loss` section; `kw` (`kernels`)
-    goes to the reconstruction loss."""
+    goes to the reconstruction losses.
+
+    `feat_recon` with the SSIM error (`loss_name: 'ssim'`, the default) is refused
+    on every device: it would send 64-128 feature channels to the photometric
+    kernels, which take 1-4 (ROADMAP trap T1). The published cfgs use l1 and l2."""
     losses, weights = {}, {}
     for k, loss_kw in cfg.items():
         if loss_kw is None:
             continue
-        if k in A9B_LOSSES:
-            raise NotImplementedError(f'Loss "{k}" is not ported yet (have {sorted(LOSSES)}); '
-                                      'ROADMAP queue A item 9b.')
         if k not in LOSSES:
             raise KeyError(f'Unknown loss "{k}". ({sorted(LOSSES)})')
         loss_kw = dict(loss_kw)
+        if k == 'feat_recon' and loss_kw.get('loss_name', 'ssim') == 'ssim':
+            raise NotImplementedError(
+                "feat_recon with loss_name 'ssim' sends the features' 64-128 channels to the "
+                'photometric kernels, which take 1-4 (ROADMAP trap T1); use l1 or l2.')
         weights[k] = float(loss_kw.pop('weight', 1.0))
-        losses[k] = LOSSES[k](**loss_kw, **(kw if k == 'img_recon' else {}))
+        losses[k] = LOSSES[k](**loss_kw, **(kw if LOSSES[k] is ReconstructionLoss else {}))
     return losses, weights
 
 

@@ -330,7 +330,10 @@ def test_grid_sample_bf16_source_gradients_on_the_card(card):
                                            # C = 4; the kernel's runs of 512 pixels: one
                                            # run, two, two and a part, a part
                                            (1, 16, 32, 4, 16, 32), (2, 20, 30, 3, 16, 64),
-                                           (1, 21, 29, 3, 23, 45), (1, 5, 7, 4, 33, 31)])
+                                           (1, 21, 29, 3, 23, 45), (1, 5, 7, 4, 33, 31),
+                                           # the generic C at the feature widths (ResNet-18's
+                                           # and ConvNeXt-B's stride-4 maps)
+                                           (2, 48, 160, 64, 48, 160), (2, 24, 40, 128, 23, 45)])
 def test_warp_kernel_matches_plain(card, b, h, w, c, ho, wo):
     from slowtv_monodepth_tpu_torch.ops import sample
     rs = np.random.RandomState(6)

@@ -60,7 +60,8 @@ from slowtv_monodepth_tpu_torch import parsers, paths
 from slowtv_monodepth_tpu_torch.config import load_merge_yaml
 from slowtv_monodepth_tpu_torch.core import handlers as th
 from slowtv_monodepth_tpu_torch.core.trainer import MonoDepthTrainer
-from slowtv_monodepth_tpu_torch.models import (depth_state_dict_from_jax,
+from slowtv_monodepth_tpu_torch.models import (autoencoder_state_dict_from_jax,
+                                               depth_state_dict_from_jax,
                                                pose_state_dict_from_jax, seeded_state_dict)
 from torch_threads import two_torch_threads  # noqa: F401
 from torch_tmp import drop_tmp_path  # noqa: F401
@@ -190,11 +191,16 @@ def port_trainer(cfg: dict, weights: dict) -> MonoDepthTrainer:
 
 
 def port_layout(tree: dict, cfg: dict) -> dict:
-    """JAX {depth, [pose]} trees -> {'depth.<key>': array, ...} in the port's keys."""
+    """JAX {depth, [pose], [autoencoder]} trees -> {'depth.<key>': array, ...} in the port's
+    keys."""
     out = {}
     for net, p in tree.items():
-        sd = (depth_state_dict_from_jax(p, cfg['net']['depth']['out_scales']) if net == 'depth'
-              else pose_state_dict_from_jax(p))
+        if net == 'depth':
+            sd = depth_state_dict_from_jax(p, cfg['net']['depth']['out_scales'])
+        elif net == 'pose':
+            sd = pose_state_dict_from_jax(p)
+        else:
+            sd = autoencoder_state_dict_from_jax(p, cfg['net'][net]['out_scales'])
         out.update({f'{net}.{k}': v.numpy() for k, v in sd.items()})
     return out
 
@@ -797,16 +803,15 @@ def _load(path: Path) -> dict:
 
 
 _A10 = 'queue A item 10'
-_A9B = 'queue A item 9b'
 # cfg -> (as it stands, with the pose encoder overlaid to convnext_tiny):
 # None builds a `MonoDepthTrainer`, else the ROADMAP item its refusal names. The
-# published ResNet-18 pose net builds (A10a), so only another decoder (A10) or a
-# feature loss or net (A9b) still refuses.
+# published ResNet-18 pose net builds (A10a) and so do Depth-VO-Feat's and FeatDepth's
+# feature losses and autoencoder (A9b), so only another decoder (A10) still refuses.
 FAMILIES = {
     'benchmark/cadepth_MS': (_A10, _A10), 'benchmark/ddvnet': (_A10, _A10),
     'benchmark/default': (None, None), 'benchmark/depth_hints_MS': (None, None),
-    'benchmark/depth_vo_feat': (_A9B, _A9B), 'benchmark/diffnet_MS': (_A10, _A10),
-    'benchmark/dvso': (None, None), 'benchmark/feat_depth': (_A9B, _A9B),
+    'benchmark/depth_vo_feat': (None, None), 'benchmark/diffnet_MS': (_A10, _A10),
+    'benchmark/dvso': (None, None), 'benchmark/feat_depth': (None, None),
     'benchmark/garg': (None, None), 'benchmark/hrdepth_M': (_A10, _A10),
     'benchmark/hrdepth_MS': (_A10, _A10), 'benchmark/klodt': (None, None),
     'benchmark/kuznietsov': (None, None), 'benchmark/monodepth': (None, None),
@@ -1048,7 +1053,8 @@ def test_chip_smoke_stand_in_yields_the_readers_layout(tmp_path, monkeypatch, mo
     assert (T > 0).any() and (T < 0).any()
 
 
-@pytest.mark.parametrize('name', ['dvso', 'depth_hints_MS', 'sfm_learner', 'klodt'])
+@pytest.mark.parametrize('name', ['dvso', 'depth_hints_MS', 'sfm_learner', 'klodt',
+                                  'depth_vo_feat', 'feat_depth'])
 def test_chip_smoke_family_cfgs_are_the_files(name):
     """`chip_smoke.family_cfg` (no yaml on the card) is `default.yaml` + the family's file
     as they stand, the published ResNet-18 pose net included."""
@@ -1123,17 +1129,25 @@ def test_image_logger_panels_match_jax():
         np.testing.assert_array_equal(out[0][k], out[1][k], err_msg=k)
 
 
-@pytest.mark.parametrize('key', ['feat_recon', 'autoenc_recon', 'feat_peaky', 'feat_smooth',
-                                 'autoencoder', 'no_such_loss'])
+@pytest.mark.parametrize('key', ['no_such_loss', 'no_such_net'])
 def test_the_a9b_keys_raise_naming_their_item(key):
-    """Depth-VO-Feat's and FeatDepth's nets and losses raise naming ROADMAP A9b; a
-    key no package knows raises `KeyError`, as the JAX parsers do."""
+    """A loss or net key no package knows raises `KeyError`, as the JAX parsers do.
+    (Depth-VO-Feat's and FeatDepth's keys build since ROADMAP A9b: the cfg pins above.)"""
     if key == 'no_such_loss':
         with pytest.raises(KeyError, match='Unknown loss'):
             parsers.get_loss({key: {}})
-    elif key == 'autoencoder':
-        with pytest.raises(NotImplementedError, match=_A9B):
-            parsers.get_net({key: {'enc_name': 'resnet18'}})
     else:
-        with pytest.raises(NotImplementedError, match=_A9B):
-            parsers.get_loss({key: {}})
+        with pytest.raises(KeyError, match='Unknown network'):
+            parsers.get_net({key: {}})
+
+
+@pytest.mark.parametrize('loss_kw', [{}, {'loss_name': 'ssim', 'use_min': True}],
+                         ids=['default', 'ssim'])
+def test_feat_recon_with_ssim_is_refused_naming_t1(loss_kw):
+    """`feat_recon` with the SSIM error (the default `loss_name`) would send 64-128
+    feature channels to the photometric kernels, which take 1-4: refused when the cfg is
+    parsed, on every device (ROADMAP trap T1). l1 and l2 build."""
+    with pytest.raises(NotImplementedError, match='trap T1'):
+        parsers.get_loss({'feat_recon': loss_kw})
+    for name in ('l1', 'l2'):
+        assert parsers.get_loss({'feat_recon': {**loss_kw, 'loss_name': name}})[0]['feat_recon']

@@ -168,12 +168,15 @@ def _bits(a) -> np.ndarray:
 # 117 pixels an image (float by float), 960 (a block and a partial one, by
 # float4), 512 (on the block's edge), a resample of 1023 pixels, 512 on the
 # image's bounds and integers, the generic C = 8, H = 1, W = 1, coords that
-# start 4 bytes past 16-byte alignment, the ragged case of chip_smoke.py.
+# start 4 bytes past 16-byte alignment, the ragged case of chip_smoke.py; the
+# feature widths of the generic C that feature reconstruction warps (C = 64: a
+# ResNet-18's stride-4 map; C = 128: ConvNeXt-B's), a run of 512 pixels and a part.
 CASES = [(2, 9, 13, 3, 9, 13, 'random', 1, 0), (1, 24, 40, 3, 24, 40, 'near', 0, 0),
          (2, 16, 32, 1, 16, 32, 'random', 1, 0), (1, 20, 30, 2, 33, 31, 'near', 1, 0),
          (2, 7, 11, 4, 8, 64, 'grid', 1, 0), (1, 5, 7, 8, 9, 4, 'random', 1, 0),
          (1, 1, 17, 3, 5, 6, 'random', 0, 0), (2, 13, 1, 2, 7, 5, 'grid', 1, 0),
-         (1, 12, 20, 3, 12, 20, 'near', 1, 1), (3, 37, 53, 3, 29, 41, 'random', 0, 0)]
+         (1, 12, 20, 3, 12, 20, 'near', 1, 1), (3, 37, 53, 3, 29, 41, 'random', 0, 0),
+         (2, 16, 36, 64, 16, 36, 'near', 1, 0), (1, 12, 19, 128, 23, 25, 'random', 0, 0)]
 
 
 @pytest.mark.parametrize('b,h,w,c,ho,wo,coords,shift16,shift', CASES)
