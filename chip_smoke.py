@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving path, KBR training step and KBR training run, the
-recipe families and the ResNet nets on one NVIDIA GPU (H100).
+recipe families, the ResNet nets and the benchmark's decoders on one NVIDIA GPU (H100).
 
 Phases, in order; any failure exits non-zero and prints no result:
 1. device: require CUDA, print the card's name and power limit, pin exact
@@ -162,7 +162,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    weights and batch, the loss, every gradient and every BatchNorm running statistic held
    to the plain path's (1e-5, 1e-3 of each tensor's largest; the gates' flips counted and
    bounded), the launches of each kernel per micro-step (`FAMILY_LAUNCHES`), device ms per
-   micro-step. Then DVSO through `MonoDepthLoop`: 2 epochs of 2 batches over
+   micro-step. Then DVSO through `MonoDepthLoop`: 1 epoch of 2 batches over
    `StereoHintLoader` (stereo frames, `T_stereo`, hints and KITTI's sparse depth), its
    launches, `last.ckpt` (the 3-channel disparity head), a validation batch each epoch.
 18. resnet: the ResNet and ResNeXt nets with their BatchNorm state (`phase_resnet`):
@@ -172,7 +172,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    forward + backward each on the kernel and plain paths, held as in phase 17, the
    launches per micro-step (`RESNET_LAUNCHES`: a ResNet depth net fuses only decoder stage
    0), device ms per micro-step and peak memory. Then `abl_pretrained/resnet18` through
-   `MonoDepthLoop` (2 epochs of 2 batches over `PackLoader` stand-ins of KITTI, a
+   `MonoDepthLoop` (1 epoch of 2 batches over `PackLoader` stand-ins of KITTI, a
    validation batch each), its `last.ckpt` with every running statistic and int64 counter
    equal to the trainer's, served by `BenchmarkPredictor` at B=12 in eval mode and held to
    the trainer's eval-mode forward (GOLDEN_ATOL).
@@ -188,12 +188,26 @@ Phases, in order; any failure exits non-zero and prints no result:
    encoder's pass over the supports; FeatDepth B=6, supports [-1, 1, 0], the ResNet-18
    autoencoder, both automask noises) on the kernel and plain paths, held as in phase 17
    (the autoencoder's BatchNorm counters at 2), `FEAT_LAUNCHES`, device ms and peak
-   memory. Then FeatDepth through `MonoDepthLoop` (2 epochs of 2 batches and a
+   memory. Then FeatDepth through `MonoDepthLoop` (1 epoch of 2 batches and a
    validation batch each over `StereoHintLoader` with its supports and no hints): its
    launches, `last.ckpt` with every tensor of the autoencoder equal to the trainer's,
    counters at 2 a micro-step, served by `BenchmarkPredictor` at B=12.
    Alone: `python3 -c 'import chip_smoke as c; s = c.phase_device(); c.phase_build();
    c.phase_feat(c._make_scenes(), s)'`.
+20. decoders: the decoder cfgs of `cfg/benchmark/` as they stand (`phase_decoders`;
+   `family_cfg`): HR-Depth-MS, DDV-Net, DiffNet-MS, CADepth-MS (ResNet-18 pose net) and
+   SuperDepth (virtual stereo, stereo blend, no pose net, supports [0]) at ConvNeXt-B,
+   4 scales, B=8, 192x640: one forward + backward each on the kernel and plain paths,
+   held as in phase 17 (CADepth's decoder BatchNorm running statistics and counters
+   too), `DECODER_LAUNCHES` (no decoder-stage launch: only the monodepth decoder has
+   fused stages; SuperDepth's blend runs the depth net twice), device ms per micro-step
+   and peak memory. Then CADepth-MS through `MonoDepthLoop` (2 epochs of 2 batches and a
+   validation batch each over `StereoHintLoader`): `last.ckpt` with every buffer equal
+   to the trainer's, served by `BenchmarkPredictor` and held to the trainer's eval-mode
+   forward; and a reference-layout checkpoint of HR-Depth-MS that also holds the
+   reference's unused row-0 `conv_0` keys, served the same way.
+   Alone: `python3 -c 'import chip_smoke as c; s = c.phase_device(); c.phase_build();
+   c.phase_decoders(c._make_scenes(), s)'`.
 Every time is a device time (`cuda_ms`: the calls captured into one CUDA
 graph, CUDA events around one replay) with the eager time beside it. The last
 two lines are a JSON object per kernel and the contract line
@@ -462,7 +476,11 @@ FAMILY_VAL_LAUNCHES = {'dwconv': 36, 'warp': 3, 'photo_fwd': 2}
 # 1.6e-3 and 3.3e-2, tests/test_torch_families_trajectory.py).
 FAMILY_GATE_SHARE = 1e-3
 FAMILY_GATE_RTOL, FAMILY_GATE_POSE_RTOL, FAMILY_GATE_DEPTH_L2 = 5e-3, 1e-2, 1e-1
-FAMILY_RUN_BATCHES, FAMILY_RUN_EPOCHS = 2, 2   # the DVSO loop: 2 epochs of 2 batches
+# The loops of phases 17-19: 1 epoch of 2 batches (2 epochs until PR 24), and their
+# micro-steps timed over FAMILY_TIMED calls (2 until PR 24): cut so that the script, phase
+# 20 added, keeps within its limit (it took 881-1081 s, PR 24). Each loop still trains,
+# validates, checkpoints and, in phases 18 and 19, serves.
+FAMILY_RUN_BATCHES, FAMILY_RUN_EPOCHS, FAMILY_TIMED = 2, 1, 1
 # BatchNorm's running statistics after one train-mode pass, kernel path against plain path,
 # relative to each tensor's largest value: the same cuDNN convs on both paths, the depth
 # net's skip features those of the same encoder.
@@ -531,6 +549,50 @@ FEAT_VAL_LAUNCHES = {'dwconv': 36, 'decoder_stage': 2, 'warp': 2, 'photo_fwd': 3
 FEAT_WARP = {'depth_vo_feat': (2 * FAMILY_B, 128), 'feat_depth': (3 * 6, 64)}
 # BatchNorm passes per micro-step: the autoencoder runs on the targets, then on the supports.
 BN_PASSES = {'autoencoder': 2}
+# Phase 20: the decoder cfgs of `cfg/benchmark/` over `BENCH_DEFAULT_CFG` (no yaml on the
+# card; `tests/test_torch_families.py` holds these to the files).
+_MIN_AUTOMASK = {'loss': {'img_recon': {'use_min': True, 'use_automask': True}}}
+DECODER_FILE_CFGS = {
+    'hrdepth_MS': {'net': {'depth': {'dec_name': 'hrdepth'}}, **_MIN_AUTOMASK,
+                   'dataset': {'kitti_lmdb': {'supp_idxs': [-1, 1, 0]}}},
+    'ddvnet': {'net': {'depth': {'dec_name': 'ddvnet'}}, **_MIN_AUTOMASK,
+               'dataset': {'kitti_lmdb': {'supp_idxs': [-1, 1]}}},
+    'diffnet_MS': {'net': {'depth': {'dec_name': 'diffnet'}}, **_MIN_AUTOMASK,
+                   'dataset': {'kitti_lmdb': {'supp_idxs': [-1, 1, 0]}}},
+    'cadepth_MS': {'net': {'depth': {'dec_name': 'cadepth'}}, **_MIN_AUTOMASK,
+                   'dataset': {'kitti_lmdb': {'supp_idxs': [-1, 1, 0]}}},
+    'superdepth': {'net': {'depth': {'dec_name': 'superdepth', 'use_virtual_stereo': True,
+                                     'use_stereo_blend': True}, 'pose': None},
+                   'loss': {'stereo_const': {'weight': 1, 'loss_name': 'l1'}},
+                   'dataset': {'kitti_lmdb': {'supp_idxs': [0]}}}}
+# Kernel launches per micro-step (forward + backward), written down before the first run:
+# - ConvNeXt-B's 36 blocks: dwconv 72 (forward, dx), dwconv_dw 36; SuperDepth's stereo
+#   blend runs the depth net twice (the image and its flip), so 144 and 72;
+# - no decoder_stage / _bwd: these decoders have no fused stage (the JAX package passes
+#   `phase_up` to the monodepth decoder only);
+# - min-reprojection + automask (HR-Depth, DDV-Net, DiffNet, CADepth): one batched warp of
+#   the supports (the stereo frame among them), the photometric error on the warped and
+#   the static stacks, one backward; SuperDepth as DVSO (phase 17): the reconstruction, its
+#   virtual stereo view's and `stereo_const`'s warps, both views' photometric errors with
+#   their backward.
+_DECODER_MIN_LAUNCHES = {'dwconv': 72, 'dwconv_dw': 36, 'decoder_stage': 0,
+                         'decoder_stage_bwd': 0, 'warp': 1, 'photo_fwd': 2, 'photo_bwd': 1,
+                         **_FAMILY_ZERO}
+DECODER_LAUNCHES = {'hrdepth_MS': _DECODER_MIN_LAUNCHES, 'ddvnet': _DECODER_MIN_LAUNCHES,
+                    'diffnet_MS': _DECODER_MIN_LAUNCHES, 'cadepth_MS': _DECODER_MIN_LAUNCHES,
+                    'superdepth': {'dwconv': 144, 'dwconv_dw': 72, 'decoder_stage': 0,
+                                   'decoder_stage_bwd': 0, 'warp': 3, 'photo_fwd': 2,
+                                   'photo_bwd': 2, **_FAMILY_ZERO}}
+# CADepth-MS's validation step (forward and loss under no_grad) and a served forward.
+DECODER_VAL_LAUNCHES = {'dwconv': 36, 'warp': 1, 'photo_fwd': 2}
+# The depth net's gradient is held between the paths as one vector (phase 19's
+# FEAT_DEPTH_L2; FAMILY_GATE_DEPTH_L2 where the automask flipped): SuperDepth has no
+# automask, but its L1 terms (the photometric error's, `stereo_const`'s) take the sign of
+# errors the two paths round apart. Measured (H100 80GB HBM3, 700.00 W): its scale-3
+# sub-pixel conv's weight gradient 1.18e-3 of its largest apart, past a per-tensor 1e-3.
+DECODER_RUN = 'cadepth_MS'            # train -> checkpoint -> serve
+DECODER_RUN_EPOCHS, DECODER_TIMED = 2, 2   # its loop: 2 epochs of FAMILY_RUN_BATCHES
+DECODER_REFERENCE = 'hrdepth_MS'      # a reference-layout checkpoint with unused keys
 # Phase 19 holds the depth net's gradient between the paths as one vector at FEAT_DEPTH_L2
 # relative L2 (FAMILY_GATE_DEPTH_L2 where a gate flipped), not tensor by tensor: Depth-VO-Feat
 # has no automask and so no gate bits to count, but its L1 terms (the photometric error's,
@@ -2981,9 +3043,10 @@ def _seeded_weights(key: str, net_cfg: str) -> dict:
 
 
 def family_cfg(name: str) -> dict:
-    """`BENCH_DEFAULT_CFG` merged with the family's file (phase 17's or phase 19's)."""
+    """`BENCH_DEFAULT_CFG` merged with the family's file (phase 17's, 19's or 20's)."""
     from slowtv_monodepth_tpu_torch.config import merge_dicts
-    return merge_dicts(BENCH_DEFAULT_CFG, {**FAMILY_FILE_CFGS, **FEAT_FILE_CFGS}[name])
+    return merge_dicts(BENCH_DEFAULT_CFG,
+                       {**FAMILY_FILE_CFGS, **FEAT_FILE_CFGS, **DECODER_FILE_CFGS}[name])
 
 
 def _family_pass(trainer, x, y, supp, noise) -> dict:
@@ -3095,7 +3158,7 @@ def _step_inputs(cfg: dict, loader: SceneLoader, seed: int) -> tuple:
 
 
 def _both_paths(cfg: dict, x, y, supp, noise, tag: str, expect: dict,
-                depth_l2=None) -> tuple[dict, dict, dict, list]:
+                depth_l2=None, iters: int = FAMILY_TIMED) -> tuple[dict, dict, dict, list]:
     """One forward + backward of `cfg`'s loss on the kernel path and on the plain path from
     the same seeded weights and batch; the kernel path's launches held to `expect` and its
     results to the plain path's (`_family_compare`) -> (passes, device times, peak GiB,
@@ -3118,7 +3181,7 @@ def _both_paths(cfg: dict, x, y, supp, noise, tag: str, expect: dict,
         def fwd_bwd(trainer=trainer):
             trainer.nets.zero_grad(set_to_none=True)
             trainer.loss_fn(x, y, supp, noise=noise)[0].backward()
-        times[kernels] = cuda_ms(fwd_bwd, iters=2, warmup=1)
+        times[kernels] = cuda_ms(fwd_bwd, iters=iters, warmup=1)
         peaks[kernels] = torch.cuda.max_memory_allocated() / 2 ** 30
         del trainer, fwd_bwd
         gc.collect()
@@ -3138,7 +3201,7 @@ def phase_families(scenes, smi: str) -> None:
     192x640): one micro-step (forward + backward) of DVSO as it stands, Depth-Hints-MS,
     SfM-Learner and Klodt on the kernel path and on the plain path from the same seeded
     weights and batch, held to each other; launches per kernel; device ms per
-    micro-step. Then DVSO through `MonoDepthLoop`: 2 epochs of 2 batches over
+    micro-step. Then DVSO through `MonoDepthLoop`: 1 epoch of 2 batches over
     `StereoHintLoader`, `last.ckpt`, one validation batch."""
     from slowtv_monodepth_tpu_torch.core import load_checkpoint
     t0 = time.perf_counter()
@@ -3210,7 +3273,7 @@ def phase_resnet(scenes, smi: str) -> None:
     on the kernel path and on the plain path from the same seeded weights and batch: the
     loss, every gradient and every BatchNorm running statistic held to the plain path's;
     launches per kernel; device ms per micro-step and peak memory. Then
-    `abl_pretrained/resnet18` through `MonoDepthLoop` (2 epochs of 2 batches and a
+    `abl_pretrained/resnet18` through `MonoDepthLoop` (1 epoch of 2 batches and a
     validation batch each), its `last.ckpt` with every buffer, served by
     `BenchmarkPredictor` at B=12 and held to the trainer's eval-mode forward."""
     from slowtv_monodepth_tpu_torch.core import BenchmarkPredictor, load_checkpoint
@@ -3354,7 +3417,7 @@ def phase_feat(scenes, smi: str) -> dict:
     Depth-VO-Feat B=8). Kernel 5 at the two feature warps (C = 128 and 64) against float64;
     one micro-step of each cfg as it stands on the kernel and plain paths, held as in
     phase 17 (`FEAT_LAUNCHES`; the autoencoder's BatchNorm counters at 2); then FeatDepth
-    through `MonoDepthLoop` (2 epochs of 2 batches over `StereoHintLoader` with its
+    through `MonoDepthLoop` (1 epoch of 2 batches over `StereoHintLoader` with its
     supports), its `last.ckpt` with the autoencoder, served by `BenchmarkPredictor`.
     -> kernel 5's results at the two feature shapes."""
     from slowtv_monodepth_tpu_torch.core import BenchmarkPredictor, load_checkpoint
@@ -3449,6 +3512,144 @@ def phase_feat(scenes, smi: str) -> dict:
     torch.backends.cudnn.benchmark = False
     print(f'feat: phase wall {time.perf_counter() - t0:.1f} s')
     return warps
+
+
+def _serve_check(tag: str, ckpt: Path, want_net, imgs: np.ndarray, smi: str) -> str:
+    """`BenchmarkPredictor` serves `ckpt` in eval mode, held to `want_net`'s eval-mode
+    forward (GOLDEN_ATOL) with a served forward's launches (`DECODER_VAL_LAUNCHES`'
+    dwconv, no decoder stage) -> the text for the log."""
+    from slowtv_monodepth_tpu_torch.core import BenchmarkPredictor
+    predictor = BenchmarkPredictor('cuda')
+    net = predictor.load_model(ckpt)
+    t = torch.from_numpy(np.ascontiguousarray(imgs)).cuda().permute(0, 3, 1, 2)
+    _reset_counts()
+    with torch.no_grad():
+        got = predictor.forward(net, t)
+        served = _read_counts()
+        want = want_net.eval()(t)['disp'][0]
+    torch.cuda.synchronize()
+    err = _max_err(got, want)
+    if net.training or got.shape != (len(imgs), 1) + FAMILY_SHAPE or err > GOLDEN_ATOL \
+            or served['dwconv'] != DECODER_VAL_LAUNCHES['dwconv'] or served['decoder_stage']:
+        fail(f'{tag} serve: output {tuple(got.shape)} off the eval forward by {err:.2e}, '
+             f'launches {served}')
+    del net, predictor
+    return (f'BenchmarkPredictor serves it at B={len(imgs)} in eval mode ({served["dwconv"]} '
+            f'dwconv, {served["decoder_stage"]} decoder_stage launches), {err:.2e} off the '
+            f'eval-mode forward (bound {GOLDEN_ATOL:.0e}) on {smi}')
+
+
+def phase_decoders(scenes, smi: str) -> None:
+    """The decoder cfgs of `cfg/benchmark/` at published widths (ConvNeXt-B, 4 scales,
+    B=8, 192x640, the ResNet-18 pose net where the cfg keeps one): one micro-step
+    (forward + backward) of HR-Depth-MS, DDV-Net, DiffNet-MS, CADepth-MS and SuperDepth as
+    they stand on the kernel and plain paths from the same seeded weights and batch, held
+    as in phase 17 (CADepth's decoder BatchNorm statistics and counters too); launches per
+    kernel (`DECODER_LAUNCHES`); device ms per micro-step and peak memory. Then CADepth-MS
+    through `MonoDepthLoop` (2 epochs of 2 batches over `StereoHintLoader`, a validation
+    batch each), its `last.ckpt` with every buffer equal to the trainer's, served by
+    `BenchmarkPredictor`; and a reference-layout checkpoint of HR-Depth-MS holding the
+    reference's unused row-0 `conv_0` keys, served the same way."""
+    from slowtv_monodepth_tpu_torch.core import load_checkpoint, save_checkpoint
+    from slowtv_monodepth_tpu_torch.models import DepthNet
+    t0 = time.perf_counter()
+    loader = SceneLoader(scenes, 1, FAMILY_SHAPE, batch=FAMILY_B)
+    for i, name in enumerate(DECODER_FILE_CFGS):
+        cfg = family_cfg(name)
+        x, y, supp, noise = _step_inputs(cfg, loader, RUN_SEED + 80 + i)
+        passes, times, peaks, notes = _both_paths(cfg, x, y, supp, noise, f'decoders {name}',
+                                                  DECODER_LAUNCHES[name], FEAT_DEPTH_L2,
+                                                  DECODER_TIMED)
+        got_counts = {k: passes[True]['counts'][k] for k in DECODER_LAUNCHES[name]}
+        k_ms, p_ms = times[True], times[False]
+        nets = {n: v.get('dec_name', v['enc_name']) if n == 'depth' else v['enc_name']
+                for n, v in cfg['net'].items() if v}
+        print(f'decoders {name} (nets {nets}, B={FAMILY_B}, {FAMILY_SHAPE[0]}x{FAMILY_SHAPE[1]}, '
+              f'supports {list(supp)}, losses {sorted(passes[True]["terms"])}): loss '
+              f'{passes[True]["loss"]:.6f} (plain {passes[False]["loss"]:.6f}, rtol 1e-5); '
+              f'BatchNorm counters {passes[True]["counters"]}: ' + '; '.join(notes)
+              + f'; every one of {passes[True]["n_params"]} parameters with a finite non-zero '
+              f'gradient; launches per micro-step {got_counts}; device ms per micro-step '
+              f'(forward + backward, no update; eager in brackets, timed by {k_ms.how}/'
+              f'{p_ms.how}): kernel {k_ms.ms:.2f} ({k_ms.eager_ms:.2f}), plain {p_ms.ms:.2f} '
+              f'({p_ms.eager_ms:.2f}); peak memory kernel {peaks[True]:.2f} GiB, plain '
+              f'{peaks[False]:.2f} GiB on {smi}')
+        del passes
+        torch.cuda.empty_cache()
+
+    # CADepth-MS through the loop as `slowtv-train-torch` runs it, then served.
+    cfg = family_cfg(DECODER_RUN)
+    cfg = {**cfg, 'seed': RUN_SEED, 'trainer': {
+        **cfg['trainer'], 'max_epochs': DECODER_RUN_EPOCHS, 'log_every_n_steps': 1,
+        'limit_val_batches': 1, 'matmul': 'highest'}}
+    supp = tuple(cfg['dataset']['kitti_lmdb']['supp_idxs'])
+    n = DECODER_RUN_EPOCHS * FAMILY_RUN_BATCHES
+    std = StereoHintLoader(scenes, 1, False).std
+    imgs = std[np.arange(RESNET_SERVE_B) % len(std)]
+    with tempfile.TemporaryDirectory() as tmp:
+        run = Path(tmp) / 'run'
+        loop, st = _run_loop(cfg, run, scenes, val=True, tag=f'decoders {DECODER_RUN}', loaders=(
+            StereoHintLoader(scenes, FAMILY_RUN_BATCHES, True, RUN_SEED, supp, False),
+            StereoHintLoader(scenes, 1, False, RUN_SEED + 1, supp, False)))
+        expect = {k: n * v + DECODER_RUN_EPOCHS * DECODER_VAL_LAUNCHES.get(k, 0)
+                  for k, v in DECODER_LAUNCHES[DECODER_RUN].items()}
+        if loop.global_step != n or st['counts'] != expect:
+            fail(f'decoders run: {loop.global_step} micro-steps, launches {st["counts"]}, '
+                 f'expected {expect}')
+        sd, _ = load_checkpoint(run / 'last.ckpt')
+        live = {f'nets.{k}.{kk}': v for k, net in loop.trainer.nets.items()
+                for kk, v in net.state_dict().items()}
+        buffers = [k for k in live if 'running' in k or k.endswith('num_batches_tracked')]
+        dec_bn = [k for k in buffers if k.startswith('nets.depth.decoders.')]
+        stale = [k for k in live if not torch.equal(sd[k], live[k].cpu())]
+        counters = {int(sd[k]) for k in buffers if k.endswith('num_batches_tracked')}
+        if sorted(sd) != sorted(live) or len(dec_bn) != 3 * 5 or stale or counters != {n}:
+            fail(f'decoders run: last.ckpt has {len(sd)} of {len(live)} tensors, decoder '
+                 f'BatchNorm buffers {len(dec_bn)}, stale {stale[:3]}, counters {counters}')
+        val = {k: st['val'].get(k) for k in ('loss', 'loss_img_recon', 'AbsRel')}
+        if not all(v is not None and np.isfinite(v) for v in val.values()):
+            fail(f'decoders run: validation scalars {val}')
+        served = _serve_check(f'decoders {DECODER_RUN}', run / 'last.ckpt',
+                              loop.trainer.nets['depth'], imgs, smi)
+        print(f'decoders run {DECODER_RUN}: {DECODER_RUN_EPOCHS} epochs x {FAMILY_RUN_BATCHES} '
+              f'batches of {FAMILY_B} at {FAMILY_SHAPE[0]}x{FAMILY_SHAPE[1]}, supports '
+              f'{list(supp)}: launches {st["counts"]} (per train micro-step '
+              f'{DECODER_LAUNCHES[DECODER_RUN]}, per validation step {DECODER_VAL_LAUNCHES}); '
+              f'last.ckpt {len(sd)} tensors, {len(buffers)} BatchNorm buffers ({len(dec_bn)} of '
+              f'the decoder) equal to the trainer\'s, counters {sorted(counters)}; validation '
+              + ', '.join(f'{k} {v:.4g}' for k, v in val.items()) + f'; {served}')
+        del loop
+
+        # A reference checkpoint's layout: the port's keys and the unused ones.
+        cfg = family_cfg(DECODER_REFERENCE)
+        net_cfg = dict(cfg['net']['depth'], pretrained=False)
+        with torch.device('meta'):
+            meta = DepthNet(**net_cfg)
+        weights = _seeded_weights('depth', json.dumps(cfg['net']['depth'], sort_keys=True))
+        unused = meta.unused_reference_keys()
+        c0 = meta.encoder.stem[0].out_channels   # the duplicated first stage: row 0 = row 1
+        extra = {}
+        for col in range(4):
+            ch_in = c0 if col == 0 else c0 // 2
+            extra[f'decoders.disp.convs.0{col}_conv_0.conv.weight'] = torch.zeros(
+                ch_in // 2, ch_in, 3, 3)
+            extra[f'decoders.disp.convs.0{col}_conv_0.conv.bias'] = torch.zeros(ch_in // 2)
+        if sorted(extra) != sorted(unused):
+            fail(f'decoders reference: unused keys {unused}')
+        save_checkpoint(Path(tmp) / 'ref.ckpt', {'depth': {**weights, **extra}}, {'net': {
+            'depth': net_cfg}})
+        net = DepthNet(**net_cfg).cuda()
+        net.load_state_dict(weights)
+        served = _serve_check(f'decoders {DECODER_REFERENCE}', Path(tmp) / 'ref.ckpt', net, imgs,
+                              smi)
+        print(f'decoders reference {DECODER_REFERENCE}: a reference-layout checkpoint with the '
+              f'{len(extra)} unused row-0 conv_0 keys ({sorted(extra)[0]}, ...) dropped by the '
+              f'load path; {served}')
+        del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.benchmark = False
+    print(f'decoders: phase wall {time.perf_counter() - t0:.1f} s')
 
 
 def profile_train(out: Path = ROOT / 'build' / 'train_profile.txt',
@@ -3561,6 +3762,7 @@ def main() -> None:
     phase_families(scenes, smi)
     phase_resnet(scenes, smi)
     feat_warps = phase_feat(scenes, smi)
+    phase_decoders(scenes, smi)
     sources = {'dwconv': ('dwconv.cu', 'pallas_dwconv.py:59'),
                'decoder_stage': ('decoder_stage.cu', 'pallas_decoder.py:249'),
                'decoder_stage_bwd': ('decoder_stage_bwd.cu', 'pallas_decoder.py:268'),

@@ -40,8 +40,9 @@ import torch
 
 from .. import LOGGER
 
-__all__ = ['save_checkpoint', 'load_checkpoint', 'net_state_dict', 'restore_checkpoint',
-           'get_latest_ckpt', 'CheckpointManager', 'AsyncSaver', 'train_state_from_jax']
+__all__ = ['save_checkpoint', 'load_checkpoint', 'net_state_dict', 'load_net',
+           'restore_checkpoint', 'get_latest_ckpt', 'CheckpointManager', 'AsyncSaver',
+           'train_state_from_jax']
 
 
 def _checkpoint(nets: Mapping[str, Mapping[str, torch.Tensor]], cfg: dict, opt=None,
@@ -169,13 +170,22 @@ def net_state_dict(sd: Mapping[str, torch.Tensor], name: str) -> dict:
     return out
 
 
+def load_net(net: torch.nn.Module, sd: Mapping[str, torch.Tensor]) -> None:
+    """`net.load_state_dict(sd)`, strict, after dropping the keys a reference
+    checkpoint holds and its forward never uses (`net.unused_reference_keys()`,
+    a `DepthNet`'s: HR-Depth's row-0 `conv_0`s, DiffNet's out convs outside
+    `out_sc`, DDV-Net's `bins`). Every other missing or unexpected key raises."""
+    unused = set(getattr(net, 'unused_reference_keys', list)())
+    net.load_state_dict({k: v for k, v in sd.items() if k not in unused})
+
+
 def restore_checkpoint(path, nets: Mapping[str, torch.nn.Module], opt=None) -> dict:
     """Load a checkpoint's weights into `nets` and, with `opt`, its optimizer
     state into `opt` when the file has one -> {epoch, step, monitor, cfg,
     optimizer (whether the file had optimizer state)}."""
     ckpt = torch.load(Path(path), map_location='cpu', weights_only=False)
     for name, net in nets.items():
-        net.load_state_dict(net_state_dict(ckpt['state_dict'], name))
+        load_net(net, net_state_dict(ckpt['state_dict'], name))
     if opt is not None and 'optimizer' in ckpt:
         opt.load_state_dict(ckpt['optimizer'])
     return {'epoch': ckpt.get('epoch', -1), 'step': ckpt.get('global_step', 0),

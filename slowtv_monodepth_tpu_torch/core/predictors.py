@@ -20,7 +20,7 @@ import torch
 from ..models import DepthNet
 from ..ops import blend_stereo, to_scaled
 from ..registry import register
-from .checkpoint import load_checkpoint, net_state_dict
+from .checkpoint import load_checkpoint, load_net, net_state_dict
 
 __all__ = ['MonoDepthPredictor', 'BenchmarkPredictor', 'MidasPredictor', 'NewcrfsPredictor']
 
@@ -122,7 +122,7 @@ class BenchmarkPredictor(MonoDepthPredictor):
         self.max_depth = tcfg.get('max_depth')
 
         net = DepthNet(**cfg['net']['depth'])
-        net.load_state_dict(net_state_dict(sd, 'depth'))
+        load_net(net, net_state_dict(sd, 'depth'))
         return net.to(self.device).eval()
 
     def forward(self, net: Callable, imgs: torch.Tensor) -> torch.Tensor:

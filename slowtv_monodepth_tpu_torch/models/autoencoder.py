@@ -20,7 +20,7 @@ from typing import Sequence, Union
 import torch
 import torch.nn as nn
 
-from .decoders import DECODERS
+from .decoders import DECODERS, kernel_kw
 from .encoders import create_encoder
 from .init import init_like_flax
 
@@ -32,7 +32,7 @@ class AutoencoderNet(nn.Module):
         is ResNet-18).
     :param pretrained: Look for pretrained encoder weights when training
         starts (see `DepthNet`).
-    :param dec_name: Decoder type ('monodepth').
+    :param dec_name: Decoder type (`decoders.DECODERS`; FeatDepth's is 'monodepth').
     :param out_scales: Multi-scale outputs as 2**s.
     :param gelu: {'exact', 'tanh'} GELU flavor of a ConvNeXt encoder's blocks.
     :param dec_pad_mode: {'reflect', 'zeros'} decoder conv padding.
@@ -50,13 +50,13 @@ class AutoencoderNet(nn.Module):
         if dec_name not in DECODERS:
             raise NotImplementedError(
                 f'Decoder "{dec_name}" is not ported yet (have {sorted(DECODERS)}); '
-                'the other decoders are ROADMAP queue A item 10.')
+                'DPT waits for the ViT encoders, ROADMAP queue A item 10.')
         self.out_sc = [out_scales] if isinstance(out_scales, int) else list(out_scales)
         self.encoder, num_ch_enc, enc_sc = create_encoder(enc_name, gelu=gelu, kernels=kernels)
         self.decoder = DECODERS[dec_name](
             num_ch_enc=num_ch_enc, enc_sc=enc_sc, upsample_mode='nearest', use_skip=False,
             out_sc=self.out_sc, out_ch=3, out_act='sigmoid', pad_mode=dec_pad_mode,
-            kernels=kernels)
+            **kernel_kw(dec_name, kernels=kernels))
         init_like_flax(self)
 
     def forward(self, x: torch.Tensor) -> dict:

@@ -1,5 +1,20 @@
+from .cadepth import CaDepthDecoder
+from .ddvnet import DDVNetDecoder
+from .diffnet import DiffNetDecoder
+from .hrdepth import HRDepthDecoder
 from .monodepth import MonodepthDecoder
+from .superdepth import SuperdepthDecoder
 
-__all__ = ['MonodepthDecoder', 'DECODERS']
+__all__ = ['CaDepthDecoder', 'DDVNetDecoder', 'DiffNetDecoder', 'HRDepthDecoder',
+           'MonodepthDecoder', 'SuperdepthDecoder', 'DECODERS', 'kernel_kw']
 
-DECODERS = {'monodepth': MonodepthDecoder}
+DECODERS = {'monodepth': MonodepthDecoder, 'hrdepth': HRDepthDecoder, 'ddvnet': DDVNetDecoder,
+            'diffnet': DiffNetDecoder, 'cadepth': CaDepthDecoder,
+            'superdepth': SuperdepthDecoder}
+
+
+def kernel_kw(dec_name: str, **kw) -> dict:
+    """The kernel switches (`kernels`, `fused_stages`) for decoder `dec_name`: only
+    the monodepth decoder has a fused stage to switch, as only its JAX counterpart
+    takes `phase_up`."""
+    return kw if dec_name == 'monodepth' else {}

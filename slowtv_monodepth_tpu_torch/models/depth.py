@@ -5,11 +5,16 @@ fields and the same output dict, with NCHW tensors. `state_dict()` keys,
 prefixed with `nets.depth.`, are the reference Lightning checkpoint's
 (`slowtv_monodepth_tpu/models/import_reference.py` reads them): `encoder.*`
 (timm's ConvNeXt or ResNet names, BatchNorm buffers included) and
-`decoders.disp.decoder.{idx}.*`.
+`decoders.disp.*` in each decoder's reference layout (`models/decoders/`).
+A reference checkpoint may also hold decoder keys that its forward never uses
+(`DepthNet.unused_reference_keys`); the load path drops exactly those
+(`core.checkpoint.load_net`).
 
 A ResNet or ResNeXt encoder gives features at strides 2 to 32, so the
 decoder's stage 1 takes a skip and only stage 0 runs fused; behind ConvNeXt
-(strides 4 to 32) stages 1 and 0 do.
+(strides 4 to 32) stages 1 and 0 do. Only the monodepth decoder has fused stages:
+HR-Depth, DDV-Net, DiffNet, CADepth and SuperDepth run plain PyTorch modules
+behind the encoder's kernels.
 """
 from __future__ import annotations
 
@@ -20,7 +25,7 @@ import torch
 import torch.nn as nn
 
 from ..ops import blend_stereo
-from .decoders import DECODERS
+from .decoders import DECODERS, kernel_kw
 from .encoders import create_encoder
 from .init import init_like_flax
 
@@ -34,7 +39,8 @@ class DepthNet(nn.Module):
     :param pretrained: Look for pretrained encoder weights when training
         starts (`MonoDepthTrainer`, as the JAX package's `init_state`); a
         served net takes its weights from a checkpoint.
-    :param dec_name: Decoder type ('monodepth').
+    :param dec_name: Decoder type (`decoders.DECODERS`: 'monodepth', 'hrdepth',
+        'ddvnet', 'diffnet', 'cadepth', 'superdepth'; 'dpt' is not ported).
     :param out_scales: Multi-scale outputs as 2**s.
     :param mask_name: Optional mask decoder {None, 'explainability', 'uncertainty'}.
     :param num_ch_mask: Number of support frames to predict masks for.
@@ -49,8 +55,9 @@ class DepthNet(nn.Module):
     :param kernels: run the hand-written kernels (depthwise conv, fused
         decoder stage). False runs their plain PyTorch versions: only for
         timing the plain path on the card.
-    :param fused_stages: run the decoders' skip-less stages as fused stages
-        (the default, in serving and in training). False runs plain modules.
+    :param fused_stages: run the monodepth decoder's skip-less stages as fused
+        stages (the default, in serving and in training). False runs plain
+        modules. The other decoders have no fused stage.
     :param fused_blocks: run every ConvNeXt block of the encoder as one fused
         call (`ops.fused_convnext_block`: kernel 9 forward, kernel 10 and the
         two dwconv kernels backward on the card); off by default.
@@ -73,9 +80,11 @@ class DepthNet(nn.Module):
         if dec_name not in DECODERS:
             raise NotImplementedError(
                 f'Decoder "{dec_name}" is not ported yet (have {sorted(DECODERS)}); '
-                'the other decoders are ROADMAP queue A item 10.')
+                'DPT waits for the ViT encoders, ROADMAP queue A item 10.')
         if mask_name not in MASKS:
             raise KeyError(f'Invalid mask. ({mask_name} vs. {set(MASKS)})')
+        if dec_name == 'ddvnet' and mask_name is not None:
+            raise KeyError('DDVNet is not compatible with mask prediction.')
         if mask_name and (num_ch_mask or 0) <= 0:
             raise ValueError(f'Invalid number of mask channels. ({num_ch_mask} vs. >=1)')
         self.out_sc = [out_scales] if isinstance(out_scales, int) else list(out_scales)
@@ -86,18 +95,24 @@ class DepthNet(nn.Module):
         self.encoder, num_ch_enc, enc_sc = create_encoder(
             enc_name, gelu=gelu, kernels=kernels, fused_blocks=fused_blocks)
         dec = DECODERS[dec_name]
+        kw = kernel_kw(dec_name, kernels=kernels, fused_stages=fused_stages)
         self.decoders = nn.ModuleDict({'disp': dec(
             num_ch_enc=num_ch_enc, enc_sc=enc_sc, upsample_mode='nearest',
             use_skip=True, out_sc=self.out_sc, out_ch=1 + 2 * use_virtual_stereo,
-            out_act='sigmoid', pad_mode=dec_pad_mode, kernels=kernels,
-            fused_stages=fused_stages)})
+            out_act='sigmoid', pad_mode=dec_pad_mode, **kw)})
         if mask_name:
             self.decoders['mask'] = dec(
                 num_ch_enc=num_ch_enc, enc_sc=enc_sc, upsample_mode='nearest',
                 use_skip=True, out_sc=self.out_sc, out_ch=num_ch_mask,
-                out_act=MASKS[mask_name], pad_mode=dec_pad_mode, kernels=kernels,
-                fused_stages=fused_stages)
+                out_act=MASKS[mask_name], pad_mode=dec_pad_mode, **kw)
         init_like_flax(self)
+
+    def unused_reference_keys(self) -> list[str]:
+        """The keys of a reference checkpoint's decoders that their forward never
+        uses and this net does not hold (HR-Depth's row-0 `conv_0`s, DiffNet's out
+        convs outside `out_sc`, DDV-Net's `bins`): the load path drops exactly these."""
+        return [f'decoders.{name}.{k}' for name, dec in self.decoders.items()
+                for k in getattr(dec, 'unused_reference_keys', list)()]
 
     def _forward(self, x: torch.Tensor) -> dict:
         feat = self.encoder(x.contiguous(memory_format=torch.channels_last))
@@ -113,7 +128,7 @@ class DepthNet(nn.Module):
     def forward(self, x: torch.Tensor) -> dict:
         """:param x: (b, 3, h, w) standardized images, h and w multiples of 32.
         :return: {depth_feats: [(b, c, h/2**s, w/2**s)],
-                  disp: {s: (b, 1, h/2**s, w/2**s)},
+                  disp: {s: (b, 1, h/2**s, w/2**s)} (SuperDepth: (b, 1, h, w)),
                   (opt) disp_stereo / mask}.
         """
         out = self._forward(x)

@@ -2,15 +2,17 @@
 and `AutoencoderNet` state dicts.
 
 The inverse of `slowtv_monodepth_tpu/models/import_reference.py:_convert_depth`,
-`_convert_pose` and `_convert_autoencoder` with `encoders/import_torch.py:convert_convnext` and
-`convert_resnet` (ConvNeXt, ResNet and ResNeXt encoders, monodepth decoders,
-pose heads). A ResNet's BatchNorm running statistics come from the net's
-`batch_stats` (`state.aux[net]['batch_stats']`); given them, the state dict
-holds the buffers too (`num_batches_tracked`, which flax does not keep, 0).
-Without them it holds the parameters only (for a tree of optimizer moments,
-say). The other direction
-needs no code of its own: prefix the port's `state_dict()` keys with
-`nets.depth.` / `nets.pose.` / `nets.autoencoder.` and hand them to `convert_reference_ckpt`.
+`_convert_pose` and `_convert_autoencoder` with
+`encoders/import_torch.py:convert_convnext` and `convert_resnet` (ConvNeXt,
+ResNet and ResNeXt encoders; monodepth, HR-Depth, DDV-Net, DiffNet, CADepth
+and SuperDepth decoders; pose heads). A ResNet's BatchNorm running statistics
+come from the net's `batch_stats` (`state.aux[net]['batch_stats']`), as do
+CADepth's decoder BatchNorms'; given them, the state dict holds the buffers
+too (`num_batches_tracked`, which flax does not keep, 0). Without them it
+holds the parameters only (for a tree of optimizer moments, say). The other
+direction needs no code of its own: prefix the port's `state_dict()` keys
+with `nets.depth.` / `nets.pose.` / `nets.autoencoder.` and hand them to
+`convert_reference_ckpt`.
 
 Layouts: conv HWIO -> OIHW, depthwise (k, k, 1, C) -> (C, 1, k, k), dense
 (in, out) -> (out, in).
@@ -103,47 +105,148 @@ def _encoder(p: dict, stats: Optional[dict]) -> dict:
                               '(ROADMAP queue A item 10).')
 
 
-def _monodepth(p: dict, out_scales: Sequence[int]) -> dict:
+def _put(sd: dict, dst: str, q: dict) -> None:
+    """A flax `nn.Conv` {kernel, [bias]} -> `dst.weight`, [`dst.bias`]."""
+    sd[f'{dst}.weight'] = _conv(q['kernel'])
+    if 'bias' in q:
+        sd[f'{dst}.bias'] = _t(q['bias'])
+
+
+def _monodepth(p: dict, out_scales: Sequence[int], stats=None) -> dict:
     names = [f'upconv_{i}_{j}' for i in range(4, -1, -1) for j in (0, 1)]
     sd = {}
     for idx, name in enumerate(names):
-        q = p[name]['conv']['conv']
-        sd[f'decoder.{idx}.conv.weight'] = _conv(q['kernel'])
-        sd[f'decoder.{idx}.conv.bias'] = _t(q['bias'])
+        _put(sd, f'decoder.{idx}.conv', p[name]['conv']['conv'])
     for j, s in enumerate(out_scales):
-        q = p[f'outconv_{s}']['conv']
-        sd[f'decoder.{len(names) + j}.weight'] = _conv(q['kernel'])
-        sd[f'decoder.{len(names) + j}.bias'] = _t(q['bias'])
+        _put(sd, f'decoder.{len(names) + j}', p[f'outconv_{s}']['conv'])
     return sd
 
 
+def _hrdepth(p: dict, out_scales: Sequence[int], stats=None) -> dict:
+    sd = {}
+    for name, q in p.items():
+        pre = f'convs.{name}'
+        if name.endswith(('_conv_0', '_conv_1')):
+            _put(sd, f'{pre}.conv', q['conv']['conv'])
+        elif name.endswith('_att'):
+            sd[f'{pre}.se.0.weight'] = _dense(q['se_fc1']['kernel'])
+            sd[f'{pre}.se.2.weight'] = _dense(q['se_fc2']['kernel'])
+            _put(sd, f'{pre}.conv.0', q['conv']['conv'])
+        elif name.endswith('_down'):
+            _put(sd, pre, q['conv'])
+        else:  # outconv_{i}
+            _put(sd, f'{pre}.0', q['conv'])
+    return sd
+
+
+def _diffnet(p: dict, out_scales: Sequence[int], stats=None) -> dict:
+    sd = {}
+    for name, q in p.items():
+        pre = f'convs.{name}'
+        if name.startswith('outconv_'):
+            _put(sd, pre, q['conv'])
+        elif 'ca' in q:  # an attention stage
+            sd[f'{pre}.layers.0.fc.0.weight'] = _dense(q['ca']['fc1']['kernel'])
+            sd[f'{pre}.layers.0.fc.2.weight'] = _dense(q['ca']['fc2']['kernel'])
+            _put(sd, f'{pre}.layers.1', q['conv']['conv'])
+        else:
+            _put(sd, f'{pre}.0.conv', q['conv0']['conv']['conv'])
+            _put(sd, f'{pre}.2.conv', q['conv1']['conv']['conv'])
+    return sd
+
+
+def _ddvnet(p: dict, out_scales: Sequence[int], stats=None) -> dict:
+    sd = {}
+    for t in ('query', 'key', 'value'):
+        _put(sd, f'decoder.0.{t}_conv.0', p['att'][f'{t}_conv'])
+    names = [f'upconv_{i}_{j}' for i in range(4, -1, -1) for j in (0, 1)]
+    for k, name in enumerate(names, 1):
+        _put(sd, f'decoder.{k}.conv', p[name]['conv']['conv'])
+    for k, s in enumerate(out_scales, len(names) + 1):
+        _put(sd, f'decoder.{k}', p[f'outconv_{s}']['conv'])
+    return sd
+
+
+def _cadepth(p: dict, out_scales: Sequence[int], stats: Optional[dict] = None) -> dict:
+    """With `stats` (the decoder's `batch_stats`) the BatchNorm buffers too."""
+    sd, k = {}, 0
+    for i in range(4, -1, -1):
+        _put(sd, f'decoder.{k}.conv', p[f'upconv_{i}_0']['conv']['conv'])
+        _put(sd, f'decoder.{k + 1}.conv', p[f'upconv_{i}_1']['conv']['conv'])
+        q, pre = p[f'detail_emphasis_{i}'], f'decoder.{k + 2}'
+        _put(sd, f'{pre}.conv.0', q['conv']['conv'])
+        sd[f'{pre}.conv.1.weight'] = _t(q['bn']['scale'])
+        sd[f'{pre}.conv.1.bias'] = _t(q['bn']['bias'])
+        if stats is not None:
+            st = stats[f'detail_emphasis_{i}']['bn']
+            sd[f'{pre}.conv.1.running_mean'] = _t(st['mean'])
+            sd[f'{pre}.conv.1.running_var'] = _t(st['var'])
+            sd[f'{pre}.conv.1.num_batches_tracked'] = torch.zeros((), dtype=torch.int64)
+        _put(sd, f'{pre}.att.1', q['att_conv1'])
+        _put(sd, f'{pre}.att.3', q['att_conv2'])
+        k += 3
+    for k, s in enumerate(out_scales, k):
+        _put(sd, f'decoder.{k}', p[f'outconv_{s}']['conv'])
+    return sd
+
+
+def _superdepth(p: dict, out_scales: Sequence[int], stats=None) -> dict:
+    sd, k = {}, 0
+    for i in range(4, -1, -1):
+        _put(sd, f'decoder.{k}.0.conv', p[f'upconv_{i}_0_conv']['conv']['conv'])
+        _put(sd, f'decoder.{k}.1.conv', p[f'upconv_{i}_0_up']['conv'])
+        _put(sd, f'decoder.{k + 1}.conv', p[f'upconv_{i}_1']['conv']['conv'])
+        k += 2
+    for k, s in enumerate(out_scales, k):
+        if s == 0:
+            _put(sd, f'decoder.{k}.0', p['outconv_0']['conv'])
+        else:
+            _put(sd, f'decoder.{k}.0.conv', p[f'outconv_{s}_conv']['conv']['conv'])
+            _put(sd, f'decoder.{k}.1.conv', p[f'outconv_{s}_up']['conv'])
+    return sd
+
+
+def _decoder(p: dict, out_scales: Sequence[int], stats: Optional[dict] = None) -> dict:
+    """A JAX decoder's params (and `batch_stats`) -> its port state dict; the
+    decoder is told by a module name only it has."""
+    for name, convert in (('detail_emphasis_4', _cadepth), ('att', _ddvnet),
+                          ('04_conv_1', _hrdepth), ('upconv_4', _diffnet),
+                          ('upconv_4_0_conv', _superdepth)):
+        if name in p:
+            return convert(p, out_scales, stats)
+    return _monodepth(p, out_scales)
+
+
 def _scales_of(dec: dict) -> list[int]:
-    """The out scales of a JAX monodepth decoder's params, ascending."""
-    return sorted(int(k.split('_')[1]) for k in dec if k.startswith('outconv_'))
+    """The out scales of a JAX decoder's params, ascending."""
+    return sorted({int(k.split('_')[1]) for k in dec if k.startswith('outconv_')})
 
 
 def depth_state_dict_from_jax(params: dict,
                               out_scales: Optional[Sequence[int]] = None,
                               batch_stats: Optional[dict] = None
                               ) -> dict[str, torch.Tensor]:
-    """JAX `DepthNet` params (ConvNeXt, ResNet or ResNeXt + monodepth) -> port
-    `DepthNet` state dict.
+    """JAX `DepthNet` params (ConvNeXt, ResNet or ResNeXt; monodepth, HR-Depth,
+    DDV-Net, DiffNet, CADepth or SuperDepth) -> port `DepthNet` state dict.
 
     :param params: {'encoder': ..., 'decoders_disp': ..., ['decoders_mask']},
         leaves numpy or jax arrays.
     :param out_scales: The net's `out_scales` in cfg order (it fixes the
         outconv indices); default: the scales present, ascending.
-    :param batch_stats: the net's {'encoder': ...} running statistics (a
-        BatchNorm encoder): with them the buffers come out too.
+    :param batch_stats: the net's running statistics, {['encoder'] (a BatchNorm
+        encoder), ['decoders_disp', 'decoders_mask'] (CADepth)}: with them the
+        buffers come out too.
     """
     if out_scales is None:
         out_scales = _scales_of(params['decoders_disp'])
-    enc = _encoder(params['encoder'], (batch_stats or {}).get('encoder'))
+    stats = batch_stats or {}
+    enc = _encoder(params['encoder'], stats.get('encoder'))
     sd = {f'encoder.{k}': v for k, v in enc.items()}
     for dec in ('disp', 'mask'):
         if f'decoders_{dec}' in params:
-            sd.update({f'decoders.{dec}.{k}': v for k, v in
-                       _monodepth(params[f'decoders_{dec}'], out_scales).items()})
+            sd.update({f'decoders.{dec}.{k}': v for k, v in _decoder(
+                params[f'decoders_{dec}'], out_scales,
+                None if batch_stats is None else stats.get(f'decoders_{dec}')).items()})
     return sd
 
 

@@ -1,7 +1,7 @@
 """Initial weights as the JAX package draws them.
 
-Every conv and dense layer of the JAX package's ConvNeXt encoders, monodepth
-decoders and pose heads takes flax's defaults: a `lecun_normal` kernel
+Every conv and dense layer of the JAX package's ConvNeXt encoders, decoders
+and pose heads takes flax's defaults: a `lecun_normal` kernel
 (`nn.initializers.variance_scaling(1.0, 'fan_in', 'truncated_normal')`) and a
 zero bias (`slowtv_monodepth_tpu/models/encoders/convnext.py:43-45` for the
 depthwise conv; `nn.Conv` / `nn.Dense` elsewhere); the ResNet encoders' convs
@@ -12,7 +12,9 @@ scale 1, bias 0, running mean 0 and variance 1 (and a counter of 0).
 fan_in is the receptive field times the input channels of one group:
 `prod(weight.shape[1:])` in PyTorch's (out, in / groups, kh, kw) and
 (out, in) layouts, so 49 for a 7x7 depthwise conv, as flax counts its
-(7, 7, 1, C) kernel.
+(7, 7, 1, C) kernel, and 9 for SuperDepth's sub-pixel conv (grouped by its
+input channels). The attention decoders' `nn.Linear` layers have no bias;
+CADepth's decoder BatchNorm starts as the encoders' does.
 """
 from __future__ import annotations
 

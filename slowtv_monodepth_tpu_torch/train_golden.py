@@ -23,6 +23,7 @@ largest magnitude.
 """
 from __future__ import annotations
 
+import functools
 from pathlib import Path
 
 import numpy as np
@@ -68,8 +69,10 @@ def make_batch(imgs: np.ndarray) -> tuple[dict, dict]:
     return x, dict(x, K=np.ascontiguousarray(np.broadcast_to(K, (b, 4, 4))))
 
 
+@functools.lru_cache(maxsize=None)
 def seeded_weights(seed: int = SEED) -> dict:
-    """Port-keyed numpy weights {'depth': sd, 'pose': sd} (meta nets: no compute)."""
+    """Port-keyed numpy weights {'depth': sd, 'pose': sd} (meta nets: no compute),
+    drawn once a process (read-only: the nets copy them)."""
     from . import parsers
     from .models import seeded_state_dict
     with torch.device('meta'):
@@ -85,10 +88,11 @@ def port_step(gold: dict, device: str, kernels: bool = True, fused_blocks: bool 
     from . import parsers
     from .core.trainer import MonoDepthTrainer
     cfg = {**CFG, 'net': {k: {**v, 'fused_blocks': fused_blocks} for k, v in CFG['net'].items()}}
-    trainer = MonoDepthTrainer(cfg, kernels=kernels)
+    with torch.device('meta'):  # shapes only: every tensor is the seeded weights'
+        trainer = MonoDepthTrainer(cfg, kernels=kernels)
+    trainer.nets.to_empty(device=device)
     for name, sd in seeded_weights(int(gold['seed'])).items():
         trainer.nets[name].load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
-    trainer.to(device)
     opt = parsers.make_optimizer(CFG, trainer.nets, steps_per_epoch=1, accumulate=1)
     x, y = (({k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in d.items()})
             for d in make_batch(gold['imgs']))

@@ -58,6 +58,7 @@ from slowtv_monodepth_tpu_torch import losses as tlosses
 from slowtv_monodepth_tpu_torch import ops as tops
 from slowtv_monodepth_tpu_torch import parsers, paths
 from slowtv_monodepth_tpu_torch.config import load_merge_yaml
+from slowtv_monodepth_tpu_torch.core import HeavyLogger
 from slowtv_monodepth_tpu_torch.core import handlers as th
 from slowtv_monodepth_tpu_torch.core.trainer import MonoDepthTrainer
 from slowtv_monodepth_tpu_torch.models import (autoencoder_state_dict_from_jax,
@@ -183,7 +184,11 @@ def seeded_weights(cfg: dict) -> dict:
 
 
 def port_trainer(cfg: dict, weights: dict) -> MonoDepthTrainer:
-    trainer = MonoDepthTrainer(cfg)
+    """The port's trainer holding `weights` (built on the meta device: no initial draw,
+    every parameter and buffer is loaded)."""
+    with torch.device('meta'):
+        trainer = MonoDepthTrainer(cfg)
+    trainer.nets.to_empty(device='cpu')
     for name, net in trainer.nets.items():
         net.load_state_dict({k[len(name) + 6:]: _t(v) for k, v in weights.items()
                              if k.startswith(f'nets.{name}.')})
@@ -803,21 +808,17 @@ def _load(path: Path) -> dict:
 
 
 _A10 = 'queue A item 10'
-# cfg -> (as it stands, with the pose encoder overlaid to convnext_tiny):
-# None builds a `MonoDepthTrainer`, else the ROADMAP item its refusal names. The
-# published ResNet-18 pose net builds (A10a) and so do Depth-VO-Feat's and FeatDepth's
-# feature losses and autoencoder (A9b), so only another decoder (A10) still refuses.
+# cfg -> (as it stands, with the pose encoder overlaid to convnext_tiny): None builds
+# a `MonoDepthTrainer`, else the ROADMAP item its refusal names. Every cfg builds: the
+# published ResNet-18 pose net (A10a), Depth-VO-Feat's and FeatDepth's feature losses
+# and autoencoder (A9b), and the HR-Depth, DDV-Net, DiffNet, CADepth and SuperDepth
+# decoders (A10b).
 FAMILIES = {
-    'benchmark/cadepth_MS': (_A10, _A10), 'benchmark/ddvnet': (_A10, _A10),
-    'benchmark/default': (None, None), 'benchmark/depth_hints_MS': (None, None),
-    'benchmark/depth_vo_feat': (None, None), 'benchmark/diffnet_MS': (_A10, _A10),
-    'benchmark/dvso': (None, None), 'benchmark/feat_depth': (None, None),
-    'benchmark/garg': (None, None), 'benchmark/hrdepth_M': (_A10, _A10),
-    'benchmark/hrdepth_MS': (_A10, _A10), 'benchmark/klodt': (None, None),
-    'benchmark/kuznietsov': (None, None), 'benchmark/monodepth': (None, None),
-    'benchmark/monodepth2_M': (None, None), 'benchmark/monodepth2_MS': (None, None),
-    'benchmark/monoresmatch': (None, None), 'benchmark/sfm_learner': (None, None),
-    'benchmark/superdepth': (_A10, _A10),
+    **{f'benchmark/{n}': (None, None) for n in (
+        'cadepth_MS', 'ddvnet', 'default', 'depth_hints_MS', 'depth_vo_feat', 'diffnet_MS',
+        'dvso', 'feat_depth', 'garg', 'hrdepth_M', 'hrdepth_MS', 'klodt', 'kuznietsov',
+        'monodepth', 'monodepth2_M', 'monodepth2_MS', 'monoresmatch', 'sfm_learner',
+        'superdepth')},
     **{f'benchmark_ours/{n}': (None, None) for n in (
         'default', 'ours', 'ours_hints', 'ours_min', 'ours_monodepth', 'ours_none',
         'ours_nosmooth')},
@@ -921,6 +922,79 @@ def test_every_backbone_cfg_builds_or_names_its_item(path, tmp_path, monkeypatch
         > 0.9 * len(before)
     counts = [int(b) for k, b in trainer.nets.named_buffers() if k.endswith('num_batches_tracked')]
     assert counts and set(counts) == {1}
+
+
+def _benchmark_files():
+    """Every cfg of `cfg/benchmark/` but `default.yaml`, the base each one merges
+    (it names no support frame, so it has no image to reconstruct)."""
+    return [p for p in sorted((CFG / 'benchmark').glob('*.yaml')) if p.stem != 'default']
+
+
+@pytest.mark.parametrize('path', _benchmark_files(), ids=lambda p: p.stem)
+def test_every_benchmark_cfg_trains_a_micro_step(path, tmp_path, monkeypatch):
+    """`cfg/benchmark/default.yaml` + the file as it stands (no weights file under the
+    model root), cut to this file's test size: the depth encoder overlaid to
+    convnext_atto behind the cfg's own decoder, it and the ResNet-18 pose net and
+    autoencoder one block a stage (`CUT_LAYERS`), 2 scales, B=2, 64x96. One micro-step: a finite
+    loss, every parameter finite and most of them updated, each BatchNorm counted
+    once (FeatDepth's autoencoder twice: target and support passes), and each output
+    at its decoder's resolution (SuperDepth's at full resolution); behind the
+    HR-Depth, DDV-Net, DiffNet, CADepth and SuperDepth decoders also the image
+    logger's rerun of the batch (eval mode). Kuznietsov keeps
+    the default pose net with the stereo frame as its only support: the pose net has
+    no pair to see and the step raises, as the JAX package's does (its
+    `jnp.stack` of no pair, `core/trainer.py:156`)."""
+    from slowtv_monodepth_tpu_torch.models.encoders import CONVNEXT_SPECS, RESNET_SPECS
+    monkeypatch.setattr(paths, 'MODEL_ROOTS', [tmp_path])
+    monkeypatch.setitem(RESNET_SPECS, 'resnet18', dict(RESNET_SPECS['resnet18'],
+                                                       layers=CUT_LAYERS))
+    monkeypatch.setitem(CONVNEXT_SPECS, 'convnext_atto', dict(CONVNEXT_SPECS['convnext_atto'],
+                                                              depths=CUT_LAYERS))
+    cfg = _load(path)
+    cfg['net']['depth'].update(enc_name='convnext_atto', out_scales=[0, 1])
+    supp = supp_of(cfg)
+    torch.manual_seed(0)
+    trainer = MonoDepthTrainer(cfg)
+    before = {k: p.detach().clone() for k, p in trainer.nets.named_parameters()}
+    opt = parsers.make_optimizer(cfg, trainer.nets)
+    x, y = make_batch(supp, hints='depth_regr' in cfg['loss'], seed=31)
+    x, y = jax.tree.map(_t, (x, y))
+    step = trainer.make_step_fn(supp, opt)
+    if cfg['net'].get('pose') and set(supp) == {0}:
+        with pytest.raises(RuntimeError, match='non-empty'):
+            step(x, y, generator=torch.Generator().manual_seed(0))
+        return
+    scalars = step(x, y, generator=torch.Generator().manual_seed(0))
+    assert np.isfinite(scalars['loss'].item())
+    assert all(torch.isfinite(p).all() for p in trainer.nets.parameters())
+    assert sum(not torch.equal(p, before[k]) for k, p in trainer.nets.named_parameters()) \
+        > 0.9 * len(before)
+    counts = {n: {int(b) for k, b in net.named_buffers() if k.endswith('num_batches_tracked')}
+              for n, net in trainer.nets.items()}
+    assert counts == {n: {2} if n == 'autoencoder' else {1} if c else set()
+                      for n, c in counts.items()}
+    assert counts.get('pose', {1}) == {1}
+    with torch.no_grad():
+        disp = trainer.nets['depth'].eval()(x['imgs'].permute(0, 3, 1, 2))['disp']
+    full = cfg['net']['depth']['dec_name'] == 'superdepth'
+    assert {s: tuple(d.shape[2:]) for s, d in disp.items()} == {
+        s: (H, W) if full else (H >> s, W >> s) for s in (0, 1)}
+
+    class Images:  # the image logger's writer interface
+        def __init__(self):
+            self.images = {}
+
+        def add_images(self, tag, img, global_step):
+            self.images[tag] = img
+
+        def add_text(self, tag, text, global_step):
+            pass
+    if cfg['net']['depth']['dec_name'] == 'monodepth':  # the other families: their PRs' tests
+        return
+    writer = Images()
+    HeavyLogger().log_step(trainer, (x, y, {}), supp, writer, epoch=0)
+    assert 'train_pred/disp' in writer.images and all(
+        g.shape[:2] == (1, 3) and np.isfinite(g).all() for g in writer.images.values())
 
 
 # -------------------------------------------------------- 6. the DVSO training run
@@ -1054,7 +1128,8 @@ def test_chip_smoke_stand_in_yields_the_readers_layout(tmp_path, monkeypatch, mo
 
 
 @pytest.mark.parametrize('name', ['dvso', 'depth_hints_MS', 'sfm_learner', 'klodt',
-                                  'depth_vo_feat', 'feat_depth'])
+                                  'depth_vo_feat', 'feat_depth', 'hrdepth_MS', 'ddvnet',
+                                  'diffnet_MS', 'cadepth_MS', 'superdepth'])
 def test_chip_smoke_family_cfgs_are_the_files(name):
     """`chip_smoke.family_cfg` (no yaml on the card) is `default.yaml` + the family's file
     as they stand, the published ResNet-18 pose net included."""

@@ -48,8 +48,9 @@ def jax_disp(sd: dict, x: np.ndarray) -> list:
 
 def port_disp(sd: dict, x: np.ndarray) -> list:
     from slowtv_monodepth_tpu_torch.models import DepthNet
-    net = DepthNet(**CFG).eval()
-    net.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+    with torch.device('meta'):  # shapes only: every tensor is loaded from `sd`
+        net = DepthNet(**CFG).eval()
+    net.to_empty(device='cpu').load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
     with torch.no_grad():
         out = net(torch.from_numpy(x).permute(0, 3, 1, 2))['disp']
     return [out[s].permute(0, 2, 3, 1).numpy() for s in range(4)]

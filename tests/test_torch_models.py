@@ -163,12 +163,12 @@ def test_convnext_specs_match_jax():
 
 
 def test_unported_configurations_raise():
-    """The encoder families and decoders of ROADMAP A10 beyond ConvNeXt, ResNet and
-    ResNeXt raise naming it."""
+    """The encoder families of ROADMAP A10 beyond ConvNeXt, ResNet and ResNeXt, and
+    the DPT decoder (it waits for the ViT encoders), raise naming it."""
     with pytest.raises(NotImplementedError, match='queue A item 10'):
         DepthNet(enc_name='mobilenetv3_large_100')
-    with pytest.raises(NotImplementedError):
-        DepthNet(enc_name=ENC, dec_name='hrdepth')
+    with pytest.raises(NotImplementedError, match='queue A item 10'):
+        DepthNet(enc_name=ENC, dec_name='dpt')
 
 
 # ------------------------------------------------------------- fused ConvNeXt blocks

@@ -44,7 +44,9 @@ def test_every_port_module_is_walked():
     names = {f.relative_to(ROOT).as_posix() for f in FILES}
     assert {'slowtv_monodepth_tpu_torch/core/loop.py', 'slowtv_monodepth_tpu_torch/train.py',
             'slowtv_monodepth_tpu_torch/data/loader.py',
-            'slowtv_monodepth_tpu_torch/models/autoencoder.py', 'chip_smoke.py'} <= names
+            'slowtv_monodepth_tpu_torch/models/autoencoder.py', 'chip_smoke.py',
+            *(f'slowtv_monodepth_tpu_torch/models/decoders/{d}.py' for d in (
+                'hrdepth', 'ddvnet', 'diffnet', 'cadepth', 'superdepth'))} <= names
 
 
 @pytest.mark.parametrize('source,want', [

@@ -54,9 +54,11 @@ SIGMAS = 6
 # ------------------------------------------------------------ 1. initial weights
 @pytest.fixture(scope='module')
 def jax_init() -> dict:
-    """The JAX package's initial weights in the port's keys and layouts."""
+    """The JAX package's initial weights in the port's keys and layouts: its
+    `init_state` under one `jax.jit` (the same draws as op by op, in one compile)."""
     trainer = JaxTrainer({'net': NET, 'loss': LOSS})
-    state = trainer.init_state(jax.random.PRNGKey(0), {'imgs': jnp.zeros((1, 64, 96, 3))}, (-1, 1))
+    state = jax.jit(trainer.init_state, static_argnums=(2,))(
+        jax.random.PRNGKey(0), {'imgs': jnp.zeros((1, 64, 96, 3))}, (-1, 1))
     params = jax.tree.map(np.asarray, state.params)
     return {'depth': {k: v.numpy() for k, v in depth_state_dict_from_jax(
                 params['depth'], NET['depth']['out_scales']).items()},
