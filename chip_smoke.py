@@ -131,7 +131,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    checkpoint (36 convnext_block per forward); images/s and device ms per
    batch of 12. Then `MonoDepthEvaluator` with the args of `syns_test`,
    `kitti_eigen`, `kitti_eigen_benchmark` and `mc` in this process (which
-   holds CUDA): a Pool of 8 (`EVAL_NPROC`), equal item by item to nproc=0 on the first items;
+   holds CUDA): a Pool of 8 (`EVAL_NPROC`) over the first 2 predictions (`EVAL_POOL_ITEMS`),
+   equal item by item to nproc=0 on the first items;
    the kernel and plain predictions' metrics; a perfect prediction (AbsRel <
    1e-6, F-Score (10) 100 less its 1e-5 guard); seconds per item of each
    metric family.
@@ -143,7 +144,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    path, the DDAD stand-in also through the `fused_blocks` checkpoint (36
    convnext_block per forward); `MonoDepthEvaluator` with the args of `ddad`,
    `diode_indoors`, `diode_outdoor`, `nyud` (its crop), `sintel` and `tum` in a Pool
-   of 8, the first item in process family by family (timed) equal to the Pool's, and
+   of 8 over the first 2 predictions, the first item in process family by family (timed) equal to the Pool's, and
    a median-aligned perfect prediction per cfg (AbsRel < 1e-6; F-Score (10) 100 where
    the cfg has K). Then `mapfree_preds.compute_preds` on a MapFreeReloc stand-in (16
    portrait 512x384 frames, one batch, the maps within GOLDEN_ATOL of the plain path;
@@ -201,13 +202,31 @@ Phases, in order; any failure exits non-zero and prints no result:
    held as in phase 17 (CADepth's decoder BatchNorm running statistics and counters
    too), `DECODER_LAUNCHES` (no decoder-stage launch: only the monodepth decoder has
    fused stages; SuperDepth's blend runs the depth net twice), device ms per micro-step
-   and peak memory. Then CADepth-MS through `MonoDepthLoop` (2 epochs of 2 batches and a
+   and peak memory. Then CADepth-MS through `MonoDepthLoop` (1 epoch of 2 batches and a
    validation batch each over `StereoHintLoader`): `last.ckpt` with every buffer equal
    to the trainer's, served by `BenchmarkPredictor` and held to the trainer's eval-mode
    forward; and a reference-layout checkpoint of HR-Depth-MS that also holds the
    reference's unused row-0 `conv_0` keys, served the same way.
    Alone: `python3 -c 'import chip_smoke as c; s = c.phase_device(); c.phase_build();
    c.phase_decoders(c._make_scenes(), s)'`.
+21. dpt: the ViT encoders, the DPT decoder and the MiDaS DPT_Large baseline
+   (`phase_dpt`). Seeded weights in the released MiDaS file's layout
+   (`midas_state_dict`, ViT-L/16, 24 blocks of 1024, DPT at 256 channels) written to
+   `midas/dpt_large-midas-2f21e586.npz` under a temporary model root;
+   `MidasPredictor.load_model('DPT_Large')` predicts SYNS-Patches-layout frames of
+   376x1242 (preprocessed to 384x1280, 1920 tokens) at B=1 and B=4, held to the same net
+   run in float64 on the card (`MIDAS_RTOL`), device ms per image and peak memory; then
+   `export_preds` with `midas.DPT_Large` over `EvalStandIn` at 376x1242 and `eval_depth`'s
+   evaluator on its SYNS-Patches targets (the first 2). `dpt_vitb16_384` and `dpt_vitb_rn50_384` +
+   `dpt` (`family_cfg`: `cfg/benchmark/default.yaml` with `net.depth` set and
+   Monodepth2-M's supports, the ResNet-18 pose net) at B=8, 192x640: one micro-step
+   each on the kernel and plain paths, held as in phase 20, `DPT_LAUNCHES`, device ms
+   and peak memory. `dpt_vitl16_384` with `pretrained: True` grafts the same file: its
+   encoder equal to `MidasDPT`'s bitwise, one B=1 forward at 384x640. The ViT-B DPT net
+   through `MonoDepthLoop` (1 epoch of 2 batches and a validation batch), its
+   `last.ckpt` served by `BenchmarkPredictor` and held to its eval forward.
+   Alone: `python3 -c 'import chip_smoke as c; s = c.phase_device(); c.phase_build();
+   c.phase_dpt(c._make_scenes(), s)'`.
 Every time is a device time (`cuda_ms`: the calls captured into one CUDA
 graph, CUDA events around one replay) with the eager time beside it. The last
 two lines are a JSON object per kernel and the contract line
@@ -361,8 +380,12 @@ EVAL_ITEMS = 12         # per evaluation stand-in: one batch; keeps the whole sc
 EVAL_BATCH = 12         # `export_preds`' batch size
 EVAL_PARTIAL = 17       # one more SYNS export: a batch of 12 and a partial one of 5
 EVAL_NPROC = 8          # the evaluator's Pool: one worker per core of the card's machine
+# Items the Pool evaluates of each set's EVAL_ITEMS predictions, and of the plain path's. On
+# the card's host a Pool's time grows with its items (SYNS-Patches: 8 in 28.1 s, 4 in 14.3 s):
+# 12 and 4 before phase 21 came, cut so that the script keeps within its limit.
+EVAL_POOL_ITEMS = 2
 EVAL_SERIAL_ITEMS = 1   # nproc=0 over the first item, held to the Pool's metrics of it
-EVAL_PLAIN_ITEMS = 4    # items also evaluated from the plain path's predictions
+EVAL_PLAIN_ITEMS = 2    # items also evaluated from the plain path's predictions
 EVAL_THRESHOLDED = ('delta', 'F-Score', 'IoU', 'Dir')  # step functions of the pixels
 EVAL_SETS = {  # stand-in -> (source shapes, cycled over the items; target densities per cfg)
     'syns_patches': (((376, 1242),), {'syns_test': 0.7}),
@@ -591,8 +614,37 @@ DECODER_VAL_LAUNCHES = {'dwconv': 36, 'warp': 1, 'photo_fwd': 2}
 # errors the two paths round apart. Measured (H100 80GB HBM3, 700.00 W): its scale-3
 # sub-pixel conv's weight gradient 1.18e-3 of its largest apart, past a per-tensor 1e-3.
 DECODER_RUN = 'cadepth_MS'            # train -> checkpoint -> serve
-DECODER_RUN_EPOCHS, DECODER_TIMED = 2, 2   # its loop: 2 epochs of FAMILY_RUN_BATCHES
+# Its loop: 1 epoch of FAMILY_RUN_BATCHES, one timed call per micro-step (2 and 2 before phase
+# 21 came, cut so that the script keeps within its limit).
+DECODER_RUN_EPOCHS, DECODER_TIMED = 1, 1
 DECODER_REFERENCE = 'hrdepth_MS'      # a reference-layout checkpoint with unused keys
+# Phase 21: the DPT depth nets, `cfg/benchmark/default.yaml` with `net.depth` a DPT net and
+# Monodepth2-M's supports (the default names none; no cfg of the repo trains a DPT net), the
+# default's ResNet-18 pose net as published (`tests/test_torch_dpt.py` holds these to the file).
+_DPT_SUPPORTS = {'dataset': {'kitti_lmdb': {'supp_idxs': [-1, 1]}}}
+DPT_FILE_CFGS = {enc: {'net': {'depth': {'enc_name': enc, 'dec_name': 'dpt'}}, **_DPT_SUPPORTS}
+                 for enc in ('dpt_vitb16_384', 'dpt_vitb_rn50_384')}
+# Kernel launches per micro-step (forward + backward), written down before the first run: the
+# ViTs, the DPT decoder and the ResNet-18 pose net launch none (matmuls, attention, convs and
+# GroupNorm are cuBLAS's and cuDNN's, as they are XLA's in the JAX package); the default loss
+# (no min-reprojection, no automask) warps the supports once, takes the photometric error of
+# the warped stack only and its backward.
+DPT_LAUNCHES = {'dwconv': 0, 'dwconv_dw': 0, 'decoder_stage': 0, 'decoder_stage_bwd': 0,
+                'warp': 1, 'photo_fwd': 1, 'photo_bwd': 1, **_FAMILY_ZERO}
+DPT_VAL_LAUNCHES = {'warp': 1, 'photo_fwd': 1}   # a validation step; a served forward: none
+DPT_RUN = 'dpt_vitb16_384'           # train -> checkpoint -> serve
+DPT_RUN_EPOCHS, DPT_TIMED = 1, 1     # its loop: 1 epoch of FAMILY_RUN_BATCHES; one timed call
+DPT_GRAFT = 'dpt_vitl16_384'         # `pretrained: True` grafts the MiDaS file's trunk
+DPT_GRAFT_SHAPE = (384, 640)
+MIDAS_STEM = 'midas/dpt_large-midas-2f21e586'
+MIDAS_SHAPE = (376, 1242)    # SYNS-Patches-layout frames: preprocessed to 384x1280, 24x80 tokens
+MIDAS_ITEMS = 4              # the export's synthetic set: one batch of 4
+MIDAS_EVAL_ITEMS = 2         # of which the evaluator scores the first 2, as EVAL_POOL_ITEMS
+MIDAS_BATCHES = (1, 4)
+# The MiDaS prediction in float32 against the same net in float64 on the card, of the float64
+# prediction's largest value (written before the first run): 24 blocks of 1024 and the
+# 256-channel decoder at 'highest' precision, no TF32.
+MIDAS_RTOL = 1e-4
 # Phase 19 holds the depth net's gradient between the paths as one vector at FEAT_DEPTH_L2
 # relative L2 (FAMILY_GATE_DEPTH_L2 where a gate flipped), not tensor by tensor: Depth-VO-Feat
 # has no automask and so no gate bits to count, but its L1 terms (the photometric error's,
@@ -667,13 +719,16 @@ def _profiler_ms(fn, iters: int) -> float:
                if e.device_type == DeviceType.CUDA) / 1e3 / iters
 
 
-def cuda_ms(fn, iters: int = 30, warmup: int = 3) -> Timing:
+def cuda_ms(fn, iters: int = 30, warmup: int = 3, capture: bool = True) -> Timing:
     """Device and eager time of `fn()` in ms per call.
 
     Device: `iters` calls captured into one CUDA graph, CUDA events around one
     replay (after a first one), divided by `iters`: the host's dispatch
     (argument checks, autograd, ctypes) is not in it. Eager: CUDA events
-    around `iters` calls made from Python, as a caller makes them.
+    around `iters` calls made from Python, as a caller makes them. `capture=False`
+    (a call known to copy host tensors to the card) takes `torch.profiler`'s device
+    sum without trying a capture: a failed capture keeps the memory it took until the
+    process ends, and the training phases' attempts ran the card out of memory.
     """
     s = timing_stream()
     s.wait_stream(torch.cuda.current_stream())
@@ -687,6 +742,8 @@ def cuda_ms(fn, iters: int = 30, warmup: int = 3) -> Timing:
         end.record()
         torch.cuda.synchronize()
         eager = start.elapsed_time(end) / iters
+        if not capture:
+            return Timing(_profiler_ms(fn, iters), eager, 'profiler')
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph, stream=s):
@@ -1890,7 +1947,7 @@ class StereoHintLoader(SceneLoader):
                 y = {k: y[k] for k in ('imgs', 'T_stereo', 'supp_imgs', 'depth', 'depth_hints', 'K')
                      if k in y}
                 x = {'imgs': self.std[idx], 'supp_idxs': np.array(self.supp),
-                     'supp_imgs': family_supports(self.std[idx], self.supp, y['T_stereo'])}
+                     'supp_imgs': family_supports(self.std[idx], self.supp, y.get('T_stereo'))}
             m = {'items': [str(j) for j in idx]}
             if self.train:
                 m['augs'] = [''] * self.batch
@@ -1904,8 +1961,9 @@ def family_shift(imgs: np.ndarray, T: np.ndarray) -> np.ndarray:
     return np.stack([np.roll(im, 5 if t[0, 3] > 0 else -5, axis=1) for im, t in zip(imgs, T)])
 
 
-def family_supports(imgs: np.ndarray, supp: tuple, T: np.ndarray) -> np.ndarray:
-    """(n, b, h, w, c) supports of `imgs`: -1, 1 shifted 3 px along W, 0 the stereo frame."""
+def family_supports(imgs: np.ndarray, supp: tuple, T) -> np.ndarray:
+    """(n, b, h, w, c) supports of `imgs`: -1, 1 shifted 3 px along W, 0 the stereo frame
+    (`T`, the batch's `T_stereo`, is read only for it)."""
     return np.stack([family_shift(imgs, T) if i == 0 else np.roll(imgs, 3 * i, axis=2)
                      for i in supp])
 
@@ -2587,8 +2645,8 @@ class EvalStandIn:
             'mannequin': {'seq': '00c2a6b1bcb0fb9e'},
             'ddad': {}, 'diode': {}, 'nyud': {}, 'sintel': {}, 'tum': {}}
 
-    def __init__(self, scenes, name: str, n: int = EVAL_ITEMS, seed: int = 0):
-        self._frames(scenes, name, n)
+    def __init__(self, scenes, name: str, n: int = EVAL_ITEMS, seed: int = 0, shape=None):
+        self._frames(scenes, name, n, shape)
         shapes, densities = EVAL_SETS[name]
         self.targets = {cfg: eval_targets(cfg, n, shapes, d, seed + 7 * j)
                         for j, (cfg, d) in enumerate(densities.items())}
@@ -2601,13 +2659,14 @@ class EvalStandIn:
         return {'imgs': (img - self.mean) / self.std}, {'imgs': img.copy()}, \
             {'items': str(i), **self.META[self.name], 'errors': ''}
 
-    def _frames(self, scenes, name: str, n: int) -> None:
-        """`n` frames of `scenes` at the predictor's input shape for `name`."""
+    def _frames(self, scenes, name: str, n: int, shape=None) -> None:
+        """`n` frames of `scenes` at `shape`, by default the benchmark predictor's input
+        shape for `name`."""
         from slowtv_monodepth_tpu_torch.core import BenchmarkPredictor
         from slowtv_monodepth_tpu_torch.data import IMAGENET_MEAN, IMAGENET_STD
         from slowtv_monodepth_tpu_torch.utils.resize import resize
         self.name, self.n = name, n
-        self.h, self.w = BenchmarkPredictor.get_img_shape(name)
+        self.h, self.w = shape or BenchmarkPredictor.get_img_shape(name)
         base = [np.stack([resize(sc[..., c], (self.h, self.w)) for c in range(3)], -1)
                 for sc in scenes]
         self.imgs = [np.roll(base[i % len(base)], 37 * i, axis=1) for i in range(n)]
@@ -2670,8 +2729,9 @@ def phase_eval(sd, scenes, smi: str) -> None:
     `finished` marker; `export_preds.compute_preds` in batches of 12 (and a partial
     one), every map against the plain path; the fused blocks through a second
     checkpoint; `MonoDepthEvaluator` with each cfg's args in a Pool of
-    `EVAL_NPROC` and in process, a perfect prediction, and the seconds per item of
-    each metric family at the targets' full size. `smi` is the card's name and power
+    `EVAL_NPROC` over the first `EVAL_POOL_ITEMS` predictions and in process, a
+    perfect prediction, and the seconds per item of each metric family at the targets'
+    full size. `smi` is the card's name and power
     limit, printed beside the times."""
     from slowtv_monodepth_tpu_torch.core import save_checkpoint
     from slowtv_monodepth_tpu_torch.eval import MonoDepthEvaluator
@@ -2773,11 +2833,12 @@ def phase_eval(sd, scenes, smi: str) -> None:
         for cfg, data in ds.targets.items():
             args = EVAL_ARGS[cfg]
             t0 = time.perf_counter()
-            mean, items = evaluate(preds[name], data, args, EVAL_ALIGN, nproc=EVAL_NPROC)
+            mean, items = evaluate(preds[name], data, args, EVAL_ALIGN, nproc=EVAL_NPROC,
+                                   max_items=EVAL_POOL_ITEMS)
             wall = time.perf_counter() - t0
             _, serial = evaluate(preds[name], data, args, EVAL_ALIGN, nproc=0,
                                  max_items=EVAL_SERIAL_ITEMS)
-            if serial != items[:EVAL_SERIAL_ITEMS] or len(items) != len(ds):
+            if serial != items[:EVAL_SERIAL_ITEMS] or len(items) != min(len(ds), EVAL_POOL_ITEMS):
                 fail(f'eval {cfg}: nproc=0 gave {serial}, nproc={EVAL_NPROC} {items[:2]}')
             if not all(np.isfinite(v) for v in mean.values()):
                 fail(f'eval {cfg}: metrics {mean}')
@@ -2994,9 +3055,11 @@ def phase_eval_zero_shot(sd, scenes, smi: str) -> None:
         for cfg, data in ds.targets.items():
             args = EVAL_ARGS[cfg]
             t0 = time.perf_counter()
-            mean, items = evaluate(preds[name], data, args, EVAL_ALIGN, nproc=EVAL_NPROC)
+            mean, items = evaluate(preds[name], data, args, EVAL_ALIGN, nproc=EVAL_NPROC,
+                                   max_items=EVAL_POOL_ITEMS)
             wall = time.perf_counter() - t0
-            if len(items) != len(ds) or not all(np.isfinite(v) for v in mean.values()):
+            if len(items) != min(len(ds), EVAL_POOL_ITEMS) or not all(
+                    np.isfinite(v) for v in mean.values()):
                 fail(f'eval zero-shot {cfg}: {len(items)} items, metrics {mean}')
             # A perfect prediction, median-aligned: AbsRel 0 unless a crop or range is wrong.
             depth = data['depth'][0].astype(np.float32)
@@ -3043,10 +3106,11 @@ def _seeded_weights(key: str, net_cfg: str) -> dict:
 
 
 def family_cfg(name: str) -> dict:
-    """`BENCH_DEFAULT_CFG` merged with the family's file (phase 17's, 19's or 20's)."""
+    """`BENCH_DEFAULT_CFG` merged with the family's file (phase 17's, 19's or 20's), or with
+    a DPT net's overlay (phase 21's)."""
     from slowtv_monodepth_tpu_torch.config import merge_dicts
-    return merge_dicts(BENCH_DEFAULT_CFG,
-                       {**FAMILY_FILE_CFGS, **FEAT_FILE_CFGS, **DECODER_FILE_CFGS}[name])
+    return merge_dicts(BENCH_DEFAULT_CFG, {**FAMILY_FILE_CFGS, **FEAT_FILE_CFGS,
+                                           **DECODER_FILE_CFGS, **DPT_FILE_CFGS}[name])
 
 
 def _family_pass(trainer, x, y, supp, noise) -> dict:
@@ -3181,7 +3245,8 @@ def _both_paths(cfg: dict, x, y, supp, noise, tag: str, expect: dict,
         def fwd_bwd(trainer=trainer):
             trainer.nets.zero_grad(set_to_none=True)
             trainer.loss_fn(x, y, supp, noise=noise)[0].backward()
-        times[kernels] = cuda_ms(fwd_bwd, iters=iters, warmup=1)
+        # The loss copies host tensors to the card: no capture (`cuda_ms`).
+        times[kernels] = cuda_ms(fwd_bwd, iters=iters, warmup=1, capture=False)
         peaks[kernels] = torch.cuda.max_memory_allocated() / 2 ** 30
         del trainer, fwd_bwd
         gc.collect()
@@ -3514,10 +3579,11 @@ def phase_feat(scenes, smi: str) -> dict:
     return warps
 
 
-def _serve_check(tag: str, ckpt: Path, want_net, imgs: np.ndarray, smi: str) -> str:
+def _serve_check(tag: str, ckpt: Path, want_net, imgs: np.ndarray, smi: str,
+                 dwconv: int = DECODER_VAL_LAUNCHES['dwconv']) -> str:
     """`BenchmarkPredictor` serves `ckpt` in eval mode, held to `want_net`'s eval-mode
-    forward (GOLDEN_ATOL) with a served forward's launches (`DECODER_VAL_LAUNCHES`'
-    dwconv, no decoder stage) -> the text for the log."""
+    forward (GOLDEN_ATOL) with a served forward's launches (`dwconv`: ConvNeXt-B's 36 by
+    default; no decoder stage) -> the text for the log."""
     from slowtv_monodepth_tpu_torch.core import BenchmarkPredictor
     predictor = BenchmarkPredictor('cuda')
     net = predictor.load_model(ckpt)
@@ -3530,7 +3596,7 @@ def _serve_check(tag: str, ckpt: Path, want_net, imgs: np.ndarray, smi: str) -> 
     torch.cuda.synchronize()
     err = _max_err(got, want)
     if net.training or got.shape != (len(imgs), 1) + FAMILY_SHAPE or err > GOLDEN_ATOL \
-            or served['dwconv'] != DECODER_VAL_LAUNCHES['dwconv'] or served['decoder_stage']:
+            or served['dwconv'] != dwconv or served['decoder_stage']:
         fail(f'{tag} serve: output {tuple(got.shape)} off the eval forward by {err:.2e}, '
              f'launches {served}')
     del net, predictor
@@ -3546,7 +3612,7 @@ def phase_decoders(scenes, smi: str) -> None:
     they stand on the kernel and plain paths from the same seeded weights and batch, held
     as in phase 17 (CADepth's decoder BatchNorm statistics and counters too); launches per
     kernel (`DECODER_LAUNCHES`); device ms per micro-step and peak memory. Then CADepth-MS
-    through `MonoDepthLoop` (2 epochs of 2 batches over `StereoHintLoader`, a validation
+    through `MonoDepthLoop` (1 epoch of 2 batches over `StereoHintLoader`, a validation
     batch each), its `last.ckpt` with every buffer equal to the trainer's, served by
     `BenchmarkPredictor`; and a reference-layout checkpoint of HR-Depth-MS holding the
     reference's unused row-0 `conv_0` keys, served the same way."""
@@ -3652,6 +3718,247 @@ def phase_decoders(scenes, smi: str) -> None:
     print(f'decoders: phase wall {time.perf_counter() - t0:.1f} s')
 
 
+def midas_key(port_key: str) -> str:
+    """A `MidasDPT` state-dict key -> the released MiDaS file's (`models/import_midas.py`
+    maps the other way)."""
+    for port, midas in (('encoder.', 'pretrained.'), ('decoder.out0.', 'scratch.output_conv.'),
+                        ('decoder.', 'scratch.')):
+        if port_key.startswith(port):
+            return midas + port_key[len(port):]
+    raise KeyError(port_key)
+
+
+def midas_state_dict(seed: int) -> dict[str, np.ndarray]:
+    """A seeded MiDaS DPT_Large state dict in the released file's layout: every key
+    `MidasDPT` reads and the ones the importer drops (the trunk's final norm and
+    classifier head, the coarsest `resConfUnit1`), float32 from numpy's `default_rng`
+    (340M values in seconds): kernels N(0, 1 / fan-in), LayerNorm scales 1 + N(0, 0.01),
+    biases and the cls token N(0, 0.01), the position embeddings N(0, 0.02^2)."""
+    from slowtv_monodepth_tpu_torch.models.midas import MidasDPT
+    with torch.device('meta'):
+        net = MidasDPT()
+    shapes = {midas_key(k): tuple(v.shape) for k, v in net.state_dict().items()}
+    dim = shapes['pretrained.model.cls_token'][-1]
+    shapes.update({'pretrained.model.norm.weight': (dim,), 'pretrained.model.norm.bias': (dim,),
+                   'pretrained.model.head.weight': (1000, dim),
+                   'pretrained.model.head.bias': (1000,)})
+    unit = 'scratch.refinenet4.resConfUnit'
+    for c in ('conv1', 'conv2'):
+        for p in ('weight', 'bias'):
+            shapes[f'{unit}1.{c}.{p}'] = shapes[f'{unit}2.{c}.{p}']
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for k, shape in sorted(shapes.items()):
+        v = rng.standard_normal(shape, dtype=np.float32)
+        if k.endswith('pos_embed'):
+            v *= 0.02
+        elif len(shape) > 1 and not k.endswith('cls_token'):
+            v /= np.sqrt(np.prod(shape[1:]))
+        else:
+            v *= 0.1
+            if k.endswith(('norm1.weight', 'norm2.weight', 'model.norm.weight')):
+                v += 1
+        sd[k] = v
+    return sd
+
+
+def phase_dpt(scenes, smi: str) -> None:
+    """The DPT depth nets and the MiDaS DPT_Large baseline at published widths (see the
+    module's docstring, phase 21)."""
+    from slowtv_monodepth_tpu_torch import paths
+    from slowtv_monodepth_tpu_torch.core import load_checkpoint
+    from slowtv_monodepth_tpu_torch.data import IMAGENET_MEAN, IMAGENET_STD
+    from slowtv_monodepth_tpu_torch.models import DepthNet
+    from slowtv_monodepth_tpu_torch.models.encoders.pretrained import load_pretrained_encoder
+    from slowtv_monodepth_tpu_torch.models.init import init_like_flax
+    from slowtv_monodepth_tpu_torch.utils.resize import resize
+    t0 = time.perf_counter()
+    roots = paths.MODEL_ROOTS
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / 'models'
+        (root / MIDAS_STEM).parent.mkdir(parents=True)
+        t1 = time.perf_counter()
+        sd = midas_state_dict(RUN_SEED)
+        np.savez(root / f'{MIDAS_STEM}.npz', **sd)
+        n_values = sum(v.size for v in sd.values())
+        del sd
+        made = time.perf_counter() - t1
+        paths.MODEL_ROOTS = [root] + list(roots)   # the first root, as SLOWTV_MODEL_ROOTS gives it
+        try:
+            want = _phase_midas(root, scenes, smi, n_values, made)
+            # `pretrained: True` on the ViT-L DPT net grafts the same file's trunk.
+            with torch.device('meta'):
+                net = DepthNet(enc_name=DPT_GRAFT, dec_name='dpt', pretrained=True)
+            net = init_like_flax(net.to_empty(device='cuda')).eval()
+            if not load_pretrained_encoder(net, DPT_GRAFT):
+                fail(f'dpt graft: {DPT_GRAFT} found no MiDaS file under {root}')
+            got = net.encoder.state_dict()
+            off = [k for k in want if k not in got or not torch.equal(got[k], want[k])]
+            img = np.stack([resize(scenes[0][..., c], DPT_GRAFT_SHAPE) for c in range(3)], -1)
+            img = ((img - IMAGENET_MEAN) / IMAGENET_STD).astype(np.float32)
+            x = torch.from_numpy(img[None]).cuda().permute(0, 3, 1, 2)
+            with torch.no_grad():
+                out = net(x)
+                t = cuda_ms(lambda: net(x)['disp'][0], iters=3, warmup=1)
+            shapes = {s: tuple(d.shape[2:]) for s, d in out['disp'].items()}
+            ok = shapes == {s: (DPT_GRAFT_SHAPE[0] >> s, DPT_GRAFT_SHAPE[1] >> s)
+                            for s in range(4)} and all(bool(torch.isfinite(d).all())
+                                                       for d in out['disp'].values())
+            print(f'dpt graft {DPT_GRAFT} (pretrained: True): {len(got)} encoder tensors from '
+                  f'{MIDAS_STEM}.npz, {len(off)} off MidasDPT\'s encoder bitwise (of {len(want)}); '
+                  f'one B=1 forward at {DPT_GRAFT_SHAPE[0]}x{DPT_GRAFT_SHAPE[1]}: disparities '
+                  f'{shapes} finite {ok}; device ms {t.ms:.2f} ({t.eager_ms:.2f}) on {smi}')
+            if off or sorted(got) != sorted(want) or not ok:
+                fail(f'dpt graft: {off[:3]} off MidasDPT\'s encoder, disparities {shapes}')
+            del net, want, got, out
+        finally:
+            paths.MODEL_ROOTS = roots
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    loader = SceneLoader(scenes, 1, FAMILY_SHAPE, batch=FAMILY_B)
+    for i, name in enumerate(DPT_FILE_CFGS):
+        cfg = family_cfg(name)
+        x, y, supp, noise = _step_inputs(cfg, loader, RUN_SEED + 90 + i)
+        passes, times, peaks, notes = _both_paths(cfg, x, y, supp, noise, f'dpt {name}',
+                                                  DPT_LAUNCHES, FEAT_DEPTH_L2, DPT_TIMED)
+        got_counts = {k: passes[True]['counts'][k] for k in DPT_LAUNCHES}
+        k_ms, p_ms = times[True], times[False]
+        print(f'dpt {name} (nets depth {name} + dpt, pose {cfg["net"]["pose"]["enc_name"]}, '
+              f'B={FAMILY_B}, {FAMILY_SHAPE[0]}x{FAMILY_SHAPE[1]}, supports {list(supp)}, losses '
+              f'{sorted(passes[True]["terms"])}): loss {passes[True]["loss"]:.6f} (plain '
+              f'{passes[False]["loss"]:.6f}, rtol 1e-5); BatchNorm counters '
+              f'{passes[True]["counters"]}: ' + '; '.join(notes)
+              + f'; every one of {passes[True]["n_params"]} parameters with a finite non-zero '
+              f'gradient; launches per micro-step {got_counts}; device ms per micro-step '
+              f'(forward + backward, no update; eager in brackets, timed by {k_ms.how}/'
+              f'{p_ms.how}): kernel {k_ms.ms:.2f} ({k_ms.eager_ms:.2f}), plain {p_ms.ms:.2f} '
+              f'({p_ms.eager_ms:.2f}); peak memory kernel {peaks[True]:.2f} GiB, plain '
+              f'{peaks[False]:.2f} GiB on {smi}')
+        del passes
+        torch.cuda.empty_cache()
+
+    # The ViT-B DPT net through the loop as `slowtv-train-torch` runs it, then served.
+    cfg = family_cfg(DPT_RUN)
+    cfg = {**cfg, 'seed': RUN_SEED, 'trainer': {
+        **cfg['trainer'], 'max_epochs': DPT_RUN_EPOCHS, 'log_every_n_steps': 1,
+        'limit_val_batches': 1, 'matmul': 'highest'}}
+    supp = tuple(cfg['dataset']['kitti_lmdb']['supp_idxs'])
+    n = DPT_RUN_EPOCHS * FAMILY_RUN_BATCHES
+    std = StereoHintLoader(scenes, 1, False).std
+    imgs = std[np.arange(RESNET_SERVE_B) % len(std)]
+    with tempfile.TemporaryDirectory() as tmp:
+        run = Path(tmp) / 'run'
+        loop, st = _run_loop(cfg, run, scenes, val=True, tag=f'dpt {DPT_RUN}', loaders=(
+            StereoHintLoader(scenes, FAMILY_RUN_BATCHES, True, RUN_SEED, supp, False),
+            StereoHintLoader(scenes, 1, False, RUN_SEED + 1, supp, False)))
+        expect = {k: n * v + DPT_RUN_EPOCHS * DPT_VAL_LAUNCHES.get(k, 0)
+                  for k, v in DPT_LAUNCHES.items()}
+        if loop.global_step != n or st['counts'] != expect:
+            fail(f'dpt run: {loop.global_step} micro-steps, launches {st["counts"]}, '
+                 f'expected {expect}')
+        sd, _ = load_checkpoint(run / 'last.ckpt')
+        live = {f'nets.{k}.{kk}': v for k, net in loop.trainer.nets.items()
+                for kk, v in net.state_dict().items()}
+        stale = [k for k in live if not torch.equal(sd[k], live[k].cpu())]
+        if sorted(sd) != sorted(live) or stale:
+            fail(f'dpt run: last.ckpt has {len(sd)} of {len(live)} tensors, stale {stale[:3]}')
+        val = {k: st['val'].get(k) for k in ('loss', 'loss_img_recon', 'AbsRel')}
+        if not all(v is not None and np.isfinite(v) for v in val.values()):
+            fail(f'dpt run: validation scalars {val}')
+        served = _serve_check(f'dpt {DPT_RUN}', run / 'last.ckpt', loop.trainer.nets['depth'],
+                              imgs, smi, dwconv=0)
+        print(f'dpt run {DPT_RUN}: {DPT_RUN_EPOCHS} epoch x {FAMILY_RUN_BATCHES} batches of '
+              f'{FAMILY_B} at {FAMILY_SHAPE[0]}x{FAMILY_SHAPE[1]}, supports {list(supp)}: '
+              f'launches {st["counts"]} (per train micro-step {DPT_LAUNCHES}, per validation '
+              f'step {DPT_VAL_LAUNCHES}); last.ckpt {len(sd)} tensors equal to the trainer\'s; '
+              'validation ' + ', '.join(f'{k} {v:.4g}' for k, v in val.items()) + f'; {served}')
+        del loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f'dpt: phase wall {time.perf_counter() - t0:.1f} s')
+
+
+def _phase_midas(root: Path, scenes, smi: str, n_values: int, made: float) -> dict:
+    """MiDaS DPT_Large from the seeded file under `root`: B=1 and B=4 against float64,
+    timed; `export_preds` and the evaluator over a SYNS-Patches stand-in -> the loaded
+    net's encoder state dict."""
+    from slowtv_monodepth_tpu_torch.core.predictors import MidasPredictor
+    from slowtv_monodepth_tpu_torch.eval_depth import evaluate as evaluate_depth
+    from slowtv_monodepth_tpu_torch.export_preds import compute_preds
+    from slowtv_monodepth_tpu_torch.models.midas import MidasDPT
+    # At the frames' own shape: `MidasPredictor` resizes each image itself.
+    ds = EvalStandIn(scenes, 'syns_patches', n=MIDAS_ITEMS, seed=RUN_SEED + 21,
+                     shape=MIDAS_SHAPE)
+    imgs = np.stack([ds[i][0]['imgs'] for i in range(len(ds))])
+    predictor = MidasPredictor('cuda')
+    t0 = time.perf_counter()
+    net = predictor.load_model('DPT_Large')
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    with torch.device('meta'):
+        net64 = MidasDPT()
+    net64 = net64.to_empty(device='cuda').double()
+    net64.load_state_dict(net.state_dict())
+    net64.eval()
+    lines = []
+    for b in MIDAS_BATCHES:
+        _reset_counts()
+        got = predictor.forward_batch({'imgs': imgs[:b]}, net)
+        counts = {k: v for k, v in _read_counts().items() if v}
+        x = predictor.preprocess(imgs[:b])
+        with torch.no_grad():
+            want = predictor.postprocess(net64(x.double()), imgs[:b]).permute(0, 2, 3, 1)
+        want = want.cpu().numpy()
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            t = cuda_ms(lambda: net(x), iters=3, warmup=1)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        t1 = time.perf_counter()
+        for _ in range(3):
+            predictor.forward_batch({'imgs': imgs[:b]}, net)
+        wall = (time.perf_counter() - t1) / 3 * 1e3
+        ok = got.shape == (b,) + MIDAS_SHAPE + (1,) and np.isfinite(got).all() and \
+            got.std() > 0 and err <= MIDAS_RTOL and not counts
+        lines.append(f'B={b}: preprocessed {tuple(x.shape[2:])}, {err:.2e} of the float64 '
+                     f'prediction\'s largest off it (bound {MIDAS_RTOL:.0e}), launches '
+                     f'{counts or "none"}; device ms per image {t.ms / b:.2f} '
+                     f'({t.eager_ms / b:.2f}), {1e3 * b / t.ms:.1f} images/s; forward_batch '
+                     f'(host upload, resizes, net, download) {wall / b:.2f} ms per image; '
+                     f'peak memory {peak:.2f} GiB')
+        if not ok:
+            fail(f'midas B={b}: prediction {got.shape}, {err:.2e} off float64, launches {counts}')
+    print(f'midas DPT_Large: seeded file ({n_values} values, {made:.1f} s to draw and write), '
+          f'loaded in {load_s:.1f} s; ' + '; '.join(lines) + f' on {smi}')
+    del net64, x
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    preds = compute_preds(None, 'midas.DPT_Large', ds=ds, num_workers=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    first = predictor.forward_batch({'imgs': imgs}, net)[..., 0]
+    err = float(np.abs(preds - first).max() / np.abs(first).max())
+    data = ds.targets['syns_test']
+    with contextlib.redirect_stdout(io.StringIO()):
+        mean, items = evaluate_depth(preds, data, EVAL_ARGS['syns_test'], EVAL_ALIGN,
+                                     nproc=EVAL_NPROC, max_items=MIDAS_EVAL_ITEMS)
+    shown = [k for k in ('AbsRel', 'RMSE', 'F-Score (10)', 'Chamfer') if k in mean]
+    print(f'midas export: {len(ds)} SYNS-Patches-layout items {ds.h}x{ds.w} through '
+          f'`export_preds` with midas.DPT_Large in {wall:.1f} s (file load included), '
+          f'{err:.2e} of the largest off the predictor\'s batch; evaluator (syns_test, align '
+          f'{EVAL_ALIGN}, nproc={EVAL_NPROC}) over {len(items)} items: '
+          + ', '.join(f'{k} {mean[k]:.4g}' for k in shown))
+    if preds.shape != (len(ds),) + MIDAS_SHAPE or err > MIDAS_RTOL \
+            or len(items) != MIDAS_EVAL_ITEMS or not all(np.isfinite(v) for v in mean.values()):
+        fail(f'midas export: preds {preds.shape}, {err:.2e} off the batch, metrics {mean}')
+    encoder = net.encoder.state_dict()
+    del net, predictor
+    torch.cuda.empty_cache()
+    return encoder
+
+
 def profile_train(out: Path = ROOT / 'build' / 'train_profile.txt',
                   matmul: str = 'highest', fused_blocks: bool = False) -> None:
     """Where the KBR micro-step's device time goes (not part of `main`).
@@ -3737,32 +4044,43 @@ def profile_train(out: Path = ROOT / 'build' / 'train_profile.txt',
 
 def main() -> None:
     t0 = time.perf_counter()
-    smi = phase_device()
-    phase_build()
-    kern = phase_kernels()
-    sd = phase_golden()
+    walls = []   # (phase, seconds, GiB the caching allocator holds after it)
+
+    def run(fn, *args, **kw):
+        t1 = time.perf_counter()
+        out = fn(*args, **kw)
+        walls.append((fn.__name__ + ('(fused)' if kw.get('fused_blocks') else ''),
+                      time.perf_counter() - t1, torch.cuda.memory_reserved() / 2 ** 30))
+        return out
+    smi = run(phase_device)
+    run(phase_build)
+    kern = run(phase_kernels)
+    sd = run(phase_golden)
     scenes = _make_scenes()
-    launches = phase_slice(sd, scenes)
-    kern.update(phase_train_kernels(scenes))
-    phase_train_golden()
-    train_launches, trainer = phase_train(scenes)
-    phase_train_to_serve(trainer, scenes)
+    launches = run(phase_slice, sd, scenes)
+    kern.update(run(phase_train_kernels, scenes))
+    run(phase_train_golden)
+    train_launches, trainer = run(phase_train, scenes)
+    run(phase_train_to_serve, trainer, scenes)
     del trainer
     torch.cuda.empty_cache()
-    phase_train_golden(fused_blocks=True)
-    fused_launches, _ = phase_train(scenes, fused_blocks=True)
+    run(phase_train_golden, fused_blocks=True)
+    fused_launches, _ = run(phase_train, scenes, fused_blocks=True)
     torch.cuda.empty_cache()
-    run_launches = phase_run(scenes)
-    phase_recipe(scenes)
-    phase_published_run(scenes)
-    phase_optimizers(scenes)
-    phase_train_dev(scenes)
-    phase_eval(sd, scenes, smi)
-    phase_eval_zero_shot(sd, scenes, smi)
-    phase_families(scenes, smi)
-    phase_resnet(scenes, smi)
-    feat_warps = phase_feat(scenes, smi)
-    phase_decoders(scenes, smi)
+    run_launches = run(phase_run, scenes)
+    run(phase_recipe, scenes)
+    run(phase_published_run, scenes)
+    run(phase_optimizers, scenes)
+    run(phase_train_dev, scenes)
+    run(phase_eval, sd, scenes, smi)
+    run(phase_eval_zero_shot, sd, scenes, smi)
+    run(phase_families, scenes, smi)
+    run(phase_resnet, scenes, smi)
+    feat_warps = run(phase_feat, scenes, smi)
+    run(phase_decoders, scenes, smi)
+    run(phase_dpt, scenes, smi)
+    print('phase walls (s, and GiB held after it): ' + ', '.join(
+        f'{name} {sec:.1f} ({gib:.1f})' for name, sec, gib in walls))
     sources = {'dwconv': ('dwconv.cu', 'pallas_dwconv.py:59'),
                'decoder_stage': ('decoder_stage.cu', 'pallas_decoder.py:249'),
                'decoder_stage_bwd': ('decoder_stage_bwd.cu', 'pallas_decoder.py:268'),

@@ -4,10 +4,11 @@ Counterpart of `slowtv_monodepth_tpu/core/predictors.py`, single device (no
 mesh; the mesh paths are ROADMAP A11): preprocess -> forward -> postprocess ->
 (optional flip-blend) per batch, the per-dataset input-shape table, `apply`
 for per-batch consumers, the 4-D and all-zero prediction checks, and the
-predictor registry (`registry.PRED_REG`: 'ours'; 'midas' and 'newcrfs' are
-registered, but their networks are not ported). Batches arrive as NHWC
+predictor registry (`registry.PRED_REG`: 'ours', 'midas' (`DPT_Large`);
+'newcrfs' is registered, but its network is not ported). Batches arrive as NHWC
 numpy arrays (the data loaders' layout) and leave as NHWC numpy arrays; the
-network runs on NCHW tensors on `device`.
+network runs on NCHW tensors on `device` (a `preprocess` may hand it such a
+tensor itself, as MiDaS's does: its resize runs on the device).
 """
 from __future__ import annotations
 
@@ -17,8 +18,9 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .. import LOGGER, paths
 from ..models import DepthNet
-from ..ops import blend_stereo, to_scaled
+from ..ops import blend_stereo, resize, to_scaled, unstandardize
 from ..registry import register
 from .checkpoint import load_checkpoint, load_net, net_state_dict
 
@@ -53,9 +55,10 @@ class MonoDepthPredictor(ABC):
     def forward_batch(self, x: dict, net: Callable,
                       use_stereo_blend: bool = False) -> np.ndarray:
         """{'imgs': (b, h, w, 3) standardized numpy} -> (b, h, w, 1) numpy."""
-        imgs = self.preprocess(x['imgs'])
-        t = torch.from_numpy(np.ascontiguousarray(imgs, np.float32))
-        t = t.to(self.device).permute(0, 3, 1, 2)
+        t = self.preprocess(x['imgs'])
+        if not torch.is_tensor(t):
+            t = torch.from_numpy(np.ascontiguousarray(t, np.float32))
+            t = t.to(self.device).permute(0, 3, 1, 2)
         pred = self.forward(net, t)
         if use_stereo_blend:
             pred = blend_stereo(pred, self.forward(net, t.flip(-1)).flip(-1))
@@ -121,9 +124,11 @@ class BenchmarkPredictor(MonoDepthPredictor):
         self.min_depth = tcfg.get('min_depth')
         self.max_depth = tcfg.get('max_depth')
 
-        net = DepthNet(**cfg['net']['depth'])
+        with torch.device('meta'):   # shapes only: `load_net`'s strict load fills every tensor
+            net = DepthNet(**cfg['net']['depth'])
+        net.to_empty(device=self.device)
         load_net(net, net_state_dict(sd, 'depth'))
-        return net.to(self.device).eval()
+        return net.eval()
 
     def forward(self, net: Callable, imgs: torch.Tensor) -> torch.Tensor:
         return net(imgs)['disp'][0]
@@ -136,16 +141,56 @@ class BenchmarkPredictor(MonoDepthPredictor):
 
 @register('midas', type='pred')
 class MidasPredictor(MonoDepthPredictor):
-    """The MiDaS/DPT baseline (ref `:254-284`): its network is ROADMAP A10."""
+    """The MiDaS/DPT baseline (ref `:254-284`): `models.MidasDPT` with the released
+    intel-isl `DPT_Large` weights, placed under a model root as `midas/<name>.pt` (or
+    `.pth`, or an `.npz` export): nothing is downloaded. Predicts scaleless disparity,
+    resized back to the dataset's resolution by the JAX package's bicubic
+    (`jax.image.resize(..., 'cubic')`: Keys a = -0.5, antialiased when shrinking)."""
+
+    WEIGHT_FILES = {'DPT_Large': 'midas/dpt_large-midas-2f21e586'}
 
     def load_model(self, name: str) -> Callable:
-        raise NotImplementedError(f'MiDaS "{name}" is not ported yet; ROADMAP queue A item 10.')
+        """The `MidasDPT` of variant `name` on `self.device` in eval mode."""
+        from ..models.import_midas import convert_midas_dpt, load_midas_state_dict
+        from ..models.midas import MidasDPT
+        if name not in self.WEIGHT_FILES:
+            raise ValueError(f'Unsupported MiDaS variant "{name}". ({sorted(self.WEIGHT_FILES)})')
+        stem = self.WEIGHT_FILES[name]
+        files = [root / f'{stem}{ext}' for root in paths.MODEL_ROOTS
+                 for ext in ('.npz', '.pt', '.pth')]
+        path = next((f for f in files if f.is_file()), None)
+        if path is None:
+            raise FileNotFoundError(
+                f'MiDaS "{name}" weights not found. Download the released '
+                f'checkpoint (torch-hub intel-isl/MiDaS) and place it at '
+                f'"<model_root>/{stem}.pt". Searched: {[str(f) for f in files]}')
+        LOGGER.info(f"Loading MiDaS weights from '{path}'...")
+        with torch.device('meta'):   # shapes only: every tensor comes from the file
+            net = MidasDPT()
+        sd = convert_midas_dpt(load_midas_state_dict(path), list(net.state_dict()))
+        net.to_empty(device=self.device).load_state_dict(sd)
+        return net.eval()
+
+    def preprocess(self, imgs: np.ndarray) -> torch.Tensor:
+        """MiDaS's input on `self.device` (NCHW): ImageNet's standardisation undone,
+        renormalised with mean = std = 0.5, and resized (bicubic) to the multiple-of-32
+        shape near 384 whose scale change is the smaller (dpt_transform, 'minimal')."""
+        x = torch.from_numpy(np.ascontiguousarray(imgs, np.float32)).to(self.device)
+        x = (unstandardize(x.permute(0, 3, 1, 2)) - 0.5) / 0.5
+        h, w = x.shape[-2:]
+        scale = min((384 / h, 384 / w), key=lambda s: abs(1 - s))
+        nh = max(32, int(round(h * scale / 32)) * 32)
+        nw = max(32, int(round(w * scale / 32)) * 32)
+        return resize(x, (nh, nw), method='bicubic')
+
+    def postprocess(self, pred: torch.Tensor, imgs: np.ndarray) -> torch.Tensor:
+        return resize(pred, imgs.shape[1:3], method='bicubic')
 
 
 @register('newcrfs', type='pred')
 class NewcrfsPredictor(MonoDepthPredictor):
-    """The NeWCRFs baseline (ref `:212-249`): its network is ROADMAP A10."""
+    """The NeWCRFs baseline (ref `:212-249`): its network is ROADMAP A10d."""
 
     def load_model(self, scene_type: str) -> Callable:
         raise NotImplementedError(f'NeWCRFs "{scene_type}" is not ported yet; '
-                                  'ROADMAP queue A item 10.')
+                                  'ROADMAP queue A item 10d (A10d).')

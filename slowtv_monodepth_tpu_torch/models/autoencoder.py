@@ -32,7 +32,8 @@ class AutoencoderNet(nn.Module):
         is ResNet-18).
     :param pretrained: Look for pretrained encoder weights when training
         starts (see `DepthNet`).
-    :param dec_name: Decoder type (`decoders.DECODERS`; FeatDepth's is 'monodepth').
+    :param dec_name: Decoder type (`decoders.DECODERS`; FeatDepth's is 'monodepth'). The
+        DPT decoder fuses its skips even here, where `use_skip=False`, as the JAX one does.
     :param out_scales: Multi-scale outputs as 2**s.
     :param gelu: {'exact', 'tanh'} GELU flavor of a ConvNeXt encoder's blocks.
     :param dec_pad_mode: {'reflect', 'zeros'} decoder conv padding.
@@ -48,9 +49,7 @@ class AutoencoderNet(nn.Module):
         super().__init__()
         self.enc_name, self.pretrained = enc_name, pretrained
         if dec_name not in DECODERS:
-            raise NotImplementedError(
-                f'Decoder "{dec_name}" is not ported yet (have {sorted(DECODERS)}); '
-                'DPT waits for the ViT encoders, ROADMAP queue A item 10.')
+            raise KeyError(f'Invalid decoder. ({dec_name} vs. {sorted(DECODERS)})')
         self.out_sc = [out_scales] if isinstance(out_scales, int) else list(out_scales)
         self.encoder, num_ch_enc, enc_sc = create_encoder(enc_name, gelu=gelu, kernels=kernels)
         self.decoder = DECODERS[dec_name](

@@ -1,16 +1,17 @@
 from .cadepth import CaDepthDecoder
 from .ddvnet import DDVNetDecoder
 from .diffnet import DiffNetDecoder
+from .dpt import DptDecoder
 from .hrdepth import HRDepthDecoder
 from .monodepth import MonodepthDecoder
 from .superdepth import SuperdepthDecoder
 
-__all__ = ['CaDepthDecoder', 'DDVNetDecoder', 'DiffNetDecoder', 'HRDepthDecoder',
+__all__ = ['CaDepthDecoder', 'DDVNetDecoder', 'DiffNetDecoder', 'DptDecoder', 'HRDepthDecoder',
            'MonodepthDecoder', 'SuperdepthDecoder', 'DECODERS', 'kernel_kw']
 
 DECODERS = {'monodepth': MonodepthDecoder, 'hrdepth': HRDepthDecoder, 'ddvnet': DDVNetDecoder,
             'diffnet': DiffNetDecoder, 'cadepth': CaDepthDecoder,
-            'superdepth': SuperdepthDecoder}
+            'superdepth': SuperdepthDecoder, 'dpt': DptDecoder}
 
 
 def kernel_kw(dec_name: str, **kw) -> dict:

@@ -40,13 +40,14 @@ class DepthNet(nn.Module):
         starts (`MonoDepthTrainer`, as the JAX package's `init_state`); a
         served net takes its weights from a checkpoint.
     :param dec_name: Decoder type (`decoders.DECODERS`: 'monodepth', 'hrdepth',
-        'ddvnet', 'diffnet', 'cadepth', 'superdepth'; 'dpt' is not ported).
+        'ddvnet', 'diffnet', 'cadepth', 'superdepth', 'dpt').
     :param out_scales: Multi-scale outputs as 2**s.
     :param mask_name: Optional mask decoder {None, 'explainability', 'uncertainty'}.
     :param num_ch_mask: Number of support frames to predict masks for.
     :param use_virtual_stereo: If True, also predict stereo-pair disparity.
     :param use_stereo_blend: If True, blend predictions with a flipped pass.
-    :param gelu: {'exact', 'tanh'} GELU flavor of the ConvNeXt blocks.
+    :param gelu: {'exact', 'tanh'} GELU flavor of the ConvNeXt blocks (a ViT's is
+        always flax's tanh approximation, as in the JAX package).
     :param dec_pad_mode: {'reflect', 'zeros'} decoder conv padding.
     :param dec_phase_up, enc_remat: the JAX package's phase-decomposed
         decoder upsampling and per-block rematerialization: exact transforms
@@ -78,9 +79,7 @@ class DepthNet(nn.Module):
         del dec_phase_up, enc_remat  # exact transforms: nothing to do here
         self.enc_name, self.pretrained = enc_name, pretrained
         if dec_name not in DECODERS:
-            raise NotImplementedError(
-                f'Decoder "{dec_name}" is not ported yet (have {sorted(DECODERS)}); '
-                'DPT waits for the ViT encoders, ROADMAP queue A item 10.')
+            raise KeyError(f'Invalid decoder. ({dec_name} vs. {sorted(DECODERS)})')
         if mask_name not in MASKS:
             raise KeyError(f'Invalid mask. ({mask_name} vs. {set(MASKS)})')
         if dec_name == 'ddvnet' and mask_name is not None:

@@ -5,7 +5,8 @@ The inverse of `slowtv_monodepth_tpu/models/import_reference.py:_convert_depth`,
 `_convert_pose` and `_convert_autoencoder` with
 `encoders/import_torch.py:convert_convnext` and `convert_resnet` (ConvNeXt,
 ResNet and ResNeXt encoders; monodepth, HR-Depth, DDV-Net, DiffNet, CADepth
-and SuperDepth decoders; pose heads). A ResNet's BatchNorm running statistics
+and SuperDepth decoders; pose heads), and of `import_midas.py:convert_midas_dpt`
+for the DPT ViTs (the hybrid's ResNetV2 stem too) and the DPT decoder. A ResNet's BatchNorm running statistics
 come from the net's `batch_stats` (`state.aux[net]['batch_stats']`), as do
 CADepth's decoder BatchNorms'; given them, the state dict holds the buffers
 too (`num_batches_tracked`, which flax does not keep, 0). Without them it
@@ -15,7 +16,10 @@ with `nets.depth.` / `nets.pose.` / `nets.autoencoder.` and hand them to
 `convert_reference_ckpt`.
 
 Layouts: conv HWIO -> OIHW, depthwise (k, k, 1, C) -> (C, 1, k, k), dense
-(in, out) -> (out, in).
+(in, out) -> (out, in), transposed conv (kh, kw, in, out) -> (in, out, kh, kw)
+with the taps flipped (flax's `nn.ConvTranspose` does not flip its kernel; the
+JAX package's MiDaS importer flips it on the way in), attention q / k / v (dim,
+heads, hd) -> one packed (3 dim, dim) `qkv`, `out` (heads, hd, dim) -> (dim, dim).
 
 A JAX orbax checkpoint reaches the port in three steps: the JAX package's
 `state, meta = core.checkpoint.load_checkpoint(path)` (host numpy), then
@@ -96,13 +100,87 @@ def _resnet(p: dict, stats: Optional[dict]) -> dict:
     return sd
 
 
+def _convt(k) -> torch.Tensor:
+    """flax `nn.ConvTranspose` (kh, kw, in, out), which does not flip its kernel ->
+    torch's (in, out, kh, kw), the gradient of a conv: the taps flipped."""
+    return _t(np.ascontiguousarray(np.transpose(np.asarray(k), (2, 3, 0, 1))[:, :, ::-1, ::-1]))
+
+
+def _linear(sd: dict, dst: str, q: dict) -> None:
+    sd[f'{dst}.weight'], sd[f'{dst}.bias'] = _dense(q['kernel']), _t(q['bias'])
+
+
+def _norm(sd: dict, dst: str, q: dict) -> None:
+    """flax LayerNorm / GroupNorm {scale, bias} -> `dst.weight`, `dst.bias`."""
+    sd[f'{dst}.weight'], sd[f'{dst}.bias'] = _t(q['scale']), _t(q['bias'])
+
+
+def _resnetv2(p: dict) -> dict:
+    """JAX `_ResNetV2Stem` params -> timm's `patch_embed.backbone` keys."""
+    sd = {'stem.conv.weight': _conv(p['stem_conv']['kernel'])}
+    _norm(sd, 'stem.norm', p['stem_norm'])
+    for name, q in p.items():
+        if not (m := re.fullmatch(r'stage(\d+)_block(\d+)', name)):
+            continue
+        pre = f'stages.{m[1]}.blocks.{m[2]}'
+        for sub, w in q.items():
+            dst = f'{pre}.{sub.replace("downsample_", "downsample.")}'
+            if 'conv' in sub:
+                sd[f'{dst}.weight'] = _conv(w['kernel'])
+            else:
+                _norm(sd, dst, w)
+    return sd
+
+
+_QKV = ('query', 'key', 'value')   # timm's packing order
+
+
+def _vit(p: dict) -> dict:
+    """JAX `ViTEncoder` params -> the port's (timm / MiDaS) keys: flax's separate
+    query / key / value (dim, heads, hd) packed into one `qkv` in that order, `out`
+    (heads, hd, dim) into `proj`."""
+    sd = {'model.cls_token': _t(p['cls_token']), 'model.pos_embed': _t(p['pos_embed'])}
+    _put(sd, 'model.patch_embed.proj', p['patch_embed'])
+    if 'backbone' in p:
+        sd.update({f'model.patch_embed.backbone.{k}': v for k, v in _resnetv2(p['backbone']).items()})
+    for name, q in p.items():
+        if m := re.fullmatch(r'block(\d+)', name):
+            pre = f'model.blocks.{m[1]}'
+            _norm(sd, f'{pre}.norm1', q['norm1'])
+            _norm(sd, f'{pre}.norm2', q['norm2'])
+            att = q['attn']
+            dim = np.asarray(att['query']['kernel']).shape[0]
+            sd[f'{pre}.attn.qkv.weight'] = torch.cat([_dense(np.asarray(att[t]['kernel']).reshape(
+                dim, -1)) for t in _QKV])
+            sd[f'{pre}.attn.qkv.bias'] = torch.cat([_t(np.asarray(att[t]['bias']).reshape(-1))
+                                                    for t in _QKV])
+            sd[f'{pre}.attn.proj.weight'] = _dense(np.asarray(att['out']['kernel']).reshape(-1, dim))
+            sd[f'{pre}.attn.proj.bias'] = _t(att['out']['bias'])
+            _linear(sd, f'{pre}.mlp.fc1', q['mlp']['fc1'])
+            _linear(sd, f'{pre}.mlp.fc2', q['mlp']['fc2'])
+        elif m := re.fullmatch(r'readout(\d)', name):
+            if 'project' in q:
+                _linear(sd, f'act_postprocess{int(m[1]) + 1}.0.project.0', q['project'])
+        elif m := re.fullmatch(r'reassemble(\d)', name):
+            pre = f'act_postprocess{int(m[1]) + 1}'
+            _put(sd, f'{pre}.3', q['proj'])
+            if 'up' in q:
+                sd[f'{pre}.4.weight'], sd[f'{pre}.4.bias'] = _convt(q['up']['kernel']), _t(
+                    q['up']['bias'])
+            elif 'down' in q:
+                _put(sd, f'{pre}.4', q['down'])
+    return sd
+
+
 def _encoder(p: dict, stats: Optional[dict]) -> dict:
     if 'stem_conv' in p:
         return _convnext(p)
     if 'conv1' in p:
         return _resnet(p, stats)
-    raise NotImplementedError('Only ConvNeXt, ResNet and ResNeXt encoders are ported '
-                              '(ROADMAP queue A item 10).')
+    if 'pos_embed' in p:
+        return _vit(p)
+    raise NotImplementedError('Only ConvNeXt, ResNet, ResNeXt and the DPT ViT encoders are '
+                              'ported (ROADMAP queue A item 10d, A10d).')
 
 
 def _put(sd: dict, dst: str, q: dict) -> None:
@@ -206,12 +284,31 @@ def _superdepth(p: dict, out_scales: Sequence[int], stats=None) -> dict:
     return sd
 
 
+def _dpt(p: dict, out_scales: Sequence[int], stats=None) -> dict:
+    """JAX `DptDecoder` params -> the port's (MiDaS `scratch`) keys: level i is k = i + 1."""
+    sd = {}
+    for name, q in p.items():
+        if m := re.fullmatch(r'scratch(\d)', name):
+            _put(sd, f'layer{int(m[1]) + 1}_rn', q)
+        elif m := re.fullmatch(r'refine(\d)', name):
+            pre = f'refinenet{int(m[1]) + 1}'
+            for res, unit in (('res1', 'resConfUnit1'), ('res2', 'resConfUnit2')):
+                for c in ('conv1', 'conv2'):
+                    if res in q:
+                        _put(sd, f'{pre}.{unit}.{c}', q[res][c])
+            _put(sd, f'{pre}.out_conv', q['out_conv'])
+        elif m := re.fullmatch(r'out(\d)', name):
+            for i, c in ((0, 'conv1'), (2, 'conv2'), (4, 'conv3')):
+                _put(sd, f'{name}.{i}', q[c])
+    return sd
+
+
 def _decoder(p: dict, out_scales: Sequence[int], stats: Optional[dict] = None) -> dict:
     """A JAX decoder's params (and `batch_stats`) -> its port state dict; the
     decoder is told by a module name only it has."""
     for name, convert in (('detail_emphasis_4', _cadepth), ('att', _ddvnet),
                           ('04_conv_1', _hrdepth), ('upconv_4', _diffnet),
-                          ('upconv_4_0_conv', _superdepth)):
+                          ('upconv_4_0_conv', _superdepth), ('refine0', _dpt)):
         if name in p:
             return convert(p, out_scales, stats)
     return _monodepth(p, out_scales)

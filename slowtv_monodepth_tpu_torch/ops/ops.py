@@ -2,20 +2,24 @@
 
 Counterpart of `slowtv_monodepth_tpu/ops/ops.py`: `resize` (torch's own
 bilinear `align_corners=False` without antialias, which the JAX `resize`
-reproduces), `upsample2x_nearest` and ImageNet `standardize` on NCHW
+reproduces; its bicubic is `jax.image.resize`'s), `image_resize`
+(`jax.image.resize`'s linear and cubic: antialiased when shrinking),
+`upsample2x_nearest`, ImageNet `standardize` and `unstandardize` on NCHW
 tensors (the networks' layout); `resize_like` and `mean_normalize` on NHWC
 tensors (the losses' layout, as in the JAX package); `eps`; and `clip`,
 whose gradient follows `jnp.clip`'s, not `torch.clamp`'s.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ['IMAGENET_MEAN', 'IMAGENET_STD', 'standardize', 'resize',
-           'resize_like', 'upsample2x_nearest', 'eps', 'clip', 'mean_normalize']
+__all__ = ['IMAGENET_MEAN', 'IMAGENET_STD', 'standardize', 'unstandardize', 'resize',
+           'image_resize', 'resize_like', 'upsample2x_nearest', 'eps', 'clip', 'mean_normalize']
 
 
 def eps(x: Optional[torch.Tensor] = None) -> float:
@@ -57,12 +61,62 @@ def standardize(x: torch.Tensor, mean=IMAGENET_MEAN,
     return (x - mean) / std
 
 
+def unstandardize(x: torch.Tensor, mean=IMAGENET_MEAN, std=IMAGENET_STD) -> torch.Tensor:
+    """Undo `standardize` on an NCHW image batch: x std + mean."""
+    mean = torch.as_tensor(mean, dtype=x.dtype, device=x.device).view(1, -1, 1, 1)
+    std = torch.as_tensor(std, dtype=x.dtype, device=x.device).view(1, -1, 1, 1)
+    return x * std + mean
+
+
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    """Keys' cubic convolution kernel, a = -0.5 (`jax.image.resize`'s 'cubic')."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return np.where(x >= 2.0, 0.0, out)
+
+
+_KERNELS = {'linear': lambda x: np.maximum(0.0, 1.0 - np.abs(x)), 'cubic': _keys_cubic}
+
+
+@functools.lru_cache(maxsize=64)
+def _resize_weights(n_in: int, n_out: int, method: str, dtype: torch.dtype,
+                    device: torch.device) -> torch.Tensor:
+    """(n_in, n_out) weights of `jax.image.resize` along one axis, as its
+    `compute_weight_mat` draws them (in float64, then cast): half-pixel centres, the
+    kernel stretched by 1 / scale when shrinking (the antialiasing), each column
+    normalised to sum 1, and nothing sampled past the border (no clamped taps)."""
+    inv = 1.0 / (n_out / n_in)
+    sample = (np.arange(n_out, dtype=np.float64) + 0.5) * inv - 0.5
+    w = _KERNELS[method](np.abs(sample[None, :] - np.arange(n_in, dtype=np.float64)[:, None])
+                         / max(inv, 1.0))
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, 1), 0.0)
+    w = np.where(((sample >= -0.5) & (sample <= n_in - 0.5))[None, :], w, 0.0)
+    return torch.from_numpy(w).to(device=device, dtype=dtype)
+
+
+def image_resize(x: torch.Tensor, shape: Sequence[int], method: str = 'linear') -> torch.Tensor:
+    """`jax.image.resize(x, shape, method)` on an NCHW tensor, for 'linear' and 'cubic'
+    (Keys, a = -0.5): a separable product with `_resize_weights` along each axis whose size
+    changes. Shrinking, it low-passes (antialias): neither `F.interpolate` without
+    `antialias=True` nor cv2's a = -0.75 bicubic is this function."""
+    h, w = x.shape[-2:]
+    nh, nw = shape
+    if nh != h:
+        x = torch.einsum('...hw,hH->...Hw', x, _resize_weights(h, nh, method, x.dtype, x.device))
+    if nw != w:
+        x = torch.einsum('...hw,wW->...hW', x, _resize_weights(w, nw, method, x.dtype, x.device))
+    return x
+
+
 def resize(x: torch.Tensor, shape: tuple[int, int],
            method: str = 'bilinear') -> torch.Tensor:
     """Resize NCHW images to `shape=(h, w)`.
 
     `bilinear` is `F.interpolate(align_corners=False, antialias=False)`:
-    2-tap at half-pixel centres, up and down, as the reference does.
+    2-tap at half-pixel centres, up and down, as the reference does. `bicubic` is
+    the JAX `resize`'s, `jax.image.resize(..., 'cubic')` (`image_resize`).
     """
     if tuple(x.shape[-2:]) == tuple(shape):
         return x
@@ -71,7 +125,9 @@ def resize(x: torch.Tensor, shape: tuple[int, int],
                              align_corners=False, antialias=False)
     if method == 'nearest':
         return F.interpolate(x, size=tuple(shape), mode='nearest')
-    raise ValueError(f"Invalid resize method '{method}' (bilinear|nearest)")
+    if method == 'bicubic':
+        return image_resize(x, shape, 'cubic')
+    raise ValueError(f"Invalid resize method '{method}' (bilinear|nearest|bicubic)")
 
 
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:

@@ -34,15 +34,17 @@ def seeded_weights(seed: int = SEED) -> dict:
 
 
 def jax_disp(sd: dict, x: np.ndarray) -> list:
-    """The JAX package's disparities (op-by-op: no whole-net compile)."""
+    """The JAX package's disparities (one jit: ~4x faster than op by op here)."""
+    import jax
     import jax.numpy as jnp
 
     from slowtv_monodepth_tpu.models import DepthNet
     from slowtv_monodepth_tpu.models.import_reference import convert_reference_ckpt
     params, _ = convert_reference_ckpt({f'nets.depth.{k}': v for k, v in sd.items()},
                                        {'net': {'depth': CFG}})
-    out = DepthNet(**CFG, pretrained=False).apply(
-        {'params': params['depth']}, jnp.asarray(x), train=False)['disp']
+    net = DepthNet(**CFG, pretrained=False)
+    out = jax.jit(lambda p, x: net.apply({'params': p}, x, train=False)['disp'])(
+        params['depth'], jnp.asarray(x))
     return [np.asarray(out[s]) for s in range(4)]
 
 

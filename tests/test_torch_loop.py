@@ -300,7 +300,9 @@ def _mid_run_state(tx, params):
              sched._replace(count=two))
     ostate = ostate._replace(mini_step=jnp.asarray(1, jnp.int32), gradient_step=two,
                              inner_opt_state=inner, acc_grads=like(1e-3))
-    return TrainState(step=jnp.asarray(5, jnp.int32), params=params, aux={}, opt_state=ostate,
+    # `aux` as the step returns it: with `{}` the second call would trace the step again.
+    return TrainState(step=jnp.asarray(5, jnp.int32), params=params,
+                      aux={'depth': {}, 'pose': {}}, opt_state=ostate,
                       bad_step=jnp.asarray(-1, jnp.int32))
 
 

@@ -84,7 +84,8 @@ def test_view_synth_and_grads_match_jax():
         warped, dw, valid = jops.view_synth(jnp.asarray(img), d, jops.T_from_AAt(a, tt),
                                             jnp.asarray(K))
         return (warped * cot).sum(), (warped, dw, valid)
-    (_, (jw, jd, jv)), jg = jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True)(
+    (_, (jw, jd, jv)), jg = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1, 2),
+                                                     has_aux=True))(
         *map(jnp.asarray, (depth, aa, t)))
 
     leaves = [_t(v).requires_grad_() for v in (depth, aa, t)]
@@ -193,7 +194,8 @@ def test_image_recon_and_disp_smooth_match_jax():
         return l1 + 0.001 * l2, (l1, l2)
     jargs = (jax.tree.map(jnp.asarray, depths), jax.tree.map(jnp.asarray, disps),
              jnp.asarray(aa), jnp.asarray(t))
-    (_, (jl1, jl2)), jg = jax.value_and_grad(jloss, argnums=(0, 1, 2, 3), has_aux=True)(*jargs)
+    (_, (jl1, jl2)), jg = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1, 2, 3),
+                                                     has_aux=True))(*jargs)
     noise = np.asarray(jax.random.normal(key, (4 * B, H, W, 1)))
 
     td = {s: _t(v).requires_grad_() for s, v in depths.items()}

@@ -49,10 +49,11 @@ def jax_params_from_port_keys(sd: dict, cfg: dict) -> dict:
 
 def seeded_pair(cfg: dict, seed: int = 0, **port_kw):
     """-> (port DepthNet on the CPU, JAX depth params), same seeded weights."""
-    net = DepthNet(**cfg, **port_kw).eval()
+    with torch.device('meta'):   # shapes only: every tensor is loaded
+        net = DepthNet(**cfg, **port_kw)
     params = jax_params_from_port_keys(seeded_state_dict(net, seed), cfg)
-    net.load_state_dict(depth_state_dict_from_jax(params, cfg['out_scales']))
-    return net, params
+    net.to_empty(device='cpu').load_state_dict(depth_state_dict_from_jax(params, cfg['out_scales']))
+    return net.eval(), params
 
 
 def port_forward(net, x: np.ndarray) -> dict:
@@ -163,12 +164,11 @@ def test_convnext_specs_match_jax():
 
 
 def test_unported_configurations_raise():
-    """The encoder families of ROADMAP A10 beyond ConvNeXt, ResNet and ResNeXt, and
-    the DPT decoder (it waits for the ViT encoders), raise naming it."""
-    with pytest.raises(NotImplementedError, match='queue A item 10'):
-        DepthNet(enc_name='mobilenetv3_large_100')
-    with pytest.raises(NotImplementedError, match='queue A item 10'):
-        DepthNet(enc_name=ENC, dec_name='dpt')
+    """The encoder families of ROADMAP A10d (beyond ConvNeXt, ResNet, ResNeXt and the DPT
+    ViTs) raise naming it: MobileNet, and the BEiT and Swin DPT backbones."""
+    for enc in ('mobilenetv3_large_100', 'dpt_beitb16_384', 'dpt_swin2b24_384'):
+        with pytest.raises(NotImplementedError, match=r'queue A item 10d \(A10d\)'):
+            DepthNet(enc_name=enc, dec_name='dpt')
 
 
 # ------------------------------------------------------------- fused ConvNeXt blocks

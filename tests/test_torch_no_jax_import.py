@@ -45,8 +45,11 @@ def test_every_port_module_is_walked():
     assert {'slowtv_monodepth_tpu_torch/core/loop.py', 'slowtv_monodepth_tpu_torch/train.py',
             'slowtv_monodepth_tpu_torch/data/loader.py',
             'slowtv_monodepth_tpu_torch/models/autoencoder.py', 'chip_smoke.py',
+            'slowtv_monodepth_tpu_torch/models/encoders/vit.py',
+            'slowtv_monodepth_tpu_torch/models/midas.py',
+            'slowtv_monodepth_tpu_torch/models/import_midas.py',
             *(f'slowtv_monodepth_tpu_torch/models/decoders/{d}.py' for d in (
-                'hrdepth', 'ddvnet', 'diffnet', 'cadepth', 'superdepth'))} <= names
+                'hrdepth', 'ddvnet', 'diffnet', 'cadepth', 'superdepth', 'dpt'))} <= names
 
 
 @pytest.mark.parametrize('source,want', [

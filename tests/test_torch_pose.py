@@ -36,7 +36,8 @@ def pair():
     params = _jax_params(seeded_state_dict(net, 0))
     net.load_state_dict(pose_state_dict_from_jax(params))
     x = np.random.RandomState(1).rand(3, 64, 96, 6).astype(np.float32)
-    want = JaxPoseNet(**CFG).apply({'params': params}, jnp.asarray(x))
+    jnet = JaxPoseNet(**CFG)   # one jit: faster than op by op
+    want = jax.jit(lambda p, x: jnet.apply({'params': p}, x))(params, jnp.asarray(x))
     with torch.no_grad():
         got = net(torch.from_numpy(x).permute(0, 3, 1, 2))
     return got, jax.tree.map(np.asarray, want), params

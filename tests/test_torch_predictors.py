@@ -118,9 +118,10 @@ def test_shape_table_and_registry_match_jax():
     assert MonoDepthPredictor.get_img_shape('kitti') is None
     assert set(PRED_REG) == set(JAX_PRED_REG) == {'ours', 'midas', 'newcrfs'}
     assert PRED_REG['ours'] is BenchmarkPredictor
-    for name, arg in (('midas', 'DPT_Large'), ('newcrfs', 'indoor')):
-        with pytest.raises(NotImplementedError, match='ROADMAP queue A item 10'):
-            PRED_REG[name]('cpu').load_model(arg)
+    with pytest.raises(NotImplementedError, match=r'ROADMAP queue A item 10d \(A10d\)'):
+        PRED_REG['newcrfs']('cpu').load_model('indoor')
+    with pytest.raises(FileNotFoundError, match='MiDaS "DPT_Large" weights not found'):
+        PRED_REG['midas']('cpu').load_model('DPT_Large')   # no file under the model roots
     with pytest.raises(TypeError):
         MonoDepthPredictor('cpu')  # `load_model` is abstract
 

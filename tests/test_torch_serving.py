@@ -15,6 +15,7 @@ import sys
 from argparse import Namespace
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -118,8 +119,9 @@ def test_quickstart_cli_matches_jax_quickstart(ckpt, tmp_path):
     assert (out_dir / 'scene.png').is_file()
 
     img, ref_shape = jax_run.load_img(img_dir / 'scene.png', 160, 96)
-    disp = JaxDepthNet(**cfg, pretrained=False).apply(
-        {'params': params}, jnp.asarray(img), train=False)['disp'][0]
+    jnet = JaxDepthNet(**cfg, pretrained=False)   # one jit: faster than op by op
+    disp = jax.jit(lambda p, x: jnet.apply({'params': p}, x, train=False)['disp'][0])(
+        params, jnp.asarray(img))
     want = np.asarray(jax_run.resize(disp, tuple(ref_shape))).squeeze()
     assert got.shape == want.shape == (100, 150)
     np.testing.assert_allclose(got, want, atol=ATOL)
@@ -226,8 +228,9 @@ def test_fused_blocks_checkpoint_serves_through_predictor_and_quickstart(tmp_pat
     got = quickstart.predict(model, quickstart.load_img(tmp_path / 'scene.png'), 160, 96)
 
     img, ref_shape = jax_run.load_img(tmp_path / 'scene.png', 160, 96)
-    disp = JaxDepthNet(**cfg, pretrained=False).apply(
-        {'params': params}, jnp.asarray(img), train=False)['disp'][0]
+    jnet = JaxDepthNet(**cfg, pretrained=False)   # one jit: faster than op by op
+    disp = jax.jit(lambda p, x: jnet.apply({'params': p}, x, train=False)['disp'][0])(
+        params, jnp.asarray(img))
     want = np.asarray(jax_run.resize(disp, tuple(ref_shape))).squeeze()
     assert got.shape == want.shape == (100, 150)
     np.testing.assert_allclose(got, want, atol=ATOL)

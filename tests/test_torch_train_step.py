@@ -109,18 +109,21 @@ def ref():
         batches = [tuple(jax.tree.map(jnp.asarray, b)) for b in (make_batch(1), make_batch(2))]
         keys = [jax.random.PRNGKey(10), jax.random.PRNGKey(11)]
 
-        def run(params):
-            state = TrainState(step=jnp.asarray(0, jnp.int32), params=params, aux={},
-                               opt_state=tx.init(params), bad_step=jnp.asarray(-1, jnp.int32))
-            scalars = []
-            for (x, y), key in zip(batches, keys):
-                state, sc = step(state, x, y, key)
-                scalars.append(sc)
-            x, y = batches[0]
-            grads = jax.grad(lambda p: trainer.loss_fn(p, {}, x, y, SUPP, keys[0], True)[0])(params)
-            return scalars, grads, state.params, state.bad_step
-
-        scalars, grads, new_params, bad = jax.tree.map(np.asarray, jax.jit(run)(params))
+        # One jit of the step, called twice (`aux` as the step returns it, or the second
+        # call traces it again), and one of micro-step 1's gradient.
+        step = jax.jit(step)
+        state = TrainState(step=jnp.asarray(0, jnp.int32), params=params,
+                           aux={'depth': {}, 'pose': {}}, opt_state=tx.init(params),
+                           bad_step=jnp.asarray(-1, jnp.int32))
+        scalars = []
+        for (x, y), key in zip(batches, keys):
+            state, sc = step(state, x, y, key)
+            scalars.append(sc)
+        x, y = batches[0]
+        grads = jax.jit(jax.grad(lambda p: trainer.loss_fn(p, {}, x, y, SUPP, keys[0], True)[0]))(
+            params)
+        scalars, grads, new_params, bad = jax.tree.map(
+            np.asarray, (scalars, grads, state.params, state.bad_step))
     return {'params': port_layout(jax.tree.map(np.asarray, params)),
             'scalars': scalars, 'grads': port_layout(grads),
             'new_params': port_layout(new_params), 'bad_step': int(bad),
